@@ -1,0 +1,1166 @@
+"""Continuous-batching inference engine on the Llama stack (PyTorch).
+
+A fixed pool of decode *slots* shares one batched KV cache; prefill
+computes a prompt's K/V with the full forward pass and inserts them into a
+free slot; decode advances ALL active slots a window of tokens per
+dispatch, one token per step, with per-slot positions.  Prompt lengths are
+padded to buckets so the shapes a step sees come from a small set.
+
+The KV cache is dense ([L, B, max_len, Hkv, D]) or paged
+([L, NUM_BLOCKS, BS, Hkv, D] through per-slot block tables,
+serving/paging.py).  Paged decode reads its cache half through the Hopper
+paged-decode kernel (ops/flash_attention.py paged_decode_attention) on
+every layer of every step.
+
+PyTorch runs eagerly and asynchronously on the card: a decode window is a
+Python loop (steps x layers) whose launches are queued on the current
+stream, and its tokens are copied to the host only when the window is
+drained — the one-window-in-flight pipelining of :meth:`_step` works
+because the next window is queued before the current one's tokens are
+read.  The caches are updated IN PLACE (where the JAX engine donated them
+to each program and got new ones back); every write is queued on the same
+stream after the reads it must follow.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import queue
+import threading
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dstack_tpu_torch.models.llama import (
+    LlamaConfig,
+    Params,
+    init_params,
+    output_head,
+)
+from dstack_tpu_torch.ops.flash_attention import paged_decode_attention
+from dstack_tpu_torch.ops.rmsnorm import rms_norm
+from dstack_tpu_torch.ops.rotary import apply_rope, rope_frequencies
+from dstack_tpu_torch.serving.paging import BlockAllocator
+from dstack_tpu_torch.serving.quant import (
+    dequantize_kv,
+    qmatmul,
+    quantize_kv,
+    quantize_params,
+)
+from dstack_tpu_torch.utils.device import resolve_device
+
+PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+_NEG_INF = -1e30
+
+logger = logging.getLogger(__name__)
+
+
+class EngineDraining(RuntimeError):
+    """Raised by :meth:`InferenceEngine.submit` once the engine is in
+    drain mode: in-flight requests finish, new ones must go elsewhere."""
+
+
+@dataclasses.dataclass
+class Request:
+    tokens: List[int]
+    max_new_tokens: int = 128
+    temperature: float = 0.0
+    top_p: float = 1.0
+    #: keep only the k highest-probability tokens before nucleus masking
+    #: (0 = disabled)
+    top_k: int = 0
+    eos_id: Optional[int] = None
+    #: called with each generated token id (streaming); None = collect only
+    on_token: Optional[Callable[[int], None]] = None
+    # filled by the engine
+    output: List[int] = dataclasses.field(default_factory=list)
+    done: threading.Event = dataclasses.field(default_factory=threading.Event)
+    finish_reason: str = ""
+    submitted_at: float = dataclasses.field(default_factory=time.time)
+    #: when the request claimed a slot (queue wait = admitted - submitted)
+    admitted_at: Optional[float] = None
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    #: set via cancel(); the engine releases the slot at the next emit
+    cancelled: bool = False
+    #: absolute wall-clock deadline (``time.time()``); expired-in-queue
+    #: requests are evicted at admission without a prefill, an expired
+    #: decode is cancelled at the next emit
+    deadline: Optional[float] = None
+    #: distributed-tracing context (telemetry/tracing.py)
+    trace_id: Optional[str] = None
+    parent_span_id: Optional[str] = None
+
+    def cancel(self, reason: str = "cancelled") -> None:
+        """Stop generating for this request as soon as the engine next
+        looks at it.  Safe to call from any thread."""
+        if not self.finish_reason:
+            self.finish_reason = reason
+        self.cancelled = True
+
+
+# -- model math ---------------------------------------------------------------
+
+
+def _layer_params(params: Params, l: int) -> Dict[str, Any]:
+    """Layer ``l``'s weights as views of the stacked [L, ...] tensors
+    (int8 {"q","s"} dicts keep their dict form)."""
+    return {name: ({k: t[l] for k, t in w.items()} if isinstance(w, dict)
+                   else w[l])
+            for name, w in params["layers"].items()}
+
+
+def _all_layers(params: Params, cfg: LlamaConfig) -> List[Dict[str, Any]]:
+    return [_layer_params(params, l) for l in range(cfg.num_layers)]
+
+
+def _inv_freqs(cfg: LlamaConfig, device) -> torch.Tensor:
+    return torch.from_numpy(rope_frequencies(
+        cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(device)
+
+
+def _embed(params: Params, cfg: LlamaConfig, tokens: torch.Tensor):
+    return params["embed"][tokens].to(cfg.dtype)
+
+
+def _mlp_block(h, lp, cfg: LlamaConfig):
+    """Dense SwiGLU MLP on [B, S, D] normed hiddens."""
+    gated = F.silu(qmatmul(h, lp["w_gate"], cfg.dtype))
+    up = qmatmul(h, lp["w_up"], cfg.dtype)
+    return qmatmul(gated * up, lp["w_down"], cfg.dtype)
+
+
+def _masked_attention(q, k, v, q_pos, kv_pos):
+    """Causal GQA attention with explicit position masks (prefill): masked
+    scores are -1e30 and the softmax is taken in f32."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    group = hq // hkv
+    q = q.reshape(b, s, hkv, group, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k) / (d ** 0.5)
+    mask = (kv_pos[:, None, :] <= q_pos[:, :, None])[:, None, None, :, :]
+    scores = torch.where(mask, scores, _NEG_INF)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(b, s, hq, d)
+
+
+def _qkv(x, lp, cfg: LlamaConfig, positions, inv_freqs):
+    """Projections + RoPE for [B, S, D] hiddens (prefill and decode share
+    it, so the two can never diverge numerically)."""
+    b, s, _ = x.shape
+    h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+    q = qmatmul(h, lp["wq"], cfg.dtype).reshape(
+        b, s, cfg.num_heads, cfg.head_dim)
+    k = qmatmul(h, lp["wk"], cfg.dtype).reshape(
+        b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = qmatmul(h, lp["wv"], cfg.dtype).reshape(
+        b, s, cfg.num_kv_heads, cfg.head_dim)
+    return (apply_rope(q, positions, inv_freqs),
+            apply_rope(k, positions, inv_freqs), v)
+
+
+def _layer_tail(x, attn, lp, cfg: LlamaConfig):
+    """Post-attention half of a layer (wo + MLP), shared by every path."""
+    b, s = x.shape[:2]
+    x = x + qmatmul(attn.reshape(b, s, cfg.q_dim), lp["wo"], cfg.dtype)
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+    return x + _mlp_block(h, lp, cfg)
+
+
+def _layer_kv(layers, cfg: LlamaConfig, x, positions, inv_freqs):
+    """Full-sequence forward through every layer, keeping each layer's K/V
+    (prefill).  Returns (x, ks, vs) with ks/vs [L, B, S, Hkv, D]."""
+    ks, vs = [], []
+    for lp in layers:
+        q, k, v = _qkv(x, lp, cfg, positions, inv_freqs)
+        attn = _masked_attention(q, k, v, positions, positions)
+        x = _layer_tail(x, attn, lp, cfg)
+        ks.append(k)
+        vs.append(v)
+    return x, torch.stack(ks), torch.stack(vs)
+
+
+def _prompt_forward(params: Params, cfg: LlamaConfig, padded: torch.Tensor,
+                    length: int, bucket: int):
+    """Forward over a padded prompt: (last-position f32 logits, ks, vs) —
+    the one source of prefill math."""
+    device = padded.device
+    positions = torch.arange(bucket, device=device)[None, :]
+    x = _embed(params, cfg, padded)[None, :, :]
+    x, ks, vs = _layer_kv(_all_layers(params, cfg), cfg, x, positions,
+                          _inv_freqs(cfg, device))
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = qmatmul(x[0, length - 1, :], output_head(params, cfg), cfg.dtype,
+                     preferred=torch.float32)
+    return logits, ks, vs
+
+
+# -- KV cache forms -----------------------------------------------------------
+
+
+def _kv_layer(cache, l: int):
+    """Layer ``l`` of a plain or int8 {"q","s"} cache, as views."""
+    if isinstance(cache, dict):
+        return {k: t[l] for k, t in cache.items()}
+    return cache[l]
+
+
+def _kv_mat(cache_leaf, dtype):
+    """A KV tensor ready for attention: plain tensors pass through; int8
+    {"q","s"} dicts dequantize."""
+    if isinstance(cache_leaf, dict):
+        return dequantize_kv(cache_leaf["q"], cache_leaf["s"], dtype)
+    return cache_leaf
+
+
+def _kv_map(cache, rows, fn):
+    """Apply ``fn(cache_leaf, rows_leaf)`` over a cache that is a plain
+    tensor or an int8 {"q","s"} dict (rows quantized to match).  ``fn``
+    must be generic over trailing dims: the "s" leaf has no D dim."""
+    if isinstance(cache, dict):
+        q, s = quantize_kv(rows)
+        return {"q": fn(cache["q"], q), "s": fn(cache["s"], s)}
+    return fn(cache, rows)
+
+
+def _suffix_layer(x, lp, cfg: LlamaConfig, positions, inv_freqs, kv_pos,
+                  layer_k, layer_v, insert, gather):
+    """One layer of a chunk prefill: project the new tokens' K/V,
+    ``insert`` them into the slot's cache (in place), then attend the new
+    queries over the ``gather``-ed slot span (earlier rows + causal within
+    the new ones, absolute RoPE positions).  The callbacks are the only
+    difference between the paged chunk (block scatter/gather) and the
+    dense chunk (row slice)."""
+    q, k, v = _qkv(x, lp, cfg, positions, inv_freqs)
+    _kv_map(layer_k, k, insert)
+    _kv_map(layer_v, v, insert)
+    kv_k = _kv_mat(gather(layer_k), cfg.dtype)
+    kv_v = _kv_mat(gather(layer_v), cfg.dtype)
+    attn = _masked_attention(q, kv_k, kv_v, positions, kv_pos)
+    return _layer_tail(x, attn, lp, cfg)
+
+
+def _tree_map(fn, cache):
+    if isinstance(cache, dict):
+        return {k: fn(t) for k, t in cache.items()}
+    return fn(cache)
+
+
+class InferenceEngine:
+    """Slot-based continuous batching over one model replica.
+
+    `step()` is one scheduling iteration: admit waiting prompts into free
+    slots (prefill), then advance every active slot a WINDOW of tokens in
+    one dispatch (:meth:`_decode_window`) with on-device sampling.
+    Streaming callbacks arrive in bursts of up to ``DECODE_WINDOWS[-1]``
+    tokens, and a queued prompt waits at most one window for a free slot.
+    """
+
+    #: chunk size the server enables by default (the JAX engine's sweep
+    #: winner, kept so both engines schedule prefill alike)
+    TUNED_PREFILL_CHUNK = 512
+
+    #: decode-window sizes: the largest is the steady-state path, the small
+    #: ones avoid large overshoot on short tails
+    DECODE_WINDOWS = (8, 32, 64)
+
+    #: fixed per-window dispatch overhead expressed in decode steps;
+    #: _pick_window weighs overshoot against it when splitting tails
+    WINDOW_DISPATCH_COST_STEPS = 8
+
+    def __init__(
+        self,
+        cfg: LlamaConfig,
+        params: Optional[Params] = None,
+        batch_size: int = 8,
+        max_len: int = 1024,
+        rng_seed: int = 0,
+        paged: bool = False,
+        kv_block_size: int = 32,
+        total_kv_blocks: Optional[int] = None,
+        quantize: Optional[str] = None,
+        kv_quantize: Optional[str] = None,
+        prefill_chunk: Optional[int] = None,
+        telemetry: Optional[Any] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> None:
+        """``device``: None means CUDA, and raises when no card is visible;
+        the CPU runs only when asked for (``device="cpu"``).
+
+        ``paged=True`` switches the KV cache from a dense [B, max_len] row
+        per slot to block paging: each request reserves only
+        ceil((prompt + max_new) / block) blocks at admission, and decode
+        reads the pages through the paged-decode kernel.  Admission blocks
+        (the request waits queued) when the pool is exhausted — never
+        mid-decode.
+
+        ``kv_quantize="int8"`` stores the KV cache as int8 with one f32
+        scale per (token, head) row; the paged kernel dequantizes pages
+        in place.  int4 KV is not ported.
+
+        ``quantize="int8"``: weight-only int8 (serving/quant.py).
+
+        ``prefill_chunk``: prompts longer than this prefill in chunks of at
+        most this many tokens, ONE chunk per scheduling step, interleaved
+        with decode windows; the slot stays inactive until its last chunk
+        produces the first token.  None disables.
+
+        ``telemetry``: a `telemetry.serving.EngineTelemetry`, or None (the
+        hot paths then pay one ``is None`` check).
+        """
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.telemetry = telemetry
+        self.batch_size = batch_size
+        self.max_len = min(max_len, cfg.max_seq_len)
+        self.paged = paged
+        if kv_quantize == "int4":
+            raise NotImplementedError("int4 KV is not yet ported")
+        if kv_quantize not in (None, "int8"):
+            raise ValueError(f"unsupported kv_quantize={kv_quantize!r} "
+                             "(only 'int8')")
+        self.kv_quantize = kv_quantize
+        self.kv_quant = kv_quantize is not None
+        if paged:
+            if kv_block_size <= 0 or kv_block_size & (kv_block_size - 1):
+                # prefill buckets are powers of two: any power-of-two block
+                # size tiles them exactly
+                raise ValueError("kv_block_size must be a power of two")
+            if self.max_len % kv_block_size:
+                raise ValueError("max_len must be a multiple of kv_block_size")
+            self._block_size = kv_block_size
+            self._blocks_per_slot = self.max_len // kv_block_size
+            n_blocks = (total_kv_blocks if total_kv_blocks is not None
+                        else batch_size * self._blocks_per_slot + 1)
+            if n_blocks <= self._blocks_per_slot:
+                # a max-size request must always be admittable on an idle
+                # engine, or the head-of-line stall never resolves
+                raise ValueError(
+                    f"total_kv_blocks must exceed {self._blocks_per_slot} "
+                    f"(= max_len / kv_block_size)")
+            self._alloc = BlockAllocator(n_blocks)
+            self._tables_host = np.zeros(
+                (batch_size, self._blocks_per_slot), np.int32)
+            self._slot_blocks: List[List[int]] = [[] for _ in range(batch_size)]
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        self.prefill_chunk = prefill_chunk
+        #: slot_id -> {"tokens", "done", ("logits", "n")} for prompts
+        #: mid-chunked-prefill
+        self._chunking: dict = {}
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(rng_seed)
+            params = init_params(cfg, self.device, gen)
+        if quantize is not None:
+            if quantize != "int8":
+                raise ValueError(f"unsupported quantize={quantize!r} "
+                                 "(only 'int8')")
+            # tied models get an int8 copy of the head so the logits matmul
+            # (the largest single weight read) reads int8 too
+            params = quantize_params(params, tied_head_copy=cfg.tie_embeddings)
+        self.params = params
+        self._layers = _all_layers(params, cfg)
+        self._inv_freqs = _inv_freqs(cfg, self.device)
+        self._queue: "queue.Queue[Request]" = queue.Queue()
+        #: head-of-line request waiting for KV blocks (paged mode)
+        self._stalled: Optional[Request] = None
+        self._slots: List[Optional[Request]] = [None] * batch_size
+        #: source of the sampler's noise (sampled requests only)
+        self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
+        self._reset_device_state()
+        self._stop = False
+        #: drain mode: finish in-flight work, refuse new submissions
+        self.draining = False
+        #: request popped from the queue but not yet in a slot (visible to
+        #: has_work() for the whole admission)
+        self._admitting: Optional[Request] = None
+        #: bumped on any slot-assignment change; keys the cached per-window
+        #: device constants in _dispatch_window
+        self._slots_gen = 0
+        #: decode steps dispatched (window widths summed): with a paged
+        #: cache every step launches the paged-decode kernel once per layer
+        self.decode_steps = 0
+        #: engine watchdog: a scheduling step stuck past this window means
+        #: the device runtime is wedged (the server fails /health and /load)
+        self._watchdog_s = float(os.environ.get(
+            "DSTACK_TPU_ENGINE_WATCHDOG_S", "300"))
+        self._step_started_at: Optional[float] = None
+
+    def _reset_device_state(self) -> None:
+        """(Re-)allocate the KV cache and slot state.  Called at init and
+        after a failed step."""
+        cfg, b = self.cfg, self.batch_size
+        if self.paged:
+            shape = (cfg.num_layers, self._alloc.num_blocks,
+                     self._block_size, cfg.num_kv_heads, cfg.head_dim)
+        else:
+            shape = (cfg.num_layers, b, self.max_len, cfg.num_kv_heads,
+                     cfg.head_dim)
+
+        def zeros():
+            if self.kv_quant:
+                return {"q": torch.zeros(shape, dtype=torch.int8,
+                                         device=self.device),
+                        "s": torch.zeros(shape[:-1], dtype=torch.float32,
+                                         device=self.device)}
+            return torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+
+        self._cache_k = None  # let the old cache go before the new one
+        self._cache_v = None
+        self._cache_k = zeros()
+        self._cache_v = zeros()
+        self._decode_consts = None
+        self._pending = None
+        self._chunking = {}
+        #: tokens in cache per slot (int32: the kernel's lengths type)
+        self._lengths = torch.zeros((b,), dtype=torch.int32,
+                                    device=self.device)
+        # host mirror of _lengths: _emit's bookkeeping must not pay a
+        # device->host copy per generated token
+        self._host_lengths = np.zeros((b,), np.int64)
+        self._last_token = torch.zeros((b,), dtype=torch.int64,
+                                       device=self.device)
+        self._active = torch.zeros((b,), dtype=torch.bool, device=self.device)
+
+    # -- public API --------------------------------------------------------
+
+    def submit(self, request: Request) -> Request:
+        if self.draining:
+            raise EngineDraining("engine is draining; not admitting")
+        # clamp so prompt + generation always fit the cache
+        request.max_new_tokens = max(min(request.max_new_tokens,
+                                         self.max_len - 2), 1)
+        self._queue.put(request)
+        if self.telemetry is not None:
+            self.telemetry.record_queue_depth(self._queue.qsize())
+        return request
+
+    def generate(self, tokens: List[int], **kw) -> Request:
+        """Blocking helper: submit + run the loop until this request is done
+        (single-threaded use / tests)."""
+        req = Request(tokens=tokens, **kw)
+        self.submit(req)
+        while not req.done.is_set():
+            self.step()
+        return req
+
+    def run_forever(self) -> None:
+        """Serving loop: step when there is work, block when idle.  A bad
+        request must not kill the engine thread — fail the in-flight
+        requests and keep serving."""
+        while not self._stop:
+            if not self.has_work():
+                try:
+                    req = self._queue.get(timeout=0.05)
+                    self._queue.put(req)
+                except queue.Empty:
+                    continue
+            try:
+                self.step()
+            except Exception:  # noqa: BLE001 — the engine thread must live
+                traceback.print_exc()
+                # fail only the requests that were in flight, from HOST
+                # state (a device update could itself raise)
+                for slot_id, req in enumerate(self._slots):
+                    if req is not None:
+                        self._release_host(slot_id)
+                        req.finish_reason = "error"
+                        req.finished_at = time.time()
+                        req.done.set()
+                        if self.telemetry is not None:
+                            self.telemetry.record_preemption("engine_error")
+                            self.telemetry.record_finished(req)
+                try:
+                    self._reset_device_state()
+                except Exception:  # noqa: BLE001 — runtime truly dead
+                    traceback.print_exc()
+                    time.sleep(0.5)  # don't spin hot; retry on next step
+
+    def stop(self) -> None:
+        self._stop = True
+
+    def begin_drain(self) -> None:
+        """Stop admitting, keep decoding what is in flight (idempotent)."""
+        self.draining = True
+
+    def has_work(self) -> bool:
+        return (any(s is not None for s in self._slots)
+                or self._pending is not None or bool(self._chunking)
+                or self._stalled is not None or self._admitting is not None
+                or not self._queue.empty())
+
+    # -- scheduling --------------------------------------------------------
+
+    @property
+    def wedged(self) -> bool:
+        """True when ONE scheduling step has been stuck longer than the
+        watchdog window (read from the HTTP thread)."""
+        t0 = self._step_started_at
+        return t0 is not None and time.time() - t0 > self._watchdog_s
+
+    def step(self) -> None:
+        """One scheduling iteration (see :meth:`_step`), stamped for the
+        wedge watchdog."""
+        self._step_started_at = time.time()
+        try:
+            self._step()
+        finally:
+            self._step_started_at = None
+
+    def _step(self) -> None:
+        """One scheduling iteration, software-pipelined over the device.
+
+        A decode window's outputs are device tensors; the NEXT window needs
+        only those, not the tokens.  So when a window is in flight, the
+        next one is queued BEFORE the current one's tokens are copied to
+        the host, and the copy plus the Python emit loop overlap device
+        work.  Admission (prefill) only happens when NO window is in
+        flight: a prefill writes cache rows that an in-flight window's
+        end-of-window insert could clobber.
+        """
+        advanced = False
+        if self._pending is not None:
+            want_admit = (
+                (self._stalled is not None or not self._queue.empty())
+                and any(s is None for s in self._slots))
+            nxt = None
+            if not want_admit:
+                self._advance_chunks()  # queued before nxt on the stream
+                advanced = True
+                nxt = self._dispatch_window(self._pending["remaining_after"])
+            self._drain_window()
+            self._finish_chunked()
+            self._pending = nxt
+            if nxt is not None:
+                return
+        self._admit()
+        if not advanced:  # at most ONE chunk per step (decode-stall bound)
+            self._advance_chunks()
+        self._finish_chunked()
+        decoding = [
+            req for slot_id, req in enumerate(self._slots)
+            if req is not None and slot_id not in self._chunking]
+        if decoding:
+            remaining = max(
+                req.max_new_tokens - len(req.output) for req in decoding)
+            self._pending = self._dispatch_window(remaining)
+
+    def _advance_chunks(self) -> None:
+        """Run at most ONE prefill chunk across all mid-chunking slots."""
+        for slot_id, st in list(self._chunking.items()):
+            if "logits" in st:
+                continue  # complete; awaiting _finish_chunked
+            req = self._slots[slot_id]
+            if req is None or req.cancelled:
+                del self._chunking[slot_id]
+                if req is not None:
+                    self._release(slot_id)
+                    req.finish_reason = req.finish_reason or "cancelled"
+                    req.finished_at = time.time()
+                    req.done.set()
+                    if self.telemetry is not None:
+                        self.telemetry.record_finished(req)
+                continue
+            tokens, done = st["tokens"], st["done"]
+            chunk = tokens[done:done + self.prefill_chunk]
+            cbucket = self._bucket(len(chunk))
+            padded = np.zeros((cbucket,), np.int64)
+            padded[:len(chunk)] = chunk
+            padded_t = torch.from_numpy(padded).to(self.device)
+            if self.paged:
+                logits = self._prefill_paged_chunk(
+                    padded_t, len(chunk), done, self._tables_host[slot_id])
+            else:
+                logits = self._prefill_dense_chunk(
+                    padded_t, len(chunk), done, slot_id)
+            st["done"] = done + len(chunk)
+            if self.telemetry is not None:
+                self.telemetry.record_prefill(len(chunk), cbucket)
+                self.telemetry.record_prefill_backlog(self._chunk_backlog())
+            if st["done"] >= len(tokens):
+                st["logits"] = logits
+                st["n"] = len(tokens)
+            return
+
+    def _finish_chunked(self) -> None:
+        """Activate slots whose final prefill chunk has completed: sample
+        the first token from the chunk's logits and open the slot for
+        decode windows."""
+        for slot_id, st in list(self._chunking.items()):
+            if "logits" not in st:
+                continue
+            del self._chunking[slot_id]
+            req = self._slots[slot_id]
+            if req is None:
+                continue
+            self._activate(slot_id, req, st["n"],
+                           self._sample_first(st["logits"], req))
+
+    def _activate(self, slot_id: int, req: Request, n: int,
+                  first: int) -> None:
+        """Open a prefilled slot for decode and emit its first token."""
+        self._slots[slot_id] = req
+        self._slots_gen += 1
+        self._lengths[slot_id] = n
+        self._host_lengths[slot_id] = n
+        self._last_token[slot_id] = first
+        self._active[slot_id] = True
+        self._emit(slot_id, req, first)
+
+    def _admit(self) -> None:
+        for slot_id in range(self.batch_size):
+            if self._slots[slot_id] is not None:
+                continue
+            req = self._stalled
+            self._stalled = None
+            if req is None:
+                try:
+                    req = self._queue.get_nowait()
+                except queue.Empty:
+                    return
+            self._admitting = req
+            try:
+                if (not req.cancelled and req.deadline is not None
+                        and time.time() > req.deadline):
+                    # expired while queued: evict before burning a prefill
+                    req.cancel(reason="deadline")
+                if req.cancelled:
+                    req.finish_reason = req.finish_reason or "cancelled"
+                    req.finished_at = time.time()
+                    req.done.set()
+                    if self.telemetry is not None:
+                        self.telemetry.record_finished(req)
+                    continue
+                if self.paged and not self._reserve_blocks(slot_id, req):
+                    # pool exhausted: hold at head of line until a release
+                    # frees blocks (decode itself can never stall)
+                    if (self.telemetry is not None
+                            and not getattr(req, "_stall_counted", False)):
+                        req._stall_counted = True
+                        req._kv_stalled_at = time.time()
+                        self.telemetry.record_preemption(
+                            "kv_blocks_exhausted")
+                    self._stalled = req
+                    return
+                try:
+                    if (self.prefill_chunk is not None
+                            and self._prompt_len(req) > self.prefill_chunk):
+                        # long prompt: claim the slot now, prefill one chunk
+                        # per step; the slot stays inactive until the last
+                        # chunk yields the first token
+                        self._slots[slot_id] = req
+                        self._slots_gen += 1
+                        self._mark_admitted(req)
+                        self._chunking[slot_id] = {
+                            "tokens": self._prompt_tokens(
+                                req.tokens, req.max_new_tokens),
+                            "done": 0}
+                    else:
+                        self._prefill(slot_id, req)
+                except Exception:
+                    # claim the slot so run_forever's handler fails this
+                    # request and releases its KV blocks
+                    if self._slots[slot_id] is None:
+                        self._slots[slot_id] = req
+                        self._slots_gen += 1
+                    raise
+            finally:
+                self._admitting = None
+
+    def _mark_admitted(self, req: Request) -> None:
+        if req.admitted_at is None:
+            req.admitted_at = time.time()
+            if self.telemetry is not None:
+                self.telemetry.record_admitted(
+                    req.admitted_at - req.submitted_at,
+                    trace_id=req.trace_id)
+
+    def _prompt_tokens(self, tokens: List[int],
+                       max_new_tokens: int) -> List[int]:
+        """Prompt tokens that survive the cache budget clamp."""
+        budget = max(self.max_len - max_new_tokens - 1, 1)
+        return list(tokens[-budget:]) or [0]
+
+    def _prompt_len(self, req: Request) -> int:
+        return len(self._prompt_tokens(req.tokens, req.max_new_tokens))
+
+    def _reserve_blocks(self, slot_id: int, req: Request) -> bool:
+        n = self._prompt_len(req)
+        bs = self._block_size
+        need = -(-(n + req.max_new_tokens + 1) // bs)
+        # a whole-prompt prefill writes a whole padded bucket
+        need = max(need, self._bucket(n) // bs)
+        need = min(need, self._blocks_per_slot)
+        blocks = self._alloc.alloc(need)
+        if blocks is None:
+            return False
+        self._slot_blocks[slot_id] = blocks
+        self._tables_host[slot_id, :] = 0
+        self._tables_host[slot_id, :need] = blocks
+        return True
+
+    def _bucket(self, n: int) -> int:
+        for b in PREFILL_BUCKETS:
+            if n <= b and b <= self.max_len:
+                bucket = b
+                break
+        else:
+            bucket = self.max_len
+        if self.paged:
+            bucket = max(bucket, self._block_size)  # whole blocks
+        return bucket
+
+    # -- prefill -------------------------------------------------------------
+
+    def _prefill(self, slot_id: int, req: Request) -> None:
+        """Whole-prompt prefill into ``slot_id`` (cache written in place)."""
+        self._mark_admitted(req)
+        tokens = self._prompt_tokens(req.tokens, req.max_new_tokens)
+        n = len(tokens)
+        bucket = self._bucket(n)
+        padded = np.zeros((bucket,), np.int64)
+        padded[:n] = tokens[:bucket]
+        logits, ks, vs = _prompt_forward(
+            self.params, self.cfg, torch.from_numpy(padded).to(self.device),
+            n, bucket)
+        if self.paged:
+            nblk = bucket // self._block_size
+            bids = torch.tensor(self._slot_blocks[slot_id][:nblk],
+                                dtype=torch.int64, device=self.device)
+
+            def insert(leaf, rows):  # rows [L, bucket, ...]
+                leaf[:, bids] = rows.reshape(
+                    (rows.shape[0], nblk, self._block_size) + rows.shape[2:])
+        else:
+            def insert(leaf, rows):
+                leaf[:, slot_id, :bucket] = rows
+
+        _kv_map(self._cache_k, ks[:, 0], insert)
+        _kv_map(self._cache_v, vs[:, 0], insert)
+        if self.telemetry is not None:
+            self.telemetry.record_prefill(n, bucket)
+        self._activate(slot_id, req, n, self._sample_first(logits, req))
+
+    def _chunk_forward(self, padded, length: int, positions, kv_pos,
+                       insert, gather):
+        """Shared body of both chunk prefills: every layer inserts the
+        chunk's K/V and attends over the gathered slot span; returns the
+        last real position's f32 logits."""
+        cfg = self.cfg
+        x = _embed(self.params, cfg, padded)[None, :, :]
+        for l, lp in enumerate(self._layers):
+            x = _suffix_layer(x, lp, cfg, positions, self._inv_freqs, kv_pos,
+                              _kv_layer(self._cache_k, l),
+                              _kv_layer(self._cache_v, l), insert, gather)
+        x = rms_norm(x, self.params["final_norm"], cfg.rms_eps)
+        return qmatmul(x[0, length - 1, :], output_head(self.params, cfg),
+                       cfg.dtype, preferred=torch.float32)
+
+    def _prefill_dense_chunk(self, padded, chunk_len: int, prefix_len: int,
+                             slot: int):
+        """One chunk of a long prompt against the DENSE cache: writes the
+        chunk's K/V at rows [prefix_len, prefix_len + chunk_len) of the
+        slot (bucket padding is not written) and attends the chunk over
+        everything the slot holds so far."""
+        span = self.max_len
+        cbucket = padded.shape[0]
+        positions = prefix_len + torch.arange(
+            cbucket, device=self.device)[None, :]
+        kv_pos = torch.arange(span, device=self.device)[None, :]
+        n_write = min(chunk_len, span - prefix_len)
+
+        def insert(leaf, rows):  # leaf [B, S, ...], rows [1, cbucket, ...]
+            leaf[slot, prefix_len:prefix_len + n_write] = rows[0, :n_write]
+
+        def gather(layer_kv):
+            return _tree_map(lambda t: t[slot:slot + 1], layer_kv)
+
+        return self._chunk_forward(padded, chunk_len, positions, kv_pos,
+                                   insert, gather)
+
+    def _prefill_paged_chunk(self, padded, chunk_len: int, prefix_len: int,
+                             tables_row: np.ndarray):
+        """One chunk against the PAGED cache: scatters the chunk's K/V rows
+        into the slot's blocks (padding rows past the span land in the
+        NULL block) and attends over the slot's gathered block span."""
+        bs, bps = self._block_size, self._blocks_per_slot
+        kv_span = bps * bs
+        sbucket = padded.shape[0]
+        idx = prefix_len + np.arange(sbucket)
+        blk = np.where(idx < kv_span,
+                       tables_row[np.clip(idx // bs, 0, bps - 1)], 0)
+        blk_t = torch.from_numpy(blk.astype(np.int64)).to(self.device)
+        off_t = torch.from_numpy((idx % bs).astype(np.int64)).to(self.device)
+        table_t = torch.from_numpy(tables_row.astype(np.int64)).to(self.device)
+        positions = torch.from_numpy(idx).to(self.device)[None, :]
+        kv_pos = torch.arange(kv_span, device=self.device)[None, :]
+
+        def insert(leaf, rows):  # leaf [NB, BS, ...], rows [1, sbucket, ...]
+            leaf[blk_t, off_t] = rows[0]
+
+        def gather(layer_kv):
+            return _tree_map(lambda t: t[table_t].reshape(
+                (kv_span,) + t.shape[2:])[None], layer_kv)
+
+        return self._chunk_forward(padded, chunk_len, positions, kv_pos,
+                                   insert, gather)
+
+    # -- decode --------------------------------------------------------------
+
+    def _sample_on_device(self, logits, temps, top_ps, top_ks, uniform):
+        """Temperature/top-k/nucleus sampling on the device.
+
+        A top-k prefilter (k = min(1024, V)) bounds the sort; per-request
+        ``top_ks`` (0 = off) masks within it; the nucleus keeps the
+        smallest prefix whose mass reaches top_p (the first token always).
+        ``uniform`` [B, k] in [0, 1) is the Gumbel noise's source (from the
+        engine's generator; tests feed their own).  Greedy at temp <= 0.
+        """
+        k = min(1024, self.cfg.vocab_size)
+        vals, idx = torch.topk(logits, k, dim=-1)        # [B, k] descending
+        scaled = vals / temps.clamp_min(1e-6)[:, None]
+        rank = torch.arange(k, device=logits.device)[None, :]
+        scaled = torch.where(
+            (top_ks[:, None] <= 0) | (rank < top_ks[:, None]),
+            scaled, -torch.inf)
+        probs = torch.softmax(scaled, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = (cum - probs) < top_ps[:, None]
+        masked = torch.where(keep, scaled, -torch.inf)
+        gumbel = -torch.log(-torch.log(uniform.clamp(1e-20, 1.0)) + 1e-20)
+        choice = torch.argmax(masked + gumbel, dim=-1)
+        sampled = torch.gather(idx, 1, choice[:, None])[:, 0]
+        return torch.where(temps > 0.0, sampled, idx[:, 0])
+
+    def _noise(self, shape):
+        k = min(1024, self.cfg.vocab_size)
+        return torch.rand(shape + (k,), generator=self._gen,
+                          device=self.device)
+
+    def _decode_window(self, temps, top_ps, top_ks, tables, uniform, *,
+                       window: int, sampling: bool, kv_blocks: int):
+        """Decode ``window`` steps for every slot with a write-once cache.
+
+        The big cache is READ-ONLY for the whole window: each step's K/V
+        goes into a small [L, W, B, Hkv, D] window buffer, attention runs
+        over (cache rows < base_len) + (window rows <= this step), and the
+        cache absorbs the W rows in ONE write at the end.  ``base_len`` is
+        frozen for the window.
+
+        Paged: the cache half is the paged-decode kernel's normalised
+        (o, lse) over the slot's first ``kv_blocks`` table columns (the
+        ragged bucket); the window half is plain torch; the two merge by
+        logsumexp.  Dense: one softmax over the concatenated scores.
+
+        Returns (tokens [W, B], last token [B], new lengths [B]); the
+        cache is written in place and no value is read back to the host.
+        """
+        cfg = self.cfg
+        b, w, dev = self.batch_size, window, self.device
+        hkv, group = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+        scale = cfg.head_dim ** -0.5
+        lengths, active = self._lengths, self._active
+        base_len = torch.clamp(lengths, max=self.max_len - 1)
+        kv_span = kv_blocks * self._block_size if self.paged else self.max_len
+        cache_mask = (torch.arange(kv_span, device=dev)[None, :]
+                      < base_len[:, None])[:, None, None, :]
+        head = output_head(self.params, cfg)
+        win_k = torch.zeros((cfg.num_layers, w, b, hkv, cfg.head_dim),
+                            dtype=cfg.dtype, device=dev)
+        win_v = torch.zeros_like(win_k)
+        last, step_lengths = self._last_token, lengths
+        tokens_all = []
+        for i in range(w):
+            positions = torch.clamp(step_lengths, max=self.max_len - 1)[:, None]
+            x = _embed(self.params, cfg, last)[:, None, :]
+            for l, lp in enumerate(self._layers):
+                q, k, v = _qkv(x, lp, cfg, positions, self._inv_freqs)
+                win_k[l, i] = k[:, 0]
+                win_v[l, i] = v[:, 0]
+                # window rows 0..i are visible at step i; the rows past i
+                # are left out instead of masked
+                wk, wv = win_k[l, :i + 1], win_v[l, :i + 1]
+                qg = q.reshape(b, hkv, group, cfg.head_dim)
+                layer_k = _kv_layer(self._cache_k, l)
+                layer_v = _kv_layer(self._cache_v, l)
+                if self.paged:
+                    o_c, lse_c = paged_decode_attention(
+                        qg, layer_k, layer_v, tables, base_len, scale=scale)
+                    s_w = (torch.einsum("bhgd,jbhd->bhgj", qg, wk)
+                           * scale).float()
+                    m_w = s_w.amax(dim=-1)
+                    p_w = torch.exp(s_w - m_w[..., None])
+                    l_w = p_w.sum(dim=-1)
+                    o_w = torch.einsum("bhgj,jbhd->bhgd", p_w.to(x.dtype),
+                                       wv).float() / l_w[..., None]
+                    lse_w = m_w + torch.log(l_w)
+                    # an empty cache half has lse_c = -1e30: weight 0
+                    lse = torch.logaddexp(lse_c, lse_w)
+                    attn = (o_c * torch.exp(lse_c - lse)[..., None]
+                            + o_w * torch.exp(lse_w - lse)[..., None]
+                            ).to(x.dtype)
+                else:
+                    lk = _kv_mat(layer_k, x.dtype)
+                    lv = _kv_mat(layer_v, x.dtype)
+                    s_c = torch.einsum("bhgd,bkhd->bhgk", qg, lk) * scale
+                    s_c = torch.where(cache_mask, s_c, _NEG_INF)
+                    s_w = torch.einsum("bhgd,jbhd->bhgj", qg, wk) * scale
+                    probs = torch.softmax(
+                        torch.cat([s_c, s_w], dim=-1).float(),
+                        dim=-1).to(x.dtype)
+                    attn = (torch.einsum("bhgk,bkhd->bhgd",
+                                         probs[..., :kv_span], lv)
+                            + torch.einsum("bhgj,jbhd->bhgd",
+                                           probs[..., kv_span:], wv))
+                x = _layer_tail(x, attn, lp, cfg)
+            x = rms_norm(x, self.params["final_norm"], cfg.rms_eps)
+            logits = qmatmul(x, head, cfg.dtype,
+                             preferred=torch.float32)[:, 0]
+            if sampling:
+                last = self._sample_on_device(logits, temps, top_ps, top_ks,
+                                              uniform[i])
+            else:
+                last = torch.argmax(logits, dim=-1)
+            tokens_all.append(last)
+            step_lengths = torch.where(active, step_lengths + 1, step_lengths)
+
+        pos = base_len[:, None] + torch.arange(w, device=dev)[None, :]  # [B, W]
+        if self.paged:
+            # row-wise scatter of the W new rows into each slot's blocks;
+            # inactive slots (released, or mid-chunked-prefill) and rows
+            # past the span write the NULL block instead
+            bs = self._block_size
+            safe = (pos < kv_span) & active[:, None]
+            blk_col = torch.clamp(pos // bs, 0, kv_blocks - 1)
+            phys = torch.where(safe, torch.gather(tables, 1, blk_col),
+                               0).long()
+            off = pos % bs
+
+            def write(leaf, rows):  # leaf [L, NB, BS, ...], rows [L, W, B, ...]
+                leaf[:, phys, off] = rows.transpose(1, 2)
+        else:
+            # cache row p takes window row p - base_len wherever
+            # base_len <= p < base_len + W (and the slot is active)
+            kv_index = torch.arange(self.max_len, device=dev)[None, :]
+            widx = torch.clamp(kv_index - base_len[:, None], 0, w - 1).long()
+            sel = ((kv_index >= base_len[:, None])
+                   & (kv_index < base_len[:, None] + w) & active[:, None])
+
+            def write(leaf, rows):  # leaf [L, B, S, ...], rows [L, W, B, ...]
+                for l in range(leaf.shape[0]):
+                    rows_t = rows[l].transpose(0, 1)         # [B, W, ...]
+                    extra = (1,) * (rows_t.dim() - 2)
+                    picked = torch.gather(
+                        rows_t, 1, widx.view(widx.shape + extra).expand(
+                            widx.shape + rows_t.shape[2:]))
+                    leaf[l] = torch.where(sel.view(sel.shape + extra),
+                                          picked, leaf[l])
+
+        _kv_map(self._cache_k, win_k, write)
+        _kv_map(self._cache_v, win_v, write)
+        return torch.stack(tokens_all), last, step_lengths
+
+    def _pick_window(self, remaining: int) -> int:
+        """Window size minimizing total tail cost = wasted device steps +
+        per-window dispatch overhead (WINDOW_DISPATCH_COST_STEPS each)."""
+        ws = sorted(self.DECODE_WINDOWS)
+        if remaining >= ws[-1]:
+            return ws[-1]
+        f = self.WINDOW_DISPATCH_COST_STEPS
+
+        def cost(r: int) -> int:
+            if r <= 0:
+                return 0
+            return min((f + w - r) if w >= r else (f + cost(r - w))
+                       for w in ws)
+
+        best_w, best_c = ws[-1], None
+        for w in ws:
+            c = (f + w - remaining) if w >= remaining \
+                else (f + cost(remaining - w))
+            # ties break toward the LARGER window
+            if best_c is None or c < best_c or (c == best_c and w > best_w):
+                best_w, best_c = w, c
+        return best_w
+
+    def _ragged_blocks(self, window: int) -> int:
+        """Block-table columns the NEXT decode window can touch, rounded up
+        to a power of two.  Host lengths lag the device by the in-flight
+        window, so its width is added back (this can only over-size)."""
+        inflight = (self._pending["window"]
+                    if self._pending is not None else 0)
+        need = 0
+        for slot_id, req in enumerate(self._slots):
+            if req is None or slot_id in self._chunking:
+                continue
+            need = max(need,
+                       int(self._host_lengths[slot_id]) + inflight + window)
+        need = min(need, self.max_len)
+        nbk = max(-(-need // self._block_size), 1)
+        bucket = 1
+        while bucket < nbk:
+            bucket *= 2
+        return min(bucket, self._blocks_per_slot)
+
+    def _dispatch_window(self, remaining: int):
+        """Queue one decode window; returns the pending record ({tokens,
+        window, remaining_after, decoding}) or None."""
+        if remaining <= 0 or not any(
+                req is not None and slot_id not in self._chunking
+                for slot_id, req in enumerate(self._slots)):
+            return None
+        window = self._pick_window(remaining)
+        sampling = any(
+            req is not None and req.temperature > 0.0 for req in self._slots)
+        nbk = self._ragged_blocks(window) if self.paged else 0
+        # per-slot constants, copied to the device once per slot assignment
+        gen = self._slots_gen
+        if self._decode_consts is None or self._decode_consts[0] != gen:
+            def dev(values, dtype):
+                return torch.tensor(values, dtype=dtype, device=self.device)
+
+            slots = self._slots
+            self._decode_consts = (
+                gen,
+                dev([r.temperature if r else 0.0 for r in slots], torch.float32),
+                dev([r.top_p if r else 1.0 for r in slots], torch.float32),
+                dev([r.top_k if r else 0 for r in slots], torch.int64),
+                (torch.tensor(self._tables_host, device=self.device)
+                 if self.paged else None))
+        _, temps, top_ps, top_ks, tables_full = self._decode_consts
+        # the ragged bucket is a column slice: row stride stays the full
+        # table's, which the kernel takes as an argument
+        tables = tables_full[:, :nbk] if self.paged else None
+        uniform = self._noise((window, self.batch_size)) if sampling else None
+        # queuing a window is host work of the same order as running it, so
+        # the inter-token clock starts before it, not after
+        t0 = time.time()
+        tokens_all, self._last_token, self._lengths = self._decode_window(
+            temps, top_ps, top_ks, tables, uniform, window=window,
+            sampling=sampling, kv_blocks=nbk)
+        self.decode_steps += window
+        # which slots this window decodes for: by drain time a mid-chunking
+        # slot may have finished its prefill, but its rows here are junk
+        decoding = frozenset(
+            slot_id for slot_id, req in enumerate(self._slots)
+            if req is not None and slot_id not in self._chunking)
+        pending = {"tokens": tokens_all, "window": window,
+                   "remaining_after": remaining - window,
+                   "decoding": decoding}
+        if self.telemetry is not None:
+            self._record_dispatch(len(decoding), pending, t0)
+        return pending
+
+    def _kv_used_fraction(self) -> float:
+        if self.paged:
+            usable = self._alloc.num_blocks - 1  # block 0 is the NULL block
+            return (usable - self._alloc.free_blocks) / max(usable, 1)
+        return (float(self._host_lengths.sum())
+                / max(self.batch_size * self.max_len, 1))
+
+    def _record_dispatch(self, n_decoding: int, pending: dict,
+                         t0: float) -> None:
+        t = self.telemetry
+        t.record_window(n_decoding, self.batch_size)
+        t.record_kv_utilization(self._kv_used_fraction())
+        t.record_queue_depth(self._queue.qsize())
+        t.record_prefill_backlog(self._chunk_backlog())
+        pending["t0"] = t0
+
+    def _chunk_backlog(self) -> int:
+        return sum(
+            max(len(st["tokens"]) - st["done"], 0)
+            for st in self._chunking.values() if "logits" not in st)
+
+    def _drain_window(self) -> None:
+        """Copy the in-flight window's tokens to the host and emit them —
+        the ONE device->host sync per window."""
+        p = self._pending
+        if p is None:
+            return
+        self._pending = None
+        tokens_np = p["tokens"].cpu().numpy()
+        emitted = 0
+        for step in range(p["window"]):
+            for slot_id, req in enumerate(self._slots):
+                if req is None or slot_id not in p["decoding"]:
+                    # finished mid-window (overshoot) or still prefilling
+                    # when the window was queued
+                    continue
+                self._host_lengths[slot_id] += 1  # mirrors device lengths
+                emitted += 1
+                self._emit(slot_id, req, int(tokens_np[step, slot_id]))
+        if self.telemetry is not None and "t0" in p:
+            self.telemetry.record_drain(emitted, time.time() - p["t0"],
+                                        len(p["decoding"]))
+
+    def _sample_first(self, logits, req: Request) -> int:
+        """A request's FIRST token, from the same sampler as the decode
+        windows; one int crosses to the host."""
+        temps = torch.tensor([req.temperature], dtype=torch.float32,
+                             device=self.device)
+        top_ps = torch.tensor([req.top_p], dtype=torch.float32,
+                              device=self.device)
+        top_ks = torch.tensor([req.top_k or 0], dtype=torch.int64,
+                              device=self.device)
+        uniform = (self._noise((1,)) if req.temperature > 0.0
+                   else torch.zeros((1, min(1024, self.cfg.vocab_size)),
+                                    device=self.device))
+        return int(self._sample_on_device(logits[None, :], temps, top_ps,
+                                          top_ks, uniform)[0])
+
+    def _emit(self, slot_id: int, req: Request, token: int) -> None:
+        if (not req.cancelled and req.deadline is not None
+                and time.time() > req.deadline):
+            req.cancel(reason="deadline")
+        if req.cancelled:
+            # discard this token and free the slot for the queue
+            req.finish_reason = req.finish_reason or "cancelled"
+            req.finished_at = time.time()
+            self._release(slot_id)
+            req.done.set()
+            if self.telemetry is not None:
+                self.telemetry.record_finished(req)
+            return
+        if req.first_token_at is None:
+            req.first_token_at = time.time()
+            if self.telemetry is not None:
+                self.telemetry.record_first_token(
+                    req.first_token_at - req.submitted_at,
+                    trace_id=req.trace_id)
+        req.output.append(token)
+        if req.on_token is not None:
+            req.on_token(token)
+        hit_eos = req.eos_id is not None and token == req.eos_id
+        length = int(self._host_lengths[slot_id]) + 1  # +1 for this token
+        out_of_room = length >= self.max_len - 1
+        if len(req.output) >= req.max_new_tokens or hit_eos or out_of_room:
+            req.finish_reason = req.finish_reason or (
+                "stop" if hit_eos else "length")
+            req.finished_at = time.time()
+            self._release(slot_id)
+            req.done.set()
+            if self.telemetry is not None:
+                self.telemetry.record_finished(req)
+
+    def _release(self, slot_id: int) -> None:
+        self._release_host(slot_id)
+        self._active[slot_id] = False
+        self._lengths[slot_id] = 0
+
+    def _release_host(self, slot_id: int) -> None:
+        """Host-side half of release (safe when the device is wedged)."""
+        self._slots[slot_id] = None
+        self._slots_gen += 1
+        self._host_lengths[slot_id] = 0
+        if self.paged and self._slot_blocks[slot_id]:
+            self._alloc.release(self._slot_blocks[slot_id])
+            self._slot_blocks[slot_id] = []
+            self._tables_host[slot_id, :] = 0

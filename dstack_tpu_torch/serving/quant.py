@@ -1,0 +1,75 @@
+"""Weight-only int8 quantization and int8 KV rows for the serving engine.
+
+Symmetric per-channel (absmax) weights: ``{"q": int8 [..., in, out], "s":
+f32 [..., out]}``; norms and the embedding stay in the original dtype (a
+tied head gets its own int8 copy, see :func:`quantize_params`).  KV rows
+quantize per (token, head) row with one f32 scale each.
+
+Plain torch: ``qmatmul`` converts the int8 weight to the compute dtype
+before the product, so on the card the int8 bytes are read once and the
+converted copy once more — a fused dequant-matmul kernel is later work.
+int4 KV (nibble-packed) is not part of this port yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+#: layer weights quantized (matmul RHS, [in, out] layout)
+_LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """[..., in, out] -> {"q": int8, "s": f32 [..., out] channel scales}."""
+    w32 = w.float()
+    scale = (w32.abs().amax(dim=-2, keepdim=True) / 127.0).clamp_min(1e-12)
+    q = torch.clamp(torch.round(w32 / scale), -127, 127)
+    return {"q": q.to(torch.int8), "s": scale[..., 0, :].float()}
+
+
+def qmatmul(x: torch.Tensor, w: Any, compute_dtype: torch.dtype,
+            preferred: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x @ w for plain tensors OR quantized {"q","s"} dicts; the result is
+    cast to ``preferred`` when given (the logits ask for float32)."""
+    if isinstance(w, dict) and "q" in w:
+        y = torch.matmul(x, w["q"].to(compute_dtype))
+        if preferred is not None:
+            y = y.to(preferred)
+        return y * w["s"].to(preferred or compute_dtype)
+    y = torch.matmul(x, w)
+    return y if preferred is None else y.to(preferred)
+
+
+def quantize_params(params: Any, tied_head_copy: bool = False) -> Any:
+    """Quantize every stacked layer matmul weight (and the lm_head);
+    everything else passes through.  ``tied_head_copy``: for tied models,
+    add an int8 copy of ``embed.T`` as "lm_head" (the embedding gather keeps
+    the original precision)."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name in _LAYER_WEIGHTS:
+        if name in layers:
+            layers[name] = quantize_weight(layers[name])
+    out["layers"] = layers
+    if "lm_head" in params:
+        out["lm_head"] = quantize_weight(params["lm_head"])
+    elif tied_head_copy:
+        out["lm_head"] = quantize_weight(params["embed"].T)
+    return out
+
+
+def quantize_kv(x: torch.Tensor):
+    """[..., D] K/V rows -> (int8 [..., D], f32 scales [...]): symmetric
+    absmax per (token, head) row."""
+    x32 = x.float()
+    s = (x32.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    q = torch.clamp(torch.round(x32 / s), -127, 127)
+    return q.to(torch.int8), s[..., 0].float()
+
+
+def dequantize_kv(q: torch.Tensor, s: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv`, computed in ``dtype``."""
+    return q.to(dtype) * s[..., None].to(dtype)
