@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
@@ -36,7 +36,7 @@ SIGNATURES = {
                       _I, _I, _I, _I, _I, _I, _F, _I, _P]),
 }
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[str, Callable[..., int]] = {}
 
 
 def nvcc() -> str:
@@ -58,47 +58,40 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
-    """Compile every named source that has no up-to-date library, all
-    ``nvcc`` processes started together; returns each compiler's output
-    (register and shared-memory use, from ``-Xptxas -v``).  Raises with the
-    compiler's output when a build fails."""
+    """Compile each named source that has no up-to-date library; returns
+    each compiler's output (register and shared-memory use, from
+    ``-Xptxas -v``).  Raises with the compiler's output when a build
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs: List[tuple] = []
+    logs: Dict[str, str] = {}
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs: Dict[str, str] = {}
-    failed = []
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        logs[name] = log
+        proc = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs[name] = proc.stdout
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
             Path(tmp).unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("\n".join(failed))
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        os.replace(tmp, out)
     return logs
 
 
 def load(name: str):
-    """The entry point of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
+    """The entry point of ``csrc/<name>.cu``, built first if needed, bound
+    once (argument types set) and cached."""
+    fn = _bound.get(name)
+    if fn is None:
         path = library_path(name)
         if not path.exists():
             build([name])
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
-    symbol, argtypes = SIGNATURES[name]
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _bound[name] = fn
     return fn

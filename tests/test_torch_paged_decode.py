@@ -4,11 +4,13 @@ On the CPU the port's ``paged_decode_attention`` takes its plain version
 (gather + f32 softmax); the JAX side runs ``_paged_decode_kernel`` in
 interpret mode, as the JAX package's own tests do.  Both get the same numpy
 arrays in float32.  Tolerance 1e-5: the kernel's online softmax and the
-plain global softmax sum the same terms in another order.
-
-The card-only test holds the Hopper kernel to the plain version on CUDA
-and skips elsewhere.
+plain global softmax sum the same terms in another order.  Each JAX
+result is computed once per file (the interpret-mode kernel is the
+costly part).  The Hopper kernel itself is held to the plain version on
+the card by ``chip_smoke.py``.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +53,17 @@ def _jax(q, kp, vp, tables, lengths):
     return np.asarray(o), np.asarray(lse)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_case(quantized, cols=None):
+    """The JAX kernel's (o, lse) on ``_case()``, its table cut to ``cols``
+    columns (and every length inside them) when given."""
+    q, kp, vp, tables, lengths = _case()
+    if cols is not None:
+        tables, lengths = tables[:, :cols], np.minimum(lengths, cols * BS)
+    make = _int8_pools if quantized else _pools
+    return _jax(q, *make(kp, vp, "jax"), tables, lengths)
+
+
 def _port(q, kp, vp, tables, lengths):
     o, lse = t_fa.paged_decode_attention(
         torch.from_numpy(q), kp, vp, torch.from_numpy(tables),
@@ -81,7 +94,7 @@ def _int8_pools(kp, vp, lib):
 def test_plain_matches_jax_kernel(quantized):
     q, kp, vp, tables, lengths = _case()
     make = _int8_pools if quantized else _pools
-    want_o, want_lse = _jax(q, *make(kp, vp, "jax"), tables, lengths)
+    want_o, want_lse = _jax_case(quantized)
     got_o, got_lse = _port(q, *make(kp, vp, "torch"), tables, lengths)
     np.testing.assert_allclose(got_o, want_o, atol=ATOL, rtol=0)
     np.testing.assert_allclose(got_lse, want_lse, atol=ATOL, rtol=1e-6)
@@ -90,9 +103,9 @@ def test_plain_matches_jax_kernel(quantized):
 def test_sliced_table_matches_jax_and_full_table():
     """A column slice of the table (the engine's ragged bucket) walks fewer
     pages; with every length inside the slice it gives the same numbers."""
-    q, kp, vp, tables, lengths = _case(seed=1)
+    q, kp, vp, tables, lengths = _case()
     lengths = np.minimum(lengths, 2 * BS)
-    want_o, want_lse = _jax(q, *_pools(kp, vp, "jax"), tables[:, :2], lengths)
+    want_o, want_lse = _jax_case(False, cols=2)
     t_tables = torch.from_numpy(tables)
     cut = t_fa.paged_decode_attention(
         torch.from_numpy(q), *_pools(kp, vp, "torch"), t_tables[:, :2],
@@ -110,11 +123,13 @@ def test_sliced_table_matches_jax_and_full_table():
 def test_empty_slot_sentinel_and_zero_output():
     """length 0: o == 0 exactly and the finite -1e30 lse sentinel (the
     engine's logsumexp merge relies on it), on both sides."""
-    q, kp, vp, tables, lengths = _case(seed=2)
+    q, kp, vp, tables, lengths = _case()
+    assert lengths[0] == 0
     o, lse = _port(q, *_pools(kp, vp, "torch"), tables, lengths)
     assert np.all(o[0] == 0.0)
     assert np.all(lse[0] == np.float32(-1e30))
-    _, j_lse = _jax(q, *_pools(kp, vp, "jax"), tables, lengths)
+    j_o, j_lse = _jax_case(False)
+    assert np.all(j_o[0] == 0.0)
     assert np.all(j_lse[0] <= -1e29)
 
 
@@ -168,23 +183,3 @@ def test_kernel_argument_checks_accept_engine_layout():
     t_fa._check(q, kp, None, vp, None, tables[:, :2], lengths)
     q, kp, vp, tables, lengths = _bf16_args(quantized=True)
     t_fa._check(q, kp["q"], kp["s"], vp["q"], vp["s"], tables, lengths)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
-def test_kernel_matches_plain_on_card(quantized):
-    """The Hopper kernel against its plain version, bf16, on the card.
-    Tolerance 2e-2 on o: p is rounded to bf16 before PV relative to the
-    running max in the kernel and to the global max in the plain version."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    args = [a if isinstance(a, torch.Tensor) else
-            {k: v.cuda() for k, v in a.items()} for a in _bf16_args(quantized)]
-    args = [a.cuda() if isinstance(a, torch.Tensor) else a for a in args]
-    before = t_fa.paged_decode_attention.launches
-    o, lse = t_fa.paged_decode_attention(*args)
-    torch.cuda.synchronize()
-    assert t_fa.paged_decode_attention.launches == before + 1
-    want_o, want_lse = t_fa.paged_decode_attention_plain(*args)
-    torch.testing.assert_close(o, want_o, atol=2e-2, rtol=0)
-    torch.testing.assert_close(lse, want_lse, atol=2e-2, rtol=0)
