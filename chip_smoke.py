@@ -6,12 +6,19 @@
 Phases (any failure stops the run with a non-zero exit and no result):
 
 1. build   — compiles every CUDA kernel of the port from
-             dstack_tpu_torch/ops/csrc/ with nvcc (sm_90a).
+             dstack_tpu_torch/ops/csrc/ with nvcc (sm_90a), one nvcc per
+             source, all at once.
 2. kernels — holds the paged-decode kernel (bf16 and int8 pages) to its
              plain PyTorch version at the serving path's shapes (Llama-3-8B:
-             D=128; Llama-3.2-1B: D=64), and times the kernel, the plain
-             version and, as a yardstick only, scaled_dot_product_attention
-             on the gathered view, beside the card's least time (bound).
+             D=128; Llama-3.2-1B: D=64), and the causal flash-attention
+             forward (o, lse) and backward (dq, dk, dv) kernels to theirs
+             (largest absolute error, and largest error of a row relative
+             to the row) at the training path's shapes (Llama-3.2-1B b8 s1024 D=64,
+             Llama-3-8B geometry b4 s2048 D=128); times each kernel, its
+             plain version and, as a yardstick only,
+             scaled_dot_product_attention, beside the card's least time
+             (bound).  Then the loss's f32 logits from bf16 inputs against
+             an f32 matmul.
 3. server  — serves Llama-3-8B (full width and depth, random weights from a
              seed) with `python -m dstack_tpu_torch.serving.server --paged`
              and sends concurrent /v1/completions (one streaming) and a
@@ -25,6 +32,16 @@ Phases (any failure stops the run with a non-zero exit and no result):
              Llama-3.2-1B with bf16 and int8 pages; each decodes a few
              tokens through the kernel, and each greedy token is checked
              against a plain full-sequence forward of the same model.
+6. train   — make_train_step on Llama-3.2-1B (full width and depth, b8
+             s1024) and on the Llama-3-8B layer geometry at 6 layers (b4
+             s2048), both with selective remat, random init from a seed:
+             the loss is
+             finite and falls, the flash kernels launch exactly layers x
+             steps (forward x2 under remat), and tokens/s, MFU and peak
+             memory are printed.
+7. train-plain — one 1B step through the kernels and the same step with
+             flash_attention swapped for its plain versions: loss and
+             grad norm must agree.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; exits non-zero without
@@ -34,6 +51,7 @@ one, or when run outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import math
 import os
 import socket
 import subprocess
@@ -65,6 +83,51 @@ B, HKV, G, BS, NBK = 8, 8, 4, 32, 32
 #: paged_decode_faults.py
 O_ATOL = 5e-3
 LSE_ATOL = 1e-3
+FLASH_SOURCES = {"fwd": "dstack_tpu_torch/ops/csrc/flash_fwd.cu",
+                 "bwd": "dstack_tpu_torch/ops/csrc/flash_bwd.cu"}
+#: the Pallas kernel each instance replaces: D=128 the per-head kernels,
+#: D=64 the head-pair packed ones
+FLASH_REPLACES = {("fwd", 128): "dstack_tpu/ops/flash_attention.py:80",
+                  ("bwd", 128): "dstack_tpu/ops/flash_attention.py:157",
+                  ("fwd", 64): "dstack_tpu/ops/flash_attention.py:403",
+                  ("bwd", 64): "dstack_tpu/ops/flash_attention.py:478"}
+#: limits on the flash kernels' largest absolute errors against their
+#: plain versions (bf16 outputs, unit-normal q, k, v, do from fixed seeds).
+#: A sound kernel differs by one bf16 ulp of its largest outputs (another
+#: summation order before the rounding, and p rounded against the running
+#: max): o 3.9e-3, dq 7.8e-3, dk 1.6e-2, dv 3.1e-2, lse 9.5e-7 at these
+#: inputs on an H100 (700 W); each limit is about 4x that
+FLASH_ATOL = {"o": 1.6e-2, "lse": 1e-4, "dq": 3e-2, "dk": 6e-2, "dv": 1.2e-1}
+#: limit on each output row's error relative to the row (L2 norms over the
+#: D values of one position and head; the row's norm floored at 1/16 of
+#: the output's RMS row norm, since the first query's dq is rounding
+#: noise): an absolute limit alone misses a fault confined to rows of
+#: small values, such as the last key block's dk and dv.  What sound and
+#: planted faults give against both limits: dstack_tpu_torch/tools/
+#: flash_faults.py
+FLASH_ROW_RTOL = 3e-2
+FLASH_LIMITS = {**FLASH_ATOL, **{f"{n}_row": FLASH_ROW_RTOL
+                                 for n in ("o", "dq", "dk", "dv")}}
+#: further (batch, seq, query heads, kv heads, head_dim) the flash kernels
+#: are held to, for correctness only: MHA (group 1), group 2, MQA, and odd
+#: numbers of 64-row blocks
+FLASH_EDGE_SHAPES = ((2, 128, 4, 4, 64), (3, 192, 6, 3, 64),
+                     (1, 256, 8, 2, 128), (2, 320, 4, 1, 128))
+#: train phase: steps of each trainer of dstack_tpu_torch.tools.
+#: train_profile.TRAINERS: Llama-3.2-1B at b8 s1024 and the Llama-3-8B
+#: layer geometry at L=6, b4 s2048, both with selective remat (as the JAX
+#: package's bench trains them)
+TRAIN_STEPS = {"llama3-1b": 5, "llama3-8b-fit": 4}
+#: train-plain phase: batch of the 1B step held to its plain-attention
+#: twin, and the limits on the relative differences of the two (a sound
+#: kernel gave 9.8e-5 on the loss and 5.2e-4 on the grad norm on an H100,
+#: 700 W: bf16 attention outputs rounded in another order; ~10x that)
+TRAIN_PLAIN_BATCH = 2
+TRAIN_PLAIN_RTOL = {"loss": 1e-3, "grad_norm": 5e-3}
+#: f32 logits from bf16 inputs: max error over the largest logit (f32
+#: sums in another order give ~1e-6; bf16 rounding of the output, ~4e-3,
+#: must not pass)
+F32_LOGITS_RTOL = 1e-4
 #: calls replayed per hold of the stream in the share phase
 REPLAY_CHUNK = 128
 #: the server phase's prompt, also sent in process by the share phase
@@ -210,6 +273,189 @@ def check_kernels(torch) -> dict:
                 f"bound {bound_ms * 1e3:.2f} us by {bound_by} ({nbytes} B, "
                 f"{flops} flop)")
     return out
+
+
+# -- phase 2, training kernels: flash attention against its plain versions --
+
+
+def flash_case(torch, shape, seed: int):
+    b, s, hq, hkv, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*dims):
+        return torch.randn(dims, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    return randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d), \
+        randn(b, s, hq, d)
+
+
+def flash_bounds(shape):
+    """Least times (ms) of the forward and the backward function at
+    ``shape``, each with what bounds it.  Bytes: each input read once and
+    each output written once (forward: q, k, v -> o, lse; backward: q, k,
+    v, o, lse, do -> dq, dk, dv).  Operations: 2 per multiply-add over the
+    (query, key) pairs the causal mask keeps, S(S+1)/2 per head: two
+    products (QK^T, PV) forward, five (QK^T, dO V^T, dV, dK, dQ) backward."""
+    b, s, hq, hkv, d = shape
+    pairs = b * hq * s * (s + 1) // 2
+    q_bytes, kv_bytes, lse_bytes = b * s * hq * d * 2, b * s * hkv * d * 2, \
+        b * hq * s * 4
+    out = {}
+    for part, nbytes, flops in (
+            ("fwd", 2 * q_bytes + 2 * kv_bytes + lse_bytes, 4 * d * pairs),
+            ("bwd", 4 * q_bytes + 4 * kv_bytes + lse_bytes, 10 * d * pairs)):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+        out[part] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations", nbytes,
+                     flops)
+    return out
+
+
+def row_rel_err(torch, got, want) -> float:
+    """Largest error of a row of ``got`` relative to the row of ``want``
+    (rows: the last dimension), as FLASH_ROW_RTOL defines it."""
+    got, want = got.float(), want.float()
+    norms = torch.linalg.vector_norm(want, dim=-1)
+    floor = norms.square().mean().sqrt() / 16
+    err = torch.linalg.vector_norm(got - want, dim=-1)
+    return (err / norms.clamp_min(floor)).max().item()
+
+
+def flash_errors(torch, fa, shape, scale: float):
+    """Run both kernels once at ``shape`` and return their inputs, the
+    forward's (o, lse) and each output's largest absolute error and row
+    error (key ``<name>_row``) against the plain versions.  The backward is
+    held on the kernel forward's own (o, lse), so its error is its own."""
+    q, k, v, do = flash_case(torch, shape, seed=shape[4])
+    o, lse = fa._flash_fwd_kernel(q, k, v, scale)
+    grads = fa._flash_bwd_kernel(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    want_o, want_lse = fa.flash_attention_fwd_plain(q, k, v, scale)
+    want_grads = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    errs = {"lse": (lse - want_lse).abs().max().item()}
+    for n, got, want in zip(("o", "dq", "dk", "dv"), (o, *grads),
+                            (want_o, *want_grads)):
+        errs[n] = (got.float() - want.float()).abs().max().item()
+        errs[n + "_row"] = row_rel_err(torch, got, want)
+    return (q, k, v, do), (o, lse), errs
+
+
+def flash_violations(errs: dict) -> dict:
+    """The errors past their FLASH_LIMITS (a NaN is past any limit)."""
+    return {n: e for n, e in errs.items() if not e <= FLASH_LIMITS[n]}
+
+
+def checked_flash_errors(torch, fa, shape, scale: float):
+    """:func:`flash_errors`, failing the run past FLASH_LIMITS."""
+    out = flash_errors(torch, fa, shape, scale)
+    bad = flash_violations(out[2])
+    if bad:
+        fail(f"flash kernels at (B, S, Hq, Hkv, D) = {shape} disagree with "
+             f"the plain versions: {bad} (limits {FLASH_LIMITS})")
+    return out
+
+
+def check_flash_kernels(torch) -> dict:
+    """Hold the forward (o, lse) and backward (dq, dk, dv) kernels to their
+    plain versions at both training shapes, and at FLASH_EDGE_SHAPES, and
+    time each at the training shapes beside its plain version,
+    scaled_dot_product_attention (the yardstick, never called by the
+    port) and its bound."""
+    import torch.nn.functional as F
+
+    from dstack_tpu_torch.ops import flash_attention as fa
+
+    for shape in FLASH_EDGE_SHAPES:
+        errs = checked_flash_errors(torch, fa, shape, shape[4] ** -0.5)[2]
+        log(f"kernel flash (B, S, Hq, Hkv, D) = {shape}: max err " + " ".join(
+            f"{n} {e:.3e}" for n, e in errs.items()))
+    out = {}
+    for cfg_name in TRAIN_STEPS:
+        cfg, batch, seq, _ = trainer(cfg_name)
+        shape = (batch, seq, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        d = cfg.head_dim
+        scale = d ** -0.5
+        (q, k, v, do), (o, lse), errs = checked_flash_errors(torch, fa,
+                                                             shape, scale)
+
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)
+
+        times = {
+            "fwd": time_ms(torch, lambda: fa._flash_fwd_kernel(
+                q, k, v, scale), 20),
+            "fwd_plain": time_ms(torch, lambda: fa.flash_attention_fwd_plain(
+                q, k, v, scale), 3),
+            "bwd": time_ms(torch, lambda: fa._flash_bwd_kernel(
+                q, k, v, o, lse, do, scale), 20),
+            "bwd_plain": time_ms(torch, lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, scale), 3),
+        }
+        with torch.no_grad():
+            times["fwd_sdpa"] = time_ms(torch, sdpa, 20)
+        ref = sdpa()
+        times["bwd_sdpa"] = time_ms(torch, lambda: torch.autograd.grad(
+            ref, (qt, kt, vt), dot, retain_graph=True), 20)
+        times["fwd_bwd_sdpa"] = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa(), (qt, kt, vt), dot), 20)
+        del ref
+        bounds = flash_bounds(shape)
+        for part, errs_shown in (("fwd", ("o", "lse", "o_row")),
+                                 ("bwd", ("dq", "dk", "dv", "dq_row",
+                                          "dk_row", "dv_row"))):
+            name = f"flash_attention_{part}[{cfg_name},D={d}]"
+            bound_ms, bound_by, nbytes, flops = bounds[part]
+            out[name] = {
+                "name": name, "route": "cuda", "source": FLASH_SOURCES[part],
+                "replaces": FLASH_REPLACES[(part, d)], "launches": 0,
+                "max_abs_err": max(errs[n] for n in errs_shown
+                                   if not n.endswith("_row")),
+                "ms": times[part], "plain_ms": times[part + "_plain"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": times[part + "_sdpa"],
+            }
+            log(f"kernel {name}: max err " + " ".join(
+                f"{n} {errs[n]:.3e}" for n in errs_shown)
+                + f"  kernel {times[part] * 1e3:.1f} us  plain "
+                f"{times[part + '_plain'] * 1e3:.1f} us  sdpa "
+                f"{times[part + '_sdpa'] * 1e3:.1f} us  bound "
+                f"{bound_ms * 1e3:.1f} us by {bound_by} ({nbytes} B, "
+                f"{flops} flop)")
+        log(f"kernel flash fwd+bwd [{cfg_name}]: kernels "
+            f"{(times['fwd'] + times['bwd']) * 1e3:.1f} us, sdpa "
+            f"{times['fwd_bwd_sdpa'] * 1e3:.1f} us")
+        del q, k, v, do, o, lse, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_f32_logits(torch) -> None:
+    """The loss's bf16 x @ head with f32 output (torch.mm's out_dtype)
+    against the f32 matmul of the same bf16 values, at one loss chunk of
+    the 1B trainer (b8, 512 positions, 2048 x 128,256): the f32 sums run
+    in another order, so the difference is f32 rounding, not bf16's."""
+    from dstack_tpu_torch.ops.loss import f32_logits
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((8, 512, 2048), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    head = (torch.randn((2048, 128_256), generator=gen, device="cuda")
+            * 2048 ** -0.5).to(torch.bfloat16)
+    got = f32_logits(x, head)
+    want = torch.matmul(x.float(), head.float())
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    del got, want
+    torch.cuda.empty_cache()
+    if not rel <= F32_LOGITS_RTOL:
+        fail(f"f32 logits: max error {rel:.2e} of the largest logit "
+             f"(limit {F32_LOGITS_RTOL})")
+    log(f"f32 logits: max error {rel:.3e} of the largest logit")
 
 
 # -- phase 3: the server -----------------------------------------------------
@@ -538,6 +784,113 @@ def run_engine(torch, cfg, kv_quantize, label: str,
     return launches
 
 
+# -- phases 6 and 7: training at full width ----------------------------------
+
+
+def trainer(name: str):
+    """(config, batch, seq, remat) of one of the trainers."""
+    from dstack_tpu_torch.tools.train_profile import TRAINERS
+
+    make_cfg, batch, seq, remat = TRAINERS[name]
+    return make_cfg(), batch, seq, remat
+
+
+def run_train(torch, cfg_name: str, steps: int) -> dict:
+    """``steps`` train steps of the trainer ``cfg_name`` on one repeated
+    batch of random tokens, from a random init (seed 0), unstacked.  Checks the loss is finite and falls, and that
+    the flash kernels ran exactly once per layer per step forward (twice
+    under remat: the backward recomputes the layer) and once backward."""
+    from dstack_tpu_torch.models import train
+    from dstack_tpu_torch.ops import flash_attention as fa
+
+    cfg, batch, seq, remat = trainer(cfg_name)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    opt = train.default_optimizer()
+    t0 = time.time()
+    state = train.create_state(gen, cfg, opt, unstacked=True)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    step_fn = train.make_train_step(cfg, opt, remat=remat)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.fwd_launches = fa.flash_attention.bwd_launches = 0
+    losses, norms, times = [], [], []
+    for _ in range(steps):
+        t = time.time()
+        state, metrics = step_fn(state, {"tokens": tokens})
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        torch.cuda.synchronize()
+        times.append(time.time() - t)
+    fwd, bwd = fa.flash_attention.fwd_launches, fa.flash_attention.bwd_launches
+    per_layer = 1 if remat in (False, "none") else 2
+    want_fwd = per_layer * cfg.num_layers * steps
+    want_bwd = cfg.num_layers * steps
+    if fwd != want_fwd or bwd != want_bwd:
+        fail(f"train {cfg_name}: flash launches fwd {fwd} bwd {bwd}, "
+             f"expected {want_fwd} and {want_bwd}")
+    if not all(map(math.isfinite, losses + norms)):
+        fail(f"train {cfg_name}: non-finite loss or grad norm: {losses} "
+             f"{norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"train {cfg_name}: loss did not fall: {losses}")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    tok = batch * seq
+    out = {"config": cfg_name, "num_layers": cfg.num_layers,
+           "num_params": cfg.num_params(), "batch": batch, "seq": seq,
+           "remat": remat, "steps": steps, "init_s": init_s,
+           "losses": losses, "grad_norms": norms, "step_s": times,
+           "step_median_s": step_s, "tokens_per_s": tok / step_s,
+           # 6 * params * tokens: the matmuls only, attention left out
+           "mfu_6nd": 6 * cfg.num_params() * tok / step_s / PEAK_BF16_FLOPS,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "fwd_launches": fwd, "bwd_launches": bwd}
+    log("train: " + json.dumps(out))
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_plain(torch) -> dict:
+    """One Llama-3.2-1B step at a small batch through the kernels, then the
+    same step from the same init with flash_attention swapped for its
+    plain versions: the loss and the grad norm of the two must agree."""
+    from dstack_tpu_torch.models import train
+    from dstack_tpu_torch.ops import flash_attention as fa
+
+    cfg, _, seq, _ = trainer("llama3-1b")
+    kernel_fn = fa.flash_attention
+    out = {}
+    for route in ("kernel", "plain"):
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        opt = train.default_optimizer()
+        state = train.create_state(gen, cfg, opt, unstacked=True)
+        tokens = torch.randint(0, cfg.vocab_size, (TRAIN_PLAIN_BATCH,
+                                                   seq + 1), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        step_fn = train.make_train_step(cfg, opt, remat=False)
+        if route == "plain":
+            fa.flash_attention = fa.flash_attention_plain
+        try:
+            _, metrics = step_fn(state, {"tokens": tokens})
+            out[route] = {"loss": metrics["loss"].item(),
+                          "grad_norm": metrics["grad_norm"].item()}
+        finally:
+            fa.flash_attention = kernel_fn
+        del state, step_fn
+        torch.cuda.empty_cache()
+    for key, limit in TRAIN_PLAIN_RTOL.items():
+        got, want = out["kernel"][key], out["plain"][key]
+        rel = abs(got - want) / abs(want)
+        out[f"{key}_rel_err"] = rel
+        if not (math.isfinite(got) and rel <= limit):
+            fail(f"train-plain: {key} {got} through the kernels vs {want} "
+                 f"through the plain versions (rel {rel:.2e} > {limit})")
+    log("train-plain: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -567,6 +920,8 @@ def main() -> int:
         log(f"nvcc {name}:\n{text.strip()}")
 
     kernels = check_kernels(torch)
+    kernels.update(check_flash_kernels(torch))
+    check_f32_logits(torch)
     served = serve_8b()
     kernels["paged_decode_attention[bf16,llama3-8b]"]["launches"] = \
         served["launches"]
@@ -580,11 +935,27 @@ def main() -> int:
                                   f"{cfg_name} {variant} pages")
             kernels[f"paged_decode_attention[{variant},{cfg_name}]"][
                 "launches"] = launches
+    trained = []
+    for cfg_name, steps in TRAIN_STEPS.items():
+        run = run_train(torch, cfg_name, steps)
+        d = trainer(cfg_name)[0].head_dim
+        kernels[f"flash_attention_fwd[{cfg_name},D={d}]"]["launches"] = \
+            run["fwd_launches"]
+        kernels[f"flash_attention_bwd[{cfg_name},D={d}]"]["launches"] = \
+            run["bwd_launches"]
+        trained.append(run)
+    plain = train_plain(torch)
     for k in kernels.values():
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on its path")
     log("server summary: " + json.dumps(served))
     log("share summary: " + json.dumps(share))
+    for run in trained:
+        log("train summary: " + json.dumps(
+            {k: run[k] for k in ("config", "tokens_per_s", "mfu_6nd",
+                                 "step_median_s", "max_memory_allocated_gb",
+                                 "losses")}))
+    log("train-plain summary: " + json.dumps(plain))
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,233 @@
+"""Training step and loop, single device.
+
+``make_train_step`` binds a model config and an optimizer into
+``step(state, batch) -> (state, metrics)``: the backbone's final hidden
+states go through :func:`chunked_cross_entropy` (no [B, S, V] logits), the
+attention through the fused causal kernels, and the optimizer is AdamW
+with optax's semantics.  Unlike the JAX step (a pure function of a donated
+state), the port updates the parameters and moments in place: no second
+copy of the model exists during the update.
+
+Not ported yet (each raises "not yet ported"): a ``mesh`` or sharding
+``policy``, ``telemetry``, ``compile_cache``, and the checkpointing of
+``run_train_loop`` (``checkpoint_dir``, ``guard``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, ClassVar, List, Optional, Union
+
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from dstack_tpu_torch.models import llama
+from dstack_tpu_torch.models.llama import LlamaConfig, Params, tree_leaves
+from dstack_tpu_torch.ops.loss import chunked_cross_entropy
+from dstack_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Params
+    opt_state: Any
+    step: int
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean NLL of f32 logits [B, S, V] at int targets [B, S], over the
+    positions where ``mask`` is 1 (all when None)."""
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """optax's ``chain(clip_by_global_norm(grad_clip), adamw(...))``.
+
+    - clip: when the gradients' global norm is at least ``grad_clip``, each
+      gradient becomes ``g * grad_clip / norm`` (optax's rule: no epsilon
+      in the denominator); below it they pass unchanged;
+    - then torch's fused AdamW with decoupled weight decay on every leaf,
+      which is optax's ``adamw``: moments ``exp_avg``, ``exp_avg_sq`` in
+      the params' dtype (as optax keeps them for bf16 params),
+      bias-corrected by ``1 - b**count``, and the update ``mu_hat /
+      (sqrt(nu_hat) + eps) + weight_decay * p`` times ``-lr``.  The
+      clipped gradients are rounded to their dtype (as optax's are); the
+      fused step runs in f32 and rounds once into each leaf's dtype."""
+
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    #: fixed, as in the JAX package's default_optimizer
+    b1: ClassVar[float] = 0.9
+    b2: ClassVar[float] = 0.95
+    eps: ClassVar[float] = 1e-8
+
+    def init(self, params: Params) -> torch.optim.AdamW:
+        return torch.optim.AdamW(
+            tree_leaves(params), lr=self.lr, betas=(self.b1, self.b2),
+            eps=self.eps, weight_decay=self.weight_decay, fused=True)
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads,
+               opt_state: torch.optim.AdamW) -> torch.Tensor:
+        """Apply one step in place to ``params`` (the leaves ``init`` was
+        given, in :func:`tree_leaves` order) from ``grads``, which are
+        clipped in place; returns the gradients' global norm (f32, before
+        clipping)."""
+        grads = list(grads)
+        norm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads, 2, dtype=torch.float32)))
+        torch._foreach_mul_(grads, self.grad_clip
+                            / torch.clamp_min(norm, self.grad_clip))
+        for p, g in zip(params, grads):
+            # the fused step takes each gradient laid out as its parameter;
+            # a tied head's comes back transposed
+            p.grad = g.contiguous()
+        opt_state.step()
+        opt_state.zero_grad(set_to_none=True)
+        return norm
+
+
+def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
+                      grad_clip: float = 1.0) -> AdamW:
+    return AdamW(lr=lr, weight_decay=weight_decay, grad_clip=grad_clip)
+
+
+def _not_ported(**kw) -> None:
+    given = [name for name, value in kw.items() if value is not None]
+    if given:
+        raise NotImplementedError(
+            f"{', '.join(given)}: not yet ported to dstack_tpu_torch")
+
+
+def _generator_on(generator: Union[int, torch.Generator],
+                  device: Optional[Union[str, torch.device]]
+                  ) -> torch.Generator:
+    """A generator on the resolved ``device`` (CUDA unless the caller names
+    another): made there from an int seed, or the one given if it is there
+    already (a generator elsewhere raises)."""
+
+    def indexed(d: torch.device) -> torch.device:
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    dev = indexed(resolve_device(device))
+    if isinstance(generator, int):
+        return torch.Generator(device=dev).manual_seed(generator)
+    if indexed(generator.device) != dev:
+        raise ValueError(
+            f"the generator is on {generator.device} and the state would go "
+            f"on {dev}: pass an int seed, a generator there, or the "
+            f"generator's device as device=")
+    return generator
+
+
+def create_state(generator: Union[int, torch.Generator], cfg: LlamaConfig,
+                 optimizer: AdamW, mesh: Any = None, policy: Any = None,
+                 unstacked: bool = False,
+                 device: Optional[Union[str, torch.device]] = None
+                 ) -> TrainState:
+    """Fresh state on ``device`` (CUDA by default, raising without a card;
+    the CPU only when named), drawn from ``generator``: an int seed, or a
+    ``torch.Generator`` on that device.  ``unstacked`` stores each layer's
+    weights (and grads, and moments) as separate buffers."""
+    _not_ported(mesh=mesh, policy=policy)
+    gen = _generator_on(generator, device)
+    params = llama.init_params(cfg, gen.device, gen)
+    if unstacked:
+        params = llama.unstack_params(params)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    return TrainState(params=params, opt_state=optimizer.init(params), step=0)
+
+
+def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
+                    policy: Any = None, remat: Any = True,
+                    telemetry: Any = None,
+                    compile_cache: Any = None
+                    ) -> Callable[[TrainState, dict], tuple]:
+    """The train step.  batch: {"tokens": [B, S+1] int on the params'
+    device (inputs [:, :-1], targets [:, 1:]), optional "mask" [B, S]}.
+
+    Returns ``(state, metrics)``: the same state object, updated in place,
+    and {"loss": 0-dim f32 tensor, "step": int, "grad_norm": 0-dim f32
+    tensor}: the norm is computed for clipping anyway, so unlike the JAX
+    step there is no ``with_grad_norm`` to drop it.  Nothing waits for the
+    card: read the tensors when the host needs them."""
+    _not_ported(mesh=mesh, policy=policy, telemetry=telemetry,
+                compile_cache=compile_cache)
+    llama.remat_mode(remat)  # reject a bad mode before the first step
+
+    def loss_fn(params, batch):
+        tokens = batch["tokens"]
+        x = llama.backbone(params, tokens[:, :-1], cfg, remat=remat)
+        return chunked_cross_entropy(x, llama.output_head(params, cfg),
+                                     tokens[:, 1:], batch.get("mask"))
+
+    def step(state: TrainState, batch) -> tuple:
+        leaves = tree_leaves(state.params)
+        # named ranges for torch.profiler (tools/train_profile.py)
+        with record_function("train.forward"):
+            loss = loss_fn(state.params, batch)
+        with record_function("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
+        with record_function("train.optimizer"):
+            norm = optimizer.update(leaves, grads, state.opt_state)
+        state.step += 1
+        return state, {"loss": loss.detach(), "step": state.step,
+                       "grad_norm": norm}
+
+    return step
+
+
+@dataclasses.dataclass
+class TrainLoopResult:
+    state: TrainState
+    step: int                      # steps completed
+    losses: List[float]            # per executed step, in order
+    status: str                    # "completed"
+
+
+def run_train_loop(cfg: LlamaConfig, optimizer: AdamW,
+                   batch_fn: Callable[[int], dict], *, steps: int,
+                   generator: Union[int, torch.Generator, None] = None,
+                   device: Optional[Union[str, torch.device]] = None,
+                   mesh: Any = None, policy: Any = None,
+                   checkpoint_dir: Any = None, guard: Any = None,
+                   on_step: Optional[Callable[[int, dict], None]] = None,
+                   telemetry: Any = None, unstacked: bool = False,
+                   **step_kw) -> TrainLoopResult:
+    """Train ``steps`` steps from a fresh state drawn from ``generator`` (an
+    int seed or a generator) on ``device``, as :func:`create_state` does:
+    CUDA unless the caller names the CPU.
+
+    ``batch_fn(step)`` gives the batch consumed by step ``step`` (0-based).
+    The loop reads each step's loss on the host (monitoring-grade); a
+    throughput run drives the step function itself.  Checkpointing and
+    preemption (``checkpoint_dir``, ``guard``) are not yet ported."""
+    _not_ported(checkpoint_dir=checkpoint_dir, guard=guard)
+    if generator is None:
+        raise ValueError("run_train_loop needs a generator to initialise "
+                         "the state (resuming from a checkpoint is not yet "
+                         "ported)")
+    state = create_state(generator, cfg, optimizer, mesh=mesh, policy=policy,
+                         unstacked=unstacked, device=device)
+    step_fn = make_train_step(cfg, optimizer, mesh=mesh, policy=policy,
+                              telemetry=telemetry, **step_kw)
+    losses: List[float] = []
+    for step in range(steps):
+        state, metrics = step_fn(state, batch_fn(step))
+        losses.append(float(metrics["loss"]))
+        if on_step is not None:
+            on_step(step + 1, metrics)
+    return TrainLoopResult(state=state, step=steps, losses=losses,
+                           status="completed")

@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into
 ``dstack_tpu_torch/build/<name>-<hash>.so`` at first use, from the sources
-in the checkout only.  The hash covers the source and the flags, so an
-edited source rebuilds and an unchanged one loads the library already
-built.  A build writes to a temporary name and renames it into place, so
-two processes building at once never load a half-written library.
+in the checkout only.  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads the library already built.  :func:`build` starts one
+``nvcc`` per source, all at once.  A build writes to a temporary name and
+renames it into place, so two processes building at once never load a
+half-written library.
 
 Nothing here runs at import: the CPU test suite imports every module on a
 machine without ``nvcc``.
@@ -34,6 +36,8 @@ SIGNATURES = {
     "paged_decode": ("dstack_paged_decode",
                      [_P, _P, _P, _P, _P, _P, _LL, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _F, _I, _P]),
+    "flash_fwd": ("dstack_flash_fwd", [_P] * 5 + [_I] * 5 + [_F, _P]),
+    "flash_bwd": ("dstack_flash_bwd", [_P] * 9 + [_I] * 5 + [_F, _P]),
 }
 
 _bound: Dict[str, Callable[..., int]] = {}
@@ -53,31 +57,40 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
-    """Compile each named source that has no up-to-date library; returns
-    each compiler's output (register and shared-memory use, from
-    ``-Xptxas -v``).  Raises with the compiler's output when a build
-    fails."""
+    """Compile each named source that has no up-to-date library, one
+    ``nvcc`` per source started together; returns each compiler's output
+    (register and shared-memory use, from ``-Xptxas -v``).  Raises with
+    the compiler's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    logs: Dict[str, str] = {}
+    jobs = {}
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        logs[name] = proc.stdout
+        jobs[name] = (proc, tmp, out)
+    logs: Dict[str, str] = {}
+    failed = []
+    for name, (proc, tmp, out) in jobs.items():
+        logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
             Path(tmp).unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-        os.replace(tmp, out)
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(
+            f"{n}.cu:\n{logs[n]}" for n in failed))
     return logs
 
 

@@ -1,0 +1,54 @@
+"""Grouped-query causal attention, plain PyTorch.
+
+The route :func:`dstack_tpu_torch.models.llama.backbone` takes when the
+fused kernel does not handle the shape (custom positions, a sequence that
+is not a multiple of 128), and the reference the flash kernels' plain
+versions are tested against.  It materialises the [B, Hkv, G, Sq, Skv] f32
+scores, as the JAX package's ``causal_attention`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_NEG_INF = -1e30
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     q_positions: Optional[torch.Tensor] = None,
+                     kv_positions: Optional[torch.Tensor] = None,
+                     kv_valid_length: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Causal GQA attention.
+
+    q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D].  Positions ([B or 1, S])
+    default to 0..S-1; ``kv_valid_length`` [B] masks cache rows at or past
+    it.  ``q * scale`` goes into the dot, scores and softmax are f32 with
+    -1e30 where masked, and the probabilities are cast to v's dtype before
+    the PV product.  Returns [B, Sq, Hq, D] in q's dtype.
+    """
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
+    scale = scale if scale is not None else d ** -0.5
+    dev = q.device
+    if q_positions is None:
+        q_positions = torch.arange(sq, device=dev)[None, :]
+    if kv_positions is None:
+        kv_positions = torch.arange(skv, device=dev)[None, :]
+
+    qg = (q * scale).reshape(b, sq, hkv, hq // hkv, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    mask = q_positions[:, None, None, :, None] >= kv_positions[:, None, None, None, :]
+    if kv_valid_length is not None:
+        valid = (torch.arange(skv, device=dev)[None, :]
+                 < kv_valid_length[:, None])
+        mask = mask & valid[:, None, None, None, :]
+    scores = torch.where(mask, scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, sq, hq, d).to(q.dtype)

@@ -47,27 +47,32 @@ FAULTS = {
 }
 
 
-def planted_source(edits) -> str:
+def planted_source(edits, source: str = "paged_decode") -> str:
+    """The text of ``csrc/<source>.cu`` with each (old, new) edit made;
+    each old text must occur exactly once."""
     from dstack_tpu_torch.ops import _build
 
-    src = (_build.CSRC / "paged_decode.cu").read_text()
+    src = (_build.CSRC / f"{source}.cu").read_text()
     for old, new in edits:
         if src.count(old) != 1:
-            raise SystemExit(f"paged_decode_faults: {old!r} is not in the "
-                             "source exactly once; update FAULTS")
+            raise SystemExit(f"{old!r} is not in {source}.cu exactly once; "
+                             "update the fault's edits")
         src = src.replace(old, new)
     return src
 
 
-def build_fault(name: str, edits) -> Path:
+def build_fault(name: str, edits, source: str = "paged_decode") -> Path:
+    """Compile the planted copy into ``build/faults/<name>.so``, with
+    ``csrc/`` on the include path for the shared headers."""
     from dstack_tpu_torch.ops import _build
 
     out_dir = _build.BUILD_DIR / "faults"
     out_dir.mkdir(parents=True, exist_ok=True)
     src, lib = out_dir / f"{name}.cu", out_dir / f"{name}.so"
-    src.write_text(planted_source(edits))
-    proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                           str(src)], stdout=subprocess.PIPE,
+    src.write_text(planted_source(edits, source))
+    proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS,
+                           f"-I{_build.CSRC}", "-o", str(lib), str(src)],
+                          stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"nvcc failed for fault {name}:\n{proc.stdout}")
