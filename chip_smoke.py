@@ -426,7 +426,9 @@ def check_flash_kernels(torch) -> dict:
                 f"{times[part + '_plain'] * 1e3:.1f} us  sdpa "
                 f"{times[part + '_sdpa'] * 1e3:.1f} us  bound "
                 f"{bound_ms * 1e3:.1f} us by {bound_by} ({nbytes} B, "
-                f"{flops} flop)")
+                f"{flops} flop)  {flops / times[part] / 1e9:.1f} TFLOP/s, "
+                f"{bound_ms / times[part]:.3f} of the bound, "
+                f"{times[part] / times[part + '_sdpa']:.2f}x sdpa")
         log(f"kernel flash fwd+bwd [{cfg_name}]: kernels "
             f"{(times['fwd'] + times['bwd']) * 1e3:.1f} us, sdpa "
             f"{times['fwd_bwd_sdpa'] * 1e3:.1f} us")

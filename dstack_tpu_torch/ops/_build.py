@@ -37,7 +37,7 @@ SIGNATURES = {
                      [_P, _P, _P, _P, _P, _P, _LL, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _F, _I, _P]),
     "flash_fwd": ("dstack_flash_fwd", [_P] * 5 + [_I] * 5 + [_F, _P]),
-    "flash_bwd": ("dstack_flash_bwd", [_P] * 9 + [_I] * 5 + [_F, _P]),
+    "flash_bwd": ("dstack_flash_bwd", [_P] * 11 + [_I] * 5 + [_F, _P]),
 }
 
 _bound: Dict[str, Callable[..., int]] = {}

@@ -174,15 +174,21 @@ def _flash_fwd_kernel(q, k, v, scale: float):
 
 
 def _flash_bwd_kernel(q, k, v, o, lse, do, scale: float):
-    """``(dq, dk, dv)`` from ``csrc/flash_bwd.cu`` (delta in torch)."""
+    """``(dq, dk, dv)`` from ``csrc/flash_bwd.cu``: its pre-pass computes
+    delta = rowsum(do * o) and zeroes an f32 dq accumulator, which the
+    main kernel adds into by reduce-adds in no fixed order (so dq is not
+    bitwise repeatable from run to run) and its post-pass rounds to
+    bf16."""
     b, seq, hq, d = q.shape
     if lse.shape != (b, hq, seq) or lse.dtype != torch.float32:
         raise ValueError("lse must be f32 [B, Hq, S]")
-    delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
-    _check_flash(q, k, v, o, do, lse, delta)
+    _check_flash(q, k, v, o, do, lse)
+    delta = torch.empty((b, hq, seq), dtype=torch.float32, device=q.device)
+    dq_accum = torch.empty((b, seq, hq, d), dtype=torch.float32,
+                           device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd", q, k, v, do, lse, delta, dq, dk, dv, b, seq, hq,
-            k.shape[2], d, float(scale))
+    _launch("flash_bwd", q, k, v, o, do, lse, delta, dq_accum, dq, dk, dv, b,
+            seq, hq, k.shape[2], d, float(scale))
     flash_attention.bwd_launches += 1
     return dq, dk, dv
 

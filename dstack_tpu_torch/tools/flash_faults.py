@@ -26,57 +26,57 @@ from pathlib import Path
 
 from dstack_tpu_torch.tools.paged_decode_faults import build_fault
 
-_DIAG_ONLY_IN_BLOCK_0 = "j < iq + (iq == 0); ++j) {"
+#: a prefix that skips the dk/dv products under a condition
+_DKDV_IF = "if ({}) WgmmaRS<D, 1>::run({}_acc,"
 #: fault -> (source, what it breaks, [(text of the sound source, replacement)])
 FAULTS = {
     "fwd_no_rescale": (
         "flash_fwd", "the output accumulator is not rescaled when a later "
-        "key block raises the running max",
-        [("orow[c] *= alpha;", "orow[c] *= 1.f;")]),
+        "key tile raises the running max",
+        [("acc[i] *= alpha[(i >> 1) & 1];", "acc[i] *= 1.f;")]),
     "fwd_mask_off_by_one": (
-        "flash_fwd", "the diagonal block lets each query see the next key",
-        [("j * kBlock + c0 + c > qpos) s = kNegInf;",
-          "j * kBlock + c0 + c > qpos + 1) s = kNegInf;")]),
+        "flash_fwd", "the diagonal tile lets each query see the next key",
+        [("if (key > qpos + 8 * ((i >> 1) & 1)) s[i] = kNegInf;",
+          "if (key > qpos + 8 * ((i >> 1) & 1) + 1) s[i] = kNegInf;")]),
     "fwd_skip_diagonal": (
-        "flash_fwd", "query blocks after the first skip their diagonal key "
-        "block",
-        [("for (int j = 0; j <= iq; ++j) {",
-          "for (int j = 0; " + _DIAG_ONLY_IN_BLOCK_0)]),
+        "flash_fwd", "query tiles after the first drop their diagonal key "
+        "tile's probabilities",
+        [("const float p = ex2(",
+          "const float p = (n == 0 && iq > 0) ? 0.f : ex2(")]),
     "fwd_wrong_gqa_head": (
         "flash_fwd", "query head h reads kv head h % Hkv, not h / group",
         [("const int hk = h / (hq / hkv);", "const int hk = h % hkv;")]),
     "dkdv_skip_last_qblock": (
-        "flash_bwd", "dk/dv stop one query block short (i < nblk - 1)",
-        [("for (int i = jk; i < nblk; ++i) {",
-          "for (int i = jk; i < nblk - 1; ++i) {")]),
+        "flash_bwd", "dk/dv leave out the last query tile",
+        [(f"WgmmaRS<D, 1>::run({acc}_acc,",
+          _DKDV_IF.format("it < nq - 1", acc)) for acc in ("dv", "dk")]),
     "dkdv_skip_diagonal": (
-        "flash_bwd", "dk/dv start at the query block after the diagonal",
-        [("for (int i = jk; i < nblk; ++i) {",
-          "for (int i = jk + 1; i < nblk; ++i) {")]),
-    "dkdv_mask_off_by_one": (
-        "flash_bwd", "dk/dv's diagonal block lets each query see the next "
-        "key",
-        [("return i == jk && kpos > qbase + c;",
-          "return i == jk && kpos > qbase + c + 1;")]),
+        "flash_bwd", "dk/dv start at the query tile after the diagonal",
+        [(f"WgmmaRS<D, 1>::run({acc}_acc,",
+          _DKDV_IF.format("it > first", acc)) for acc in ("dv", "dk")]),
     "dkdv_drop_group_head": (
         "flash_bwd", "dk/dv sum all but the last query head of each group",
-        [("for (int g = 0; g < group; ++g) {",
-          "for (int g = 0; g < group - 1; ++g) {")]),
-    "dkdv_no_delta": (
-        "flash_bwd", "dk's ds leaves out delta (ds = p * dp)",
-        [("pv[c] * (dp_row[c] - delta_s[c0 + c])", "pv[c] * dp_row[c]")]),
+        [(f"WgmmaRS<D, 1>::run({acc}_acc,",
+          _DKDV_IF.format("g < group - 1", acc)) for acc in ("dv", "dk")]),
+    "bwd_mask_off_by_one": (
+        "flash_bwd", "the backward's diagonal tiles let each query see the "
+        "next key (dq, dk and dv)",
+        [("kpos + 8 * ((i >> 1) & 1) > qpos);",
+          "kpos + 8 * ((i >> 1) & 1) > qpos + 1);")]),
+    "bwd_no_delta": (
+        "flash_bwd", "ds leaves out delta (ds = p * dp; dq and dk)",
+        [("sp[i] * (dp[i] - delta_st[qcol(i)])", "sp[i] * dp[i]")]),
     "dq_skip_diagonal": (
-        "flash_bwd", "dq of query blocks after the first skips the diagonal "
-        "key block",
-        [("for (int j = 0; j <= iq; ++j) {",
-          "for (int j = 0; " + _DIAG_ONLY_IN_BLOCK_0)]),
-    "dq_mask_off_by_one": (
-        "flash_bwd", "dq's diagonal block lets each query see the next key",
-        [("return j == iq && kbase + c > qpos;",
-          "return j == iq && kbase + c > qpos + 1;")]),
+        "flash_bwd", "dq of query tiles after the first leaves out the "
+        "diagonal key tile",
+        [("reduce_dq(dq,", "if (!(diag && it > 0)) reduce_dq(dq,")]),
     "dq_wrong_gqa_head": (
         "flash_bwd", "dq of query head h reads kv head h % Hkv",
-        [("const int hk = h / (hq / hkv);", "const int hk = h % hkv;")]),
+        [("row, c0, dcol0, h,", "row, c0, dcol0, hk + g * hkv,")]),
+    "dq_skip_reduce_tile": (
+        "flash_bwd", "the reduce-add of dq is skipped for one (query tile, "
+        "key tile) pair: the last query tile against key tile 0",
+        [("reduce_dq(dq,", "if (!(it == nq - 1 && jk == 0)) reduce_dq(dq,")]),
 }
 SOURCES = ("flash_fwd", "flash_bwd")
 
