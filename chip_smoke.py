@@ -10,7 +10,13 @@ Phases (any failure stops the run with a non-zero exit and no result):
              source, all at once.
 2. kernels — holds the paged-decode kernel (bf16 and int8 pages) to its
              plain PyTorch version at the serving path's shapes (Llama-3-8B:
-             D=128; Llama-3.2-1B: D=64), and the causal flash-attention
+             D=128; Llama-3.2-1B: D=64) and at four sets of lengths (ragged,
+             one split, lengths ending mid-split, all slots full), timing it
+             and its SDPA yardstick as device time with the stream held (the
+             host off the critical path, L2 flushed before each call) beside
+             the wrapper's host time per call, and at several split counts
+             (ragged, full); then at further head shapes and block sizes
+             (correctness only); and the causal flash-attention
              forward (o, lse) and backward (dq, dk, dv) kernels to theirs
              (largest absolute error, and largest error of a row relative
              to the row) at the training path's shapes (Llama-3.2-1B b8 s1024 D=64,
@@ -46,6 +52,11 @@ Phases (any failure stops the run with a non-zero exit and no result):
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; exits non-zero without
 one, or when run outside a checkout of the repository.
+
+    python3 chip_smoke.py --wrapper-host
+
+prints only the paged-decode wrapper's host µs per call (see
+wrapper_host_report).
 """
 
 from __future__ import annotations
@@ -76,6 +87,25 @@ REPLACES = "dstack_tpu/ops/flash_attention.py:703"
 SHAPES = {"llama3-8b": 128, "llama3-1b": 64}
 LENGTHS = [0, 1, 31, 32, 33, 500, 1000, 1024]
 B, HKV, G, BS, NBK = 8, 8, 4, 32, 32
+#: device cycles the stream is held for while the host queues timed calls
+#: (~0.1 s at the H100's clock; the host's queuing must end before it)
+HOLD_CYCLES = 200_000_000
+#: timed calls of the kernel and of its yardstick per case
+PAGED_ITERS = 100
+#: bytes read between timed calls to evict the pages from the 50 MB L2, as
+#: the other layers' weights do between two calls of a decode step (read,
+#: not written: dirty lines would add their write-back to the next call)
+FLUSH_BYTES = 128 << 20
+#: further (query heads per kv head, head_dim, page rows) the paged-decode
+#: kernel is held to, for correctness only, at the ragged lengths cut to
+#: the table: the tiny config's G=2 D=16, head dims that are no power of
+#: two, two blocks of 8 query rows (G=16, G=12), D=256, block sizes that
+#: are no power of two
+PAGED_EDGE_SHAPES = ((2, 16, 32), (5, 48, 32), (16, 32, 32), (12, 80, 24),
+                     (4, 256, 32), (1, 112, 16), (4, 128, 24))
+#: split counts the paged-decode kernel is also held and timed at (ragged
+#: and full cases; the wrapper picks one of them)
+SPLIT_SWEEP = (1, 2, 4, 6, 8, 16)
 #: o: p is rounded to bf16 before PV against the running max in the kernel
 #: and the global max in the plain version (sound kernel: <= 1.6e-3 at
 #: these shapes); lse sums unrounded f32 p on both sides.  What planted
@@ -146,32 +176,51 @@ def fail(msg: str) -> None:
 # -- phase 2: kernel against its plain version -------------------------------
 
 
-def make_case(torch, d: int, quant: bool, seed: int):
+def paged_cases(num_sms: int) -> dict:
+    """case -> (lengths of the 8 slots, table columns walked): the ragged
+    burst; a table of 2 columns (one split, no merge); lengths ending
+    inside a split, on its boundaries and past it at the split count this
+    card gets; every slot full (the served configuration's worst case)."""
+    from dstack_tpu_torch.ops import flash_attention as fa
+
+    splits = fa.paged_decode_splits(NBK, B, HKV, num_sms)
+    rows = -(-NBK // splits) * BS  # rows a split walks
+    mid = [0, rows - 1, rows, rows + 1, rows + rows // 2 + 3,
+           2 * rows + 17, NBK * BS - rows // 2, NBK * BS - 5]
+    return {"ragged": (LENGTHS, NBK),
+            "one-split": ([min(n, 2 * BS) for n in LENGTHS[:5]] + [40, 63,
+                                                                    64], 2),
+            "mid-split": ([min(n, NBK * BS) for n in mid], NBK),
+            "full": ([NBK * BS] * B, NBK)}
+
+
+def make_case(torch, d: int, quant: bool, seed: int, lengths=LENGTHS,
+              nbk: int = NBK, g: int = G, bs: int = BS):
     from dstack_tpu_torch.serving.quant import quantize_kv
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(seed)
     nb = B * NBK + 1
-    q = torch.randn((B, HKV, G, d), generator=gen, device=dev).to(
+    q = torch.randn((B, HKV, g, d), generator=gen, device=dev).to(
         torch.bfloat16)
-    kp = torch.randn((nb, BS, HKV, d), generator=gen, device=dev).to(
+    kp = torch.randn((nb, bs, HKV, d), generator=gen, device=dev).to(
         torch.bfloat16)
-    vp = torch.randn((nb, BS, HKV, d), generator=gen, device=dev).to(
+    vp = torch.randn((nb, bs, HKV, d), generator=gen, device=dev).to(
         torch.bfloat16)
     # each slot owns distinct random pages; the table is twice as wide as
     # the walk and sliced, as the engine's ragged bucket is
     perm = torch.randperm(nb - 1, generator=gen, device=dev).to(
         torch.int32) + 1
     tables = torch.zeros((B, 2 * NBK), dtype=torch.int32, device=dev)
-    for b, n in enumerate(LENGTHS):
-        owned = -(-n // BS)
+    for b, n in enumerate(lengths):
+        owned = -(-n // bs)
         tables[b, :owned] = perm[b * NBK:b * NBK + owned]
-    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     if quant:
         kq, ks = quantize_kv(kp)
         vq, vs = quantize_kv(vp)
         kp, vp = {"q": kq, "s": ks}, {"q": vq, "s": vs}
-    return q, kp, vp, tables[:, :NBK], lengths
+    return q, kp, vp, tables[:, :nbk], lengths
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -188,16 +237,56 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(d: int, quant: bool):
+def held_span(torch, body, iters: int):
+    """(device ms, host ms) of ``iters`` calls of ``body`` queued while
+    the stream is held by ``torch.cuda._sleep``, between two CUDA events:
+    the device runs them back to back, so the span is the device's work
+    and the launch gaps between the kernels, never the host's queuing."""
+    body()
+    torch.cuda.synchronize()
+    held, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    held.record()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        body()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    held_ms = held.elapsed_time(start)
+    if host_ms >= held_ms:
+        fail(f"the host took {host_ms:.1f} ms to queue {iters} calls, longer "
+             f"than the stream was held ({held_ms:.1f} ms)")
+    return start.elapsed_time(end), host_ms
+
+
+def device_ms(torch, fn, iters: int, flush=None, flush_span=0.0) -> float:
+    """Device ms per call of ``fn`` (see :func:`held_span`).  With
+    ``flush``, each call follows a flush of the L2, and ``flush_span``, the
+    span of ``iters`` flushes alone, is taken off."""
+    if flush is None:
+        return held_span(torch, fn, iters)[0] / iters
+    both = held_span(torch, lambda: (flush(), fn()), iters)[0]
+    return (both - flush_span) / iters
+
+
+def wrapper_host_ms(torch, fn, iters: int) -> float:
+    """Host ms per call of ``fn``, queued while the stream is held."""
+    return held_span(torch, fn, iters)[1] / iters
+
+
+def bound(d: int, quant: bool, lengths=LENGTHS):
     """Least time for this call's work: each input byte the function needs
     read once (q, the K/V rows below each length, their scales, the table
     entries walked, the lengths), each output byte written once, against
     4 * sum(length) * Hq * D operations (QK and PV, two per MAC) in bf16."""
     hq = HKV * G
-    rows = sum(LENGTHS)
+    rows = sum(lengths)
     elem = 1 if quant else 2
     kv = 2 * rows * HKV * d * elem + (2 * rows * HKV * 4 if quant else 0)
-    pages = sum(-(-n // BS) for n in LENGTHS)
+    pages = sum(-(-n // BS) for n in lengths)
     nbytes = (B * hq * d * 2 + kv + pages * 4 + B * 4
               + B * hq * d * 4 + B * hq * 4)
     flops = 4 * rows * hq * d
@@ -208,70 +297,191 @@ def bound(d: int, quant: bool):
 
 def errors(torch, fa, args):
     """Largest |o| and |lse| differences of the wrapper against the plain
-    version on ``args``, and whether the empty slot (row 0) gave o = 0,
-    lse = -1e30."""
+    version on ``args``, and whether every empty slot gave o = 0, lse =
+    -1e30 exactly (True where no slot is empty)."""
     o, lse = fa.paged_decode_attention(*args)
     torch.cuda.synchronize()
     want_o, want_lse = fa.paged_decode_attention_plain(*args)
     err_o = (o - want_o).abs().max().item()
     err_lse = (lse - want_lse).abs().max().item()
-    empty_ok = bool(torch.all(o[0] == 0) and torch.all(lse[0] == -1e30))
+    empty = args[4] == 0
+    empty_ok = bool(torch.all(o[empty] == 0)
+                    and torch.all(lse[empty] == -1e30))
     return err_o, err_lse, empty_ok
 
 
-def check_kernels(torch) -> dict:
+def checked_errors(torch, fa, args, label: str):
+    """:func:`errors`, failing the run past O_ATOL, LSE_ATOL or the
+    empty-slot sentinel."""
+    err_o, err_lse, empty_ok = errors(torch, fa, args)
+    if not (err_o <= O_ATOL and err_lse <= LSE_ATOL):
+        fail(f"kernel {label}: disagrees with the plain version: max |o| "
+             f"err {err_o}, max |lse| err {err_lse}")
+    if not empty_ok:
+        fail(f"kernel {label}: an empty slot is not o=0, lse=-1e30")
+    return err_o, err_lse
+
+
+def split_sweep(torch, fa, args, flush, flush_span, label: str) -> dict:
+    """K5's device µs per call at each count of SPLIT_SWEEP (timed as
+    :func:`check_kernels` times it), each result held to the plain
+    version first."""
+    q, kp, vp, tables, lengths = args
+    kq, ks = fa._pages(kp)
+    vq, vs = fa._pages(vp)
+    want_o, want_lse = fa.paged_decode_attention_plain(*args)
+    out = {}
+    for splits in SPLIT_SWEEP:
+        def run():
+            return fa._paged_decode_kernel(q, kq, ks, vq, vs, tables,
+                                           lengths, None, splits)
+
+        o, lse = run()
+        torch.cuda.synchronize()
+        err_o = (o - want_o).abs().max().item()
+        err_lse = (lse - want_lse).abs().max().item()
+        if not (err_o <= O_ATOL and err_lse <= LSE_ATOL):
+            fail(f"kernel {label} at {splits} splits: disagrees with the "
+                 f"plain version: max |o| err {err_o}, max |lse| err "
+                 f"{err_lse}")
+        out[splits] = device_ms(torch, run, PAGED_ITERS, flush,
+                                flush_span) * 1e3
+    return out
+
+
+def sdpa_yardstick(torch, args, d: int, nbk: int):
+    """One library attention call over the gathered, dequantized view of
+    the pages (the port never calls it): the K5 yardstick."""
     import torch.nn.functional as F
 
+    q, kp, vp, tables, lengths = args
+    idx = tables.long()
+
+    def dense(pages):
+        if isinstance(pages, dict):
+            rows = (pages["q"][idx].float()
+                    * pages["s"][idx][..., None]).to(torch.bfloat16)
+        else:
+            rows = pages[idx]
+        return rows.reshape(B, nbk * BS, HKV, d).transpose(1, 2)
+
+    kd, vd = dense(kp), dense(vp)
+    qd = q.reshape(B, HKV * G, 1, d)
+    mask = (torch.arange(nbk * BS, device="cuda")[None, :]
+            < lengths[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True)
+
+
+def check_kernels(torch) -> tuple:
+    """K5 against its plain version at every case of :func:`paged_cases`,
+    both head dims and both page types; each case timed as device time
+    (stream held, L2 flushed before each call) beside SDPA's, its bound and
+    the wrapper's host time per call, the ragged and full cases also at
+    each split count of SPLIT_SWEEP.  Then K5 against its plain version
+    at PAGED_EDGE_SHAPES.  Returns the kernels' JSON entries (the ragged
+    case's numbers, as earlier runs reported) and every case's numbers."""
+    from dstack_tpu_torch.ops import flash_attention as fa
+
+    flush_buf = torch.zeros(FLUSH_BYTES // 4, device="cuda")
+    flush = flush_buf.sum
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = paged_cases(num_sms)
+    out, timings = {}, {}
+    for shape, d in SHAPES.items():
+        for quant in (False, True):
+            variant = "int8" if quant else "bf16"
+            name = f"paged_decode_attention[{variant},{shape}]"
+            for case, (lengths, nbk) in cases.items():
+                args = make_case(torch, d, quant, seed=d + quant,
+                                 lengths=lengths, nbk=nbk)
+                label = f"{variant} D={d} {case}"
+                err_o, err_lse = checked_errors(torch, fa, args, label)
+                splits = fa.paged_decode_splits(nbk, B, HKV, num_sms)
+
+                def kernel():
+                    fa.paged_decode_attention(*args)
+
+                sdpa = sdpa_yardstick(torch, args, d, nbk)
+                flush_span = held_span(torch, flush, PAGED_ITERS)[0]
+                ms = device_ms(torch, kernel, PAGED_ITERS, flush, flush_span)
+                library_ms = device_ms(torch, sdpa, PAGED_ITERS, flush,
+                                       flush_span)
+                warm_ms = device_ms(torch, kernel, PAGED_ITERS)
+                host_ms = wrapper_host_ms(torch, kernel, PAGED_ITERS)
+                bound_ms, bound_by, nbytes, flops = bound(d, quant, lengths)
+                row = {"max_abs_err": err_o, "max_abs_err_lse": err_lse,
+                       "splits": splits, "ms": ms, "warm_l2_ms": warm_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "of_bound": bound_ms / ms,
+                       "x_sdpa": ms / library_ms,
+                       "wrapper_host_us": host_ms * 1e3}
+                log(f"kernel {name} {case} (splits {splits}): max|o err| "
+                    f"{err_o:.3e} max|lse err| {err_lse:.3e}  kernel "
+                    f"{ms * 1e3:.2f} us (warm L2 {warm_ms * 1e3:.2f})  sdpa "
+                    f"{library_ms * 1e3:.2f} us  bound {bound_ms * 1e3:.2f} "
+                    f"us by {bound_by} ({nbytes} B, {flops} flop), "
+                    f"{bound_ms / ms:.3f} of it, {ms / library_ms:.2f}x sdpa"
+                    f"  wrapper host {host_ms * 1e3:.1f} us/call")
+                if case in ("ragged", "full"):
+                    sweep = split_sweep(torch, fa, args, flush, flush_span,
+                                        label)
+                    row["split_sweep_us"] = sweep
+                    log(f"kernel {name} {case}: us at splits " + ", ".join(
+                        f"{n}{'*' if n == splits else ''} {us:.2f}"
+                        for n, us in sweep.items()))
+                timings[f"{name}[{case}]"] = row
+                if case != "ragged":
+                    continue
+                plain_ms = time_ms(
+                    torch, lambda: fa.paged_decode_attention_plain(*args), 20)
+                log(f"kernel {name} ragged: plain {plain_ms * 1e3:.1f} us")
+                out[name] = {
+                    "name": name, "route": "cuda", "source": SOURCE,
+                    "replaces": REPLACES, "launches": 0,
+                    "max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms,
+                }
+            del args
+    del flush_buf
+    for g, d, bs in PAGED_EDGE_SHAPES:
+        for quant in (False, True):
+            variant = "int8" if quant else "bf16"
+            lengths = [min(n, NBK * bs) for n in LENGTHS]
+            args = make_case(torch, d, quant, seed=g + d + bs + quant,
+                             lengths=lengths, g=g, bs=bs)
+            label = f"{variant} G={g} D={d} BS={bs}"
+            err_o, err_lse = checked_errors(torch, fa, args, label)
+            timings[f"paged_decode_attention[{variant},G={g},D={d},"
+                    f"BS={bs}]"] = {"max_abs_err": err_o,
+                                    "max_abs_err_lse": err_lse}
+            log(f"kernel paged_decode_attention {label}: max|o err| "
+                f"{err_o:.3e} max|lse err| {err_lse:.3e}")
+            del args
+    torch.cuda.empty_cache()
+    return out, timings
+
+
+def wrapper_host_report(torch) -> dict:
+    """The wrapper's host µs per call at the ragged case of each shape and
+    page type, five times each, queued with the stream held and no events
+    among the calls (:func:`wrapper_host_ms`).  It calls nothing but
+    ``paged_decode_attention``, so ``chip_smoke.py --wrapper-host`` copied
+    into another checkout's root and run there times that checkout's
+    wrapper the same way."""
     from dstack_tpu_torch.ops import flash_attention as fa
 
     out = {}
     for shape, d in SHAPES.items():
         for quant in (False, True):
-            variant = "int8" if quant else "bf16"
             args = make_case(torch, d, quant, seed=d + quant)
-            err_o, err_lse, empty_ok = errors(torch, fa, args)
-            if not (err_o <= O_ATOL and err_lse <= LSE_ATOL):
-                fail(f"kernel {variant} D={d} disagrees with the plain "
-                     f"version: max |o| err {err_o}, max |lse| err {err_lse}")
-            if not empty_ok:
-                fail(f"kernel {variant} D={d}: empty slot is not o=0, "
-                     "lse=-1e30")
-            ms = time_ms(torch, lambda: fa.paged_decode_attention(*args), 200)
-            plain_ms = time_ms(
-                torch, lambda: fa.paged_decode_attention_plain(*args), 20)
-            # yardstick: one library attention call over the gathered,
-            # dequantized view (the port never calls it)
-            q, kp, vp, tables, lengths = args
-            idx = tables.long()
-
-            def dense(pages):
-                if isinstance(pages, dict):
-                    rows = (pages["q"][idx].float()
-                            * pages["s"][idx][..., None]).to(torch.bfloat16)
-                else:
-                    rows = pages[idx]
-                return rows.reshape(B, NBK * BS, HKV, d).transpose(1, 2)
-
-            kd, vd = dense(kp), dense(vp)
-            qd = q.reshape(B, HKV * G, 1, d)
-            mask = (torch.arange(NBK * BS, device="cuda")[None, :]
-                    < lengths[:, None])[:, None, None, :]
-            library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qd, kd, vd, attn_mask=mask, enable_gqa=True), 200)
-            bound_ms, bound_by, nbytes, flops = bound(d, quant)
-            name = f"paged_decode_attention[{variant},{shape}]"
-            out[name] = {
-                "name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES, "launches": 0,
-                "max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms,
-            }
-            log(f"kernel {name}: max|o err| {err_o:.3e} max|lse err| "
-                f"{err_lse:.3e}  kernel {ms * 1e3:.1f} us  plain "
-                f"{plain_ms * 1e3:.1f} us  sdpa {library_ms * 1e3:.1f} us  "
-                f"bound {bound_ms * 1e3:.2f} us by {bound_by} ({nbytes} B, "
-                f"{flops} flop)")
+            out[f"{'int8' if quant else 'bf16'},{shape}"] = [
+                wrapper_host_ms(torch,
+                                lambda: fa.paged_decode_attention(*args),
+                                PAGED_ITERS) * 1e3 for _ in range(5)]
+            del args
+    torch.cuda.empty_cache()
     return out
 
 
@@ -637,8 +847,10 @@ def kernel_share(torch, cfg) -> dict:
     clock; while the device waits on the host, the span includes the
     wrapper's host work.  So every call is then replayed, a chunk at a
     time, with the stream held by ``torch.cuda._sleep`` until the host has
-    queued the chunk: each replayed pair spans the kernel alone, and the
-    host's queuing time over the calls is the wrapper's host time.  The kernel's time depends on
+    queued the chunk: each replayed pair spans the kernels alone.  The
+    chunk is then queued once more, held, without events: the host's
+    queuing time over those calls is the wrapper's host time.  The
+    kernel's time depends on
     the lengths and tables only, not on the page contents, which the run
     has overwritten since.  A decode step's time is the run's wall time
     over its decode steps (prefill of the five prompts included, as in
@@ -687,19 +899,18 @@ def kernel_share(torch, cfg) -> dict:
     for first in range(0, len(calls), REPLAY_CHUNK):
         # a chunk at a time: the launch queue is only so deep, and a full
         # one would block the host until the device caught up
+        chunk_calls = calls[first:first + REPLAY_CHUNK]
+        chunk = [event_pair() for _ in chunk_calls]
         held = torch.cuda.Event(enable_timing=True)
         held.record()
         torch.cuda._sleep(400_000_000)  # ~0.2 s of device clock cycles
-        t_host = time.time()
-        chunk = []
-        for q, kp, vp, tables, lengths, kw in calls[first:
-                                                    first + REPLAY_CHUNK]:
-            pair = event_pair()
+        t_host = time.perf_counter()
+        for pair, (q, kp, vp, tables, lengths, kw) in zip(chunk,
+                                                          chunk_calls):
             pair[0].record()
             real(q, kp, vp, tables, lengths, **kw)
             pair[1].record()
-            chunk.append(pair)
-        chunk_ms = (time.time() - t_host) * 1e3
+        chunk_ms = (time.perf_counter() - t_host) * 1e3
         torch.cuda.synchronize()
         chunk_held_ms = held.elapsed_time(chunk[0][0])
         if chunk_ms >= chunk_held_ms:
@@ -707,7 +918,13 @@ def kernel_share(torch, cfg) -> dict:
                  f"{len(chunk)} replays, longer than the stream was held "
                  f"({chunk_held_ms:.0f} ms)")
         replays += chunk
-        enqueue_ms += chunk_ms
+        # the same calls again without events: the wrapper's host time
+        torch.cuda._sleep(400_000_000)
+        t_host = time.perf_counter()
+        for q, kp, vp, tables, lengths, kw in chunk_calls:
+            real(q, kp, vp, tables, lengths, **kw)
+        enqueue_ms += (time.perf_counter() - t_host) * 1e3
+        torch.cuda.synchronize()
     kernel_ms = sum(a.elapsed_time(b) for a, b in replays)
     out = {"decode_steps": steps, "launches": len(pairs),
            "step_wall_ms": wall * 1e3 / steps,
@@ -715,7 +932,7 @@ def kernel_share(torch, cfg) -> dict:
            "kernel_us_per_launch": kernel_ms * 1e3 / len(pairs),
            "kernel_share_of_step": kernel_ms / (wall * 1e3),
            "call_span_us_per_launch": span_ms * 1e3 / len(pairs),
-           # two event records per call included
+           # the calls queued with the stream held, no events among them
            "wrapper_host_us_per_call": enqueue_ms * 1e3 / len(replays)}
     log("share: " + json.dumps(out))
     del engine, calls
@@ -912,6 +1129,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if sys.argv[1:] == ["--wrapper-host"]:
+        log(json.dumps({"wrapper_host_us": wrapper_host_report(torch)}))
+        return 0
+
     from dstack_tpu_torch.models.llama import LlamaConfig
     from dstack_tpu_torch.ops import _build
 
@@ -921,7 +1142,7 @@ def main() -> int:
     for name, text in logs.items():
         log(f"nvcc {name}:\n{text.strip()}")
 
-    kernels = check_kernels(torch)
+    kernels, paged = check_kernels(torch)
     kernels.update(check_flash_kernels(torch))
     check_f32_logits(torch)
     served = serve_8b()
@@ -952,6 +1173,7 @@ def main() -> int:
             fail(f"{k['name']} was not launched on its path")
     log("server summary: " + json.dumps(served))
     log("share summary: " + json.dumps(share))
+    log("paged-decode cases: " + json.dumps(paged))
     for run in trained:
         log("train summary: " + json.dumps(
             {k: run[k] for k in ("config", "tokens_per_s", "mfu_6nd",

@@ -34,8 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "paged_decode": ("dstack_paged_decode",
-                     [_P, _P, _P, _P, _P, _P, _LL, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _F, _I, _P]),
+                     [_P] * 6 + [_LL] + [_P] * 5 + [_I] * 7
+                     + [_F, _I, _P]),
     "flash_fwd": ("dstack_flash_fwd", [_P] * 5 + [_I] * 5 + [_F, _P]),
     "flash_bwd": ("dstack_flash_bwd", [_P] * 11 + [_I] * 5 + [_F, _P]),
 }

@@ -14,8 +14,11 @@ softmax logsumexp; the backward recomputes the probabilities from them.
 serving engine's decode loop, read straight out of the paged KV pool
 (serving/paging.py) through block tables: only the pages a slot owns
 cross device memory, once, and no dense per-slot view is built.  The
-kernel is ``csrc/paged_decode.cu``; ``paged_decode_attention_plain``
-computes the same function by gathering the pages into a dense view.  It
+kernel is ``csrc/paged_decode.cu``: a split-KV walk whose splits
+(:func:`paged_decode_splits`) a second kernel merges by logsumexp
+(:func:`paged_decode_merge_plain` is the merge's plain version);
+``paged_decode_attention_plain`` computes the whole function by gathering
+the pages into a dense view.  It
 returns a NORMALISED output plus the softmax logsumexp, so the caller can
 merge other attention pieces (the engine's in-window KV buffer) by
 logsumexp without re-reading pages.  A slot with length 0 returns o = 0
@@ -25,6 +28,7 @@ logsumexp merge is exactly 0 while the merge arithmetic stays NaN-free.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -32,9 +36,9 @@ import torch
 from dstack_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
-#: the paged-decode kernel keeps G * D accumulators over 128 threads, 8
-#: per thread
-_MAX_GROUP_X_DIM = 1024
+#: head dims the paged-decode kernel is built for (any number of query heads
+#: per kv head)
+PAGED_HEAD_DIMS = tuple(range(16, 257, 16))
 #: head dims the causal kernels are built for, and their row-block size
 FLASH_HEAD_DIMS = (64, 128)
 _FLASH_BLOCK = 64
@@ -151,12 +155,18 @@ def _check_flash(q, k, *others):
 
 def _launch(name: str, *args) -> None:
     """Launch ``csrc/<name>.cu`` on the current stream of the first
-    argument's device: tensors pass as pointers, everything else as is."""
+    argument's device: tensors pass as pointers, everything else as is.
+    The raw stream handle and no device switch while that device is the
+    current one keep the host's cost per launch low."""
     fn = _build.load(name)
-    with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                  for a in args), stream)
+    index = args[0].device.index
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        rc = fn(*ptrs, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*ptrs, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
@@ -294,26 +304,75 @@ def paged_decode_attention_plain(q, k_pages, v_pages, tables, lengths, *,
     return o, lse
 
 
+def paged_decode_splits(nbk: int, batch: int, hkv: int, num_sms: int) -> int:
+    """How many splits the kernel cuts each slot's table walk into.
+
+    A function of host integers only (the table width NBK, B, Hkv and the
+    card's SM count), never of the lengths, which stay on the device: as
+    many splits as keep the (split, kv head, slot) grid within two CTAs
+    per SM, each at least two table columns, so a table of three columns
+    or fewer is walked in one split and needs no merge.  On an H100 the
+    all-full table (8 slots, 8 kv heads, 32 columns) ran as fast at 2 and
+    4 splits and slower at 6 and more, and the ragged burst ran fastest at
+    4 (``chip_smoke.py``'s split sweep)."""
+    want = max(1, min(2 * num_sms // max(batch * hkv, 1), nbk // 2))
+    return -(-nbk // -(-nbk // want)) if nbk > 0 else 1
+
+
+def paged_decode_split_ranges(nbk: int, splits: int):
+    """The kernel's cut of table columns [0, nbk) into ``splits`` runs:
+    split s walks columns [c0, c1), ``ceil(nbk / splits)`` columns each."""
+    cols = -(-nbk // splits)
+    return [(min(s * cols, nbk), min((s + 1) * cols, nbk))
+            for s in range(splits)]
+
+
+def paged_decode_merge_plain(o_parts, lse_parts):
+    """Plain version of the merge kernel: ``(o, lse)`` from the splits'
+    partials, o_parts f32 [B, Hkv, S, G, D] (each normalised over its own
+    rows) and lse_parts f32 [B, Hkv, S, G], by logsumexp over S.  An empty
+    partial (lse -1e30) weighs exactly 0; where every partial is empty, o
+    is 0 and lse exactly -1e30."""
+    m = lse_parts.amax(dim=2)
+    empty = m <= _NEG_INF
+    w = torch.where(empty[:, :, None], 0.0,
+                    torch.exp(lse_parts - m[:, :, None]))
+    wsum = w.sum(dim=2)
+    safe = torch.where(empty, 1.0, wsum)
+    o = (w[..., None] * o_parts).sum(dim=2) / safe[..., None]
+    lse = torch.where(empty, _NEG_INF, m + torch.log(safe))
+    return o, lse
+
+
 def _check(q, kq, ks, vq, vs, tables, lengths):
+    """What the kernel takes (every tensor on q's device): bf16 q [B, Hkv,
+    G, D], 4-byte aligned, with D in :data:`PAGED_HEAD_DIMS` and any G;
+    pages bf16 or int8 (f32 scales) [NB, BS, Hkv, D], 16-byte aligned (the
+    kernel copies 16-byte chunks); int32 tables [B, NBK] with unit column
+    stride; int32 lengths [B]; q and the pages contiguous."""
     dev = q.device
-    tensors = [kq, vq, tables, lengths] + [t for t in (ks, vs) if t is not None]
-    if any(t.device != dev for t in tensors):
-        raise ValueError("paged_decode_attention: all tensors must be on "
-                         f"{dev}")
+    for t in (kq, vq, tables, lengths, ks, vs):
+        if t is not None and t.device != dev:
+            raise ValueError("paged_decode_attention: all tensors must be on "
+                             f"{dev}")
     if q.dtype != torch.bfloat16 or q.dim() != 4 or not q.is_contiguous():
         raise ValueError("q must be a contiguous bf16 [B, Hkv, G, D] tensor")
     b, hkv, group, d = q.shape
-    if d % 2 or group * d > _MAX_GROUP_X_DIM:
-        raise ValueError(f"unsupported head shape G={group}, D={d}")
+    if d not in PAGED_HEAD_DIMS or group < 1:
+        raise ValueError(f"unsupported head shape G={group}, D={d}: the "
+                         "kernel takes D a multiple of 16 up to 256")
     want = torch.int8 if ks is not None else torch.bfloat16
+    shape = kq.shape
     for t in (kq, vq):
-        if (t.dtype != want or t.dim() != 4 or t.shape[2:] != (hkv, d)
-                or t.shape != kq.shape or not t.is_contiguous()):
+        if (t.dtype != want or t.dim() != 4 or t.shape != shape
+                or shape[2] != hkv or shape[3] != d or not t.is_contiguous()):
             raise ValueError(f"pages must be contiguous {want} "
                              "[NB, BS, Hkv, D] tensors of one shape")
+    if shape[1] < 1:
+        raise ValueError("pages must hold at least one row")
     if ks is not None:
         for t in (ks, vs):
-            if (t.dtype != torch.float32 or t.shape != kq.shape[:3]
+            if (t.dtype != torch.float32 or t.shape != shape[:3]
                     or not t.is_contiguous()):
                 raise ValueError("int8 page scales must be contiguous f32 "
                                  "[NB, BS, Hkv] tensors")
@@ -324,8 +383,50 @@ def _check(q, kq, ks, vq, vs, tables, lengths):
     if (lengths.dtype != torch.int32 or lengths.shape != (b,)
             or not lengths.is_contiguous()):
         raise ValueError("lengths must be a contiguous int32 [B] tensor")
-    if any(t.data_ptr() % 4 for t in (q, kq, vq)):
-        raise ValueError("q and the pages must be 4-byte aligned")
+    if q.data_ptr() % 4:
+        raise ValueError("q must be 4-byte aligned")
+    if kq.data_ptr() % 16 or vq.data_ptr() % 16:
+        raise ValueError("the pages must be 16-byte aligned")
+
+
+def _paged_buffers(b: int, hkv: int, group: int, d: int, splits: int,
+                   device):
+    """``(o, lse, o_part, lse_part)``: o f32 [B, Hkv, G, D] and lse f32
+    [B, Hkv, G] as views, and the addresses of the partials' scratch
+    o_part f32 [B, Hkv, S, G, D] and lse_part f32 [B, Hkv, S, G] (empty when
+    S = 1: the walk then writes o and lse itself), all in one
+    ``torch.empty`` in the order o, o_part, lse, lse_part, so the two
+    [..., D] arrays start 16-byte aligned.  The scratch lives as long as o
+    and lse (it shares their storage)."""
+    rows = b * hkv * group
+    part_rows = rows * splits if splits > 1 else 0
+    n_o = (rows + part_rows) * d
+    buf = torch.empty(n_o + rows + part_rows, dtype=torch.float32,
+                      device=device)
+    o = buf.as_strided((b, hkv, group, d), (hkv * group * d, group * d, d, 1))
+    lse = buf.as_strided((b, hkv, group), (hkv * group, group, 1), n_o)
+    base = buf.data_ptr()
+    return o, lse, base + 4 * rows * d, base + 4 * (n_o + rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _paged_decode_kernel(q, kq, ks, vq, vs, tables, lengths, scale,
+                         splits: int):
+    """``(o, lse)`` from ``csrc/paged_decode.cu`` at ``splits`` splits, on
+    checked arguments (see :func:`_check`)."""
+    b, hkv, group, d = q.shape
+    o, lse, o_part, lse_part = _paged_buffers(b, hkv, group, d, splits,
+                                              q.device)
+    if scale is None:
+        scale = d ** -0.5
+    _launch("paged_decode", q, kq, vq, ks, vs, tables, tables.stride(0),
+            lengths, o, lse, o_part, lse_part, b, hkv, group, d, kq.shape[1],
+            tables.shape[1], splits, float(scale), int(ks is not None))
+    return o, lse
 
 
 def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
@@ -341,26 +442,27 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
     Returns ``(o, lse)``: o float32 [B, Hkv, G, D] normalised over the
     slot's ``length`` rows, lse float32 [B, Hkv, G] (-1e30 where length is
     0, with o = 0).  CPU tensors take :func:`paged_decode_attention_plain`;
-    CUDA tensors launch the Hopper kernel (bf16 q, bf16 or int8 pages) or
-    raise.  ``paged_decode_attention.launches`` counts kernel launches.
+    CUDA tensors launch ``csrc/paged_decode.cu`` (bf16 q, bf16 or int8
+    pages; see :func:`_check`) or raise.  On the card one call launches
+    the split walk and, when :func:`paged_decode_splits` gives more than
+    one split, the merge kernel after it; ``paged_decode_attention.
+    launches`` counts calls that launched, once per call.  The lengths
+    are never read on the host.
     """
-    kq, ks = _pages(k_pages)
-    vq, vs = _pages(v_pages)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, tables,
                                             lengths, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device "
                          f"{q.device}")
+    kq, ks = _pages(k_pages)
+    vq, vs = _pages(v_pages)
     _check(q, kq, ks, vq, vs, tables, lengths)
-    b, hkv, group, d = q.shape
-    if scale is None:
-        scale = d ** -0.5
-    o = torch.empty((b, hkv, group, d), dtype=torch.float32, device=q.device)
-    lse = torch.empty((b, hkv, group), dtype=torch.float32, device=q.device)
-    _launch("paged_decode", q, kq, vq, ks, vs, tables, tables.stride(0),
-            lengths, o, lse, b, hkv, group, d, kq.shape[1], tables.shape[1],
-            float(scale), int(ks is not None))
+    b, hkv = q.shape[:2]
+    splits = paged_decode_splits(tables.shape[1], b, hkv,
+                                 _sm_count(q.device.index))
+    o, lse = _paged_decode_kernel(q, kq, ks, vq, vs, tables, lengths, scale,
+                                  splits)
     paged_decode_attention.launches += 1
     return o, lse
 

@@ -3,13 +3,16 @@
     python -m dstack_tpu_torch.tools.paged_decode_faults    # from the repo root
 
 Builds copies of ``ops/csrc/paged_decode.cu``, the sound one and one with
-each fault below planted, into ``dstack_tpu_torch/build/faults/``, and
-holds each to the plain version at chip_smoke.py's shapes and with its
-error measure.  Prints, per fault and case, the largest |o| and |lse|
-errors and whether chip_smoke's limits (``O_ATOL``, ``LSE_ATOL``, the
-empty-slot sentinel) catch it; the last line is the same as JSON.  The
-limits should sit above every sound error and below every fault's.  The
-sources in the checkout are read, never written.  Needs one CUDA card.
+each fault below planted, into ``dstack_tpu_torch/build/faults/`` (one
+``nvcc`` per copy, all started together), and holds each to the plain
+version at chip_smoke.py's shapes and cases (ragged, one split,
+mid-split, full) and with its error measure.  Prints, per fault and case,
+the largest |o| and |lse| errors and whether chip_smoke's limits
+(``O_ATOL``, ``LSE_ATOL``, the empty-slot sentinel) catch it, and per
+fault the number of cases that catch it; the last line is the same as
+JSON.  Exits 1 if the sound kernel fails a case or a fault passes every
+case.  The sources in the checkout are read, never written.  Needs one
+CUDA card.
 """
 
 from __future__ import annotations
@@ -24,26 +27,45 @@ from pathlib import Path
 FAULTS = {
     "sound": ("the kernel as it is", []),
     "no_rescale": (
-        "acc is not rescaled when a later page raises the running max",
-        [("acc[j] = acc[j] * a_s[g] + s;", "acc[j] = acc[j] + s;")]),
+        "acc is not rescaled when a later tile raises the running max",
+        [("const float alpha0 = __shfl_sync(0xffffffffu, alpha, 8 * tig);",
+          "const float alpha0 = 1.f;"),
+         ("const float alpha1 = __shfl_sync(0xffffffffu, alpha, 8 * tig + 4);",
+          "const float alpha1 = 1.f;")]),
     "stale_v_late": (
-        "the last page of a slot longer than 8 pages reads its V rows "
-        "(and int8 V scales) from the page before it",
-        [("const long long row = (page * BS + t) * hkv + h;",
-          "const long long row = (page * BS + t) * hkv + h;\n"
-          "      const long long vrow = (i >= 8 && (i + 1) * BS >= length)\n"
-          "          ? ((long long)trow[i - 1] * BS + t) * hkv + h : row;"),
-         ("static_cast<const int8_t*>(v_pages) + row * D)[d2];",
-          "static_cast<const int8_t*>(v_pages) + vrow * D)[d2];"),
-         ("vs = v_scales[row];", "vs = v_scales[vrow];"),
-         ("static_cast<const __nv_bfloat162*>(v_pages)[row * D2 + d2];",
-          "static_cast<const __nv_bfloat162*>(v_pages)[vrow * D2 + d2];")]),
+        "past the slot's 8th page, the last page of a split's run reads "
+        "its V rows (and int8 V scales) from the page before it",
+        [("const long long row = (page * bs + within) * hkv + h;",
+          "const long long row = (page * bs + within) * hkv + h;\n"
+          "    const long long vrow = (valid && col >= 8 && (col + 1) * bs "
+          ">= end)\n"
+          "        ? ((long long)trow[col - 1] * bs + within) * hkv + h : "
+          "row;"),
+         ("vp + row * L::kRowBytes", "vp + vrow * L::kRowBytes"),
+         ("vs + row", "vs + vrow")]),
     "drop_last_row_pv": (
         "the PV product skips each page's last row (scores and l keep it)",
-        [("for (int t = 0; t < BS; ++t) {\n"
-          "          const float p = __bfloat162float",
-          "for (int t = 0; t < BS - 1; ++t) {\n"
-          "          const float p = __bfloat162float")]),
+        [("const uint32_t pb = pack_bf16(p0, p1);",
+          "const uint32_t pb = pack_bf16(p0, (pos + 1) % bs == bs - 1 ? 0.f "
+          ": p1);")]),
+    "merge_drops_last_split": (
+        "the merge gives the last split's partial no weight",
+        [("const float wt = expf(lp[s * group] - mx);",
+          "const float wt = s == splits - 1 ? 0.f : expf(lp[s * group] - "
+          "mx);")]),
+    "split_boundary_off_by_one": (
+        "every split after the first starts one page late: the page at "
+        "each boundary is walked by no split",
+        [("const int c0 = split * cols;",
+          "const int c0 = split * cols + (split > 0);")]),
+    "empty_split_weight": (
+        "a split that starts at or past the length writes lse 0 instead "
+        "of -1e30, so the merge gives its zero partial weight",
+        [("if (tid < rows) lse_out[part + tid] = kNegInf;",
+          "if (tid < rows) lse_out[part + tid] = 0.f;")]),
+    "ring_read_before_wait": (
+        "a warp computes a ring stage without waiting for its copies",
+        [("cp_async_wait<kStages - 1>();", "cp_async_wait<kStages>();")]),
 }
 
 
@@ -61,22 +83,34 @@ def planted_source(edits, source: str = "paged_decode") -> str:
     return src
 
 
-def build_fault(name: str, edits, source: str = "paged_decode") -> Path:
-    """Compile the planted copy into ``build/faults/<name>.so``, with
-    ``csrc/`` on the include path for the shared headers."""
+def start_fault_build(name: str, edits, source: str = "paged_decode"):
+    """Start compiling the planted copy into ``build/faults/<name>.so``,
+    with ``csrc/`` on the include path for the shared headers; returns
+    (the nvcc process, the library's path)."""
     from dstack_tpu_torch.ops import _build
 
     out_dir = _build.BUILD_DIR / "faults"
     out_dir.mkdir(parents=True, exist_ok=True)
     src, lib = out_dir / f"{name}.cu", out_dir / f"{name}.so"
     src.write_text(planted_source(edits, source))
-    proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS,
-                           f"-I{_build.CSRC}", "-o", str(lib), str(src)],
-                          stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS,
+                             f"-I{_build.CSRC}", "-o", str(lib), str(src)],
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def finish_fault_build(name: str, build) -> Path:
+    proc, lib = build
+    log = proc.communicate()[0]
     if proc.returncode != 0:
-        raise SystemExit(f"nvcc failed for fault {name}:\n{proc.stdout}")
+        raise SystemExit(f"nvcc failed for fault {name}:\n{log}")
     return lib
+
+
+def build_fault(name: str, edits, source: str = "paged_decode") -> Path:
+    """Compile the planted copy and wait for it (see start_fault_build)."""
+    return finish_fault_build(name, start_fault_build(name, edits, source))
 
 
 def main() -> int:
@@ -96,36 +130,49 @@ def main() -> int:
                          text=True, timeout=60)
     print(f"card: {smi.stdout.strip()}", flush=True)
     symbol, argtypes = _build.SIGNATURES["paged_decode"]
-    rows = []
+    builds = {name: start_fault_build(name, edits)
+              for name, (_, edits) in FAULTS.items()}
+    libs = {name: finish_fault_build(name, b) for name, b in builds.items()}
+    cases = chip_smoke.paged_cases(
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    rows, caught_at = [], {}
     try:
-        for name, (what, edits) in FAULTS.items():
-            fn = getattr(ctypes.CDLL(str(build_fault(name, edits))), symbol)
+        for name, (what, _) in FAULTS.items():
+            fn = getattr(ctypes.CDLL(str(libs[name])), symbol)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             _build._bound["paged_decode"] = fn
             for shape, d in chip_smoke.SHAPES.items():
                 for quant in (False, True):
-                    args = chip_smoke.make_case(torch, d, quant,
-                                                seed=d + quant)
-                    err_o, err_lse, empty_ok = chip_smoke.errors(torch, fa,
-                                                                 args)
-                    caught = not (err_o <= chip_smoke.O_ATOL
-                                  and err_lse <= chip_smoke.LSE_ATOL
-                                  and empty_ok)
-                    row = {"fault": name, "shape": shape,
-                           "variant": "int8" if quant else "bf16",
-                           "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
-                           "empty_slot_ok": empty_ok, "caught": caught}
-                    rows.append(row)
-                    print(f"{name:18s} {shape:10s} {row['variant']:5s} "
-                          f"o {err_o:.3e}  lse {err_lse:.3e}  "
-                          f"empty {'ok' if empty_ok else 'BAD'}  "
-                          f"{'caught' if caught else 'passes'}  ({what})",
-                          flush=True)
+                    for case, (lengths, nbk) in cases.items():
+                        args = chip_smoke.make_case(
+                            torch, d, quant, seed=d + quant, lengths=lengths,
+                            nbk=nbk)
+                        err_o, err_lse, empty_ok = chip_smoke.errors(
+                            torch, fa, args)
+                        caught = not (err_o <= chip_smoke.O_ATOL
+                                      and err_lse <= chip_smoke.LSE_ATOL
+                                      and empty_ok)
+                        caught_at[name] = caught_at.get(name, 0) + caught
+                        row = {"fault": name, "shape": shape,
+                               "variant": "int8" if quant else "bf16",
+                               "case": case, "max_abs_err_o": err_o,
+                               "max_abs_err_lse": err_lse,
+                               "empty_slot_ok": empty_ok, "caught": caught}
+                        rows.append(row)
+                        print(f"{name:26s} {shape:10s} {row['variant']:5s} "
+                              f"{case:10s} o {err_o:.3e}  lse {err_lse:.3e}"
+                              f"  empty {'ok' if empty_ok else 'BAD'}  "
+                              f"{'caught' if caught else 'passes'}",
+                              flush=True)
+            print(f"{name}: caught at {caught_at.get(name, 0)} of "
+                  f"{4 * len(cases)} cases ({what})", flush=True)
     finally:
         _build._bound.pop("paged_decode", None)
     print(json.dumps({"o_atol": chip_smoke.O_ATOL,
-                      "lse_atol": chip_smoke.LSE_ATOL, "cases": rows}))
-    return 0
+                      "lse_atol": chip_smoke.LSE_ATOL,
+                      "caught_at": caught_at, "cases": rows}))
+    missed = [n for n in FAULTS if n != "sound" and not caught_at.get(n)]
+    return 1 if caught_at.get("sound") or missed else 0
 
 
 if __name__ == "__main__":
