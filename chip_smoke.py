@@ -48,6 +48,32 @@ Phases (any failure stops the run with a non-zero exit and no result):
 7. train-plain — one 1B step through the kernels and the same step with
              flash_attention swapped for its plain versions: loss and
              grad norm must agree.
+8. resume  — run_train_loop on Llama-3.2-1B cut to 4 layers (b8 s1024,
+             selective remat) three times on one fixed batch sequence:
+             8 steps uninterrupted under TrainTelemetry; with snapshots
+             every 2 steps in a PreemptionGuard and a real SIGTERM after
+             step 5; killed by an exception after step 7.  Fails unless
+             the SIGTERM run returns "preempted" with step 5 published,
+             the guard is uninstalled after it, the periodic snapshot of
+             step 4 equals the state after step 4 and the restore of step
+             5 the preempted state (bitwise, moments and AdamW's count
+             included), the resumed steps 6-8 give the uninterrupted
+             run's losses (relative 1e-3), a resume after the kill comes
+             from step 6, the telemetry's median step (its tokens/s and
+             MFU) is within 10% of the phase's own median step and its
+             gauges hold the last step's rates, and the flash kernels
+             launched layers x steps (x2 forward) over the phase.  Prints the
+             snapshot's bytes, the copy and write seconds of each save,
+             the restore's seconds.
+9. hf-import — writes Llama-3.2-1B (full size, random bf16 weights from a
+             seed, llama3 rope scaling, tied) as an HF checkpoint in two
+             safetensors shards and loads it with load_hf_llama.  Fails
+             unless config_from_hf gives that config, every loaded leaf
+             equals its source (transposed where HF stores [out, in]),
+             and a paged engine over the loaded weights decodes greedy
+             tokens through the paged-decode kernel, each the plain
+             forward's argmax (as phase 5).  Prints the load's seconds
+             and GB/s.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; exits non-zero without
@@ -154,6 +180,31 @@ TRAIN_STEPS = {"llama3-1b": 5, "llama3-8b-fit": 4}
 #: 700 W: bf16 attention outputs rounded in another order; ~10x that)
 TRAIN_PLAIN_BATCH = 2
 TRAIN_PLAIN_RTOL = {"loss": 1e-3, "grad_norm": 5e-3}
+#: resume phase: the Llama-3.2-1B trainer (full width, b8 s1024,
+#: selective remat, unstacked) cut to 4 layers, so that one snapshot of
+#: bf16 params and moments is ~3 GB (full depth: ~7.4 GB, kept twice);
+#: the uninterrupted run's steps, the step after which a real SIGTERM
+#: preempts the checkpointed run, and the step after which the host-kill
+#: run raises (snapshots every 2 steps, the last 2 kept)
+RESUME_LAYERS = 4
+RESUME_STEPS = 8
+RESUME_PREEMPT_AFTER = 5
+RESUME_KILL_AFTER = 7
+#: the resumed run's losses against the uninterrupted run's, relative:
+#: the two runs cannot agree bitwise, since K4's dq is added by TMA
+#: reduce-adds in no fixed order
+RESUME_LOSS_RTOL = 1e-3
+#: TrainTelemetry's median step (its tokens/s and MFU) against the
+#: phase's own median step (host clock between the loop's step
+#: callbacks); medians, since one step on a busy host can be far off
+TELEMETRY_RTOL = 0.10
+#: hf-import phase: Llama-3.2-1B (full width and depth) in HF's layout,
+#: random bf16 weights from a seed, written in this many safetensors
+#: shards, with Llama-3.2-1B's published llama3 rope scaling
+HF_SHARDS = 2
+HF_ROPE_SCALING = {"rope_type": "llama3", "factor": 32.0,
+                   "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                   "original_max_position_embeddings": 8192}
 #: f32 logits from bf16 inputs: max error over the largest logit (f32
 #: sums in another order give ~1e-6; bf16 rounding of the output, ~4e-3,
 #: must not pass)
@@ -944,11 +995,12 @@ def kernel_share(torch, cfg) -> dict:
 
 
 def run_engine(torch, cfg, kv_quantize, label: str,
-               device: str = "cuda") -> int:
-    """Decode a few greedy tokens for two prompts; returns the kernel's
-    launches during the run.  Each generated token must be the plain
-    full-sequence forward's argmax up to a margin (bf16 sums in another
-    order; int8 pages add their quantization error)."""
+               device: str = "cuda", params=None) -> int:
+    """Decode a few greedy tokens for two prompts, from ``params`` (random
+    from seed 1 when None); returns the kernel's launches during the run.
+    Each generated token must be the plain full-sequence forward's argmax
+    up to a margin (bf16 sums in another order; int8 pages add their
+    quantization error)."""
     from dstack_tpu_torch.ops import flash_attention as fa
     from dstack_tpu_torch.serving.engine import (
         InferenceEngine,
@@ -956,8 +1008,8 @@ def run_engine(torch, cfg, kv_quantize, label: str,
         _prompt_forward,
     )
 
-    engine = InferenceEngine(cfg, batch_size=8, max_len=1024, paged=True,
-                             kv_quantize=kv_quantize, rng_seed=1,
+    engine = InferenceEngine(cfg, params=params, batch_size=8, max_len=1024,
+                             paged=True, kv_quantize=kv_quantize, rng_seed=1,
                              device=device)
     prompts = [[(i * 37 + 11) % 256 for i in range(40)],
                [(i * 91 + 3) % 256 for i in range(75)]]
@@ -1110,6 +1162,413 @@ def train_plain(torch) -> dict:
     return out
 
 
+# -- phase 8: resume ----------------------------------------------------------
+
+
+class SimulatedHostLoss(Exception):
+    """Raised from a step callback: the moral equivalent of a host
+    vanishing mid-run."""
+
+
+def differing(torch, got: list, want: list) -> list:
+    """Paths where two lists of (path, tensor) snapshot leaves (params,
+    moments, AdamW's count, step) differ, bitwise."""
+    if [p for p, _ in got] != [p for p, _ in want]:
+        return ["(leaf paths differ)"]
+    return [p for (p, a), (_, b) in zip(got, want)
+            if a.dtype != b.dtype or not torch.equal(a.to(b.device), b)]
+
+
+def resume_phase(torch, cfg=None, batch: int = 0, seq: int = 0,
+                 device: str = "cuda") -> dict:
+    """The resumable trainer: Llama-3.2-1B at 4 layers (b8 s1024, selective
+    remat, unstacked) through run_train_loop, three times on one fixed
+    batch sequence:
+
+    1. 8 steps uninterrupted, under TrainTelemetry;
+    2. with snapshots every 2 steps (the last 2 kept) inside a
+       PreemptionGuard, a real SIGTERM sent after step 5: the loop must
+       return "preempted" with step 5 published; the periodic snapshot of
+       step 4 must equal, bitwise, the state cloned on the card after step
+       4 (the next step updates it in place: a torn copy shows here), and
+       resume_train_state must restore step 5 bitwise (params, moments,
+       AdamW's count); then the run resumes to step 8, whose losses of
+       steps 6-8 must be the uninterrupted run's within RESUME_LOSS_RTOL;
+    3. an exception from the step callback after step 7: nothing in
+       flight is published, and a resume comes from step 6.
+
+    ``cfg``, ``batch`` and ``seq`` default to the chip's; a CPU rehearsal
+    passes small ones and ``device="cpu"``."""
+    import dataclasses
+    import shutil
+    import signal
+    import tempfile
+
+    from dstack_tpu_torch.models import checkpoint as ckpt
+    from dstack_tpu_torch.models import train
+    from dstack_tpu_torch.ops import flash_attention as fa
+    from dstack_tpu_torch.telemetry.training import TrainTelemetry
+
+    base_cfg, base_batch, base_seq, remat = trainer("llama3-1b")
+    if cfg is None:
+        cfg = dataclasses.replace(base_cfg, num_layers=RESUME_LAYERS)
+        batch, seq = base_batch, base_seq
+    opt = train.default_optimizer()
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def batch_fn(step):
+        gen = torch.Generator(device=device).manual_seed(1000 + step)
+        return {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                                        generator=gen, device=device,
+                                        dtype=torch.int32)}
+
+    class Tap(TrainTelemetry):
+        """The train telemetry, also keeping each step wall it records and
+        the state object the loop's step is given (the step updates it in
+        place)."""
+
+        def __init__(self):
+            super().__init__(log_every=0)
+            self.walls, self.state = [], None
+
+        def record_step(self, wall, tokens, n_devices=1, recompiled=False):
+            self.walls.append(wall)
+            super().record_step(wall, tokens, n_devices, recompiled)
+
+        def wrap(self, step_fn, cfg=None, n_devices=1):
+            timed = super().wrap(step_fn, cfg, n_devices)
+
+            def step(state, b):
+                self.state = state
+                return timed(state, b)
+
+            return step
+
+    loop_kw = dict(unstacked=True, remat=remat, device=device)
+    out = {"num_layers": cfg.num_layers, "batch": batch, "seq": seq}
+    fa.flash_attention.fwd_launches = fa.flash_attention.bwd_launches = 0
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-resume-"))
+    before = signal.getsignal(signal.SIGTERM)
+    try:
+        # 1. uninterrupted
+        tel, stamps = Tap(), []
+        base = train.run_train_loop(
+            cfg, opt, batch_fn, steps=RESUME_STEPS, generator=0,
+            telemetry=tel,
+            on_step=lambda step, m: stamps.append(time.perf_counter()),
+            **loop_kw)
+        tel.state = None
+
+        def median(xs):
+            return sorted(xs)[len(xs) // 2]
+
+        tokens = batch * seq
+        step_s = median([b - a for a, b in zip(stamps, stamps[1:])])
+        tel_s = median(tel.walls[1:])
+
+        def mfu(wall):
+            return 6 * cfg.num_params() * tokens / wall / PEAK_BF16_FLOPS
+
+        out.update(losses=base.losses, step_median_s=step_s,
+                   tokens_per_s=tokens / step_s, mfu_6nd=mfu(step_s),
+                   telemetry_tokens_per_s=tokens / tel_s,
+                   telemetry_mfu=mfu(tel_s),
+                   telemetry_last_tokens_per_s=tel.tokens_per_sec.value,
+                   telemetry_last_mfu=tel.mfu.value)
+        if (tel.steps_total.value != RESUME_STEPS
+                or tel.tokens_total.value != RESUME_STEPS * tokens
+                or len(tel.walls) != RESUME_STEPS):
+            fail(f"resume: telemetry counted {tel.steps_total.value} steps "
+                 f"and {tel.tokens_total.value} tokens")
+        # the gauges hold the last step's rates; its median step agrees
+        # with the host clock between the loop's step callbacks
+        for name, got, want in (
+                ("tokens/s gauge", tel.tokens_per_sec.value,
+                 tokens / tel.walls[-1]),
+                ("MFU gauge", tel.mfu.value, mfu(tel.walls[-1])),
+                ("median step", tel_s, step_s)):
+            if not abs(got / want - 1) <= (
+                    TELEMETRY_RTOL if name == "median step" else 1e-9):
+                fail(f"resume: telemetry {name} {got:.6g} against "
+                     f"{want:.6g}")
+        base_losses = base.losses
+        del base
+
+        # 2. preempted by a real SIGTERM, then resumed
+        tap, clones = Tap(), {}
+
+        def preempt(step, metrics):
+            if step == RESUME_PREEMPT_AFTER - 1:
+                clones["leaves"] = [
+                    (p, t.clone()) for p, t in ckpt.state_leaves(tap.state)]
+            if step == RESUME_PREEMPT_AFTER:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        ckdir = root / "preempted"
+        with ckpt.PreemptionGuard() as guard:
+            pre = train.run_train_loop(
+                cfg, opt, batch_fn, steps=RESUME_STEPS, generator=0,
+                checkpoint_dir=ckdir, checkpoint_every=2, keep_last=2,
+                guard=guard, on_step=preempt, telemetry=tap, **loop_kw)
+        tap.state = None
+        if signal.getsignal(signal.SIGTERM) is not before:
+            fail("resume: the PreemptionGuard stayed installed")
+        published = ckpt.list_snapshot_steps(ckdir)
+        if (pre.status != "preempted" or pre.step != RESUME_PREEMPT_AFTER
+                or published != [RESUME_PREEMPT_AFTER - 1,
+                                 RESUME_PREEMPT_AFTER]):
+            fail(f"resume: SIGTERM after step {RESUME_PREEMPT_AFTER} gave "
+                 f"status {pre.status!r} at step {pre.step}, published "
+                 f"{published}")
+        cp = pre.checkpointer
+        out.update(snapshot_bytes=cp.snapshot_bytes,
+                   copy_s={str(k): v for k, v in cp.copy_seconds.items()},
+                   write_s={str(k): v for k, v in cp.write_seconds.items()},
+                   dropped=cp.dropped)
+        template = train.state_template(cfg, opt, unstacked=True)
+        periodic, _ = ckpt.read_snapshot(ckdir, template,
+                                         RESUME_PREEMPT_AFTER - 1,
+                                         device=device)
+        torn = differing(torch, ckpt.state_leaves(periodic),
+                         clones.pop("leaves"))
+        if torn:
+            fail(f"resume: the snapshot of step {RESUME_PREEMPT_AFTER - 1} "
+                 f"differs from the state after it at {torn[:3]}")
+        del periodic
+        sync()
+        t0 = time.perf_counter()
+        restored, start = train.resume_train_state(ckdir, cfg, opt,
+                                                   unstacked=True,
+                                                   device=device)
+        sync()
+        out["restore_s"] = time.perf_counter() - t0
+        differ = differing(torch, ckpt.state_leaves(restored),
+                           ckpt.state_leaves(pre.state))
+        if start != RESUME_PREEMPT_AFTER or differ:
+            fail(f"resume: restored step {start}, leaves differing from the "
+                 f"preempted state: {differ[:3]}")
+        del restored, pre
+        cont = train.run_train_loop(
+            cfg, opt, batch_fn, steps=RESUME_STEPS, checkpoint_dir=ckdir,
+            checkpoint_every=2, keep_last=2, **loop_kw)
+        if (cont.resumed_from != RESUME_PREEMPT_AFTER
+                or cont.step != RESUME_STEPS
+                or len(cont.losses) != RESUME_STEPS - RESUME_PREEMPT_AFTER):
+            fail(f"resume: continued from {cont.resumed_from} to "
+                 f"{cont.step} with {len(cont.losses)} losses")
+        rel = [abs(a - b) / abs(b) for a, b in
+               zip(cont.losses, base_losses[RESUME_PREEMPT_AFTER:])]
+        out.update(resumed_losses=cont.losses, resumed_loss_rel_err=rel)
+        if not all(math.isfinite(x) and x <= RESUME_LOSS_RTOL for x in rel):
+            fail(f"resume: losses of steps {RESUME_PREEMPT_AFTER + 1}-"
+                 f"{RESUME_STEPS} {cont.losses} against "
+                 f"{base_losses[RESUME_PREEMPT_AFTER:]} (rel {rel})")
+        del cont
+        shutil.rmtree(ckdir)
+
+        # 3. host kill after step 7: resume from the periodic step 6
+        ckdir = root / "killed"
+
+        def kill(step, metrics):
+            if step == RESUME_KILL_AFTER:
+                raise SimulatedHostLoss(f"host lost after step {step}")
+
+        try:
+            train.run_train_loop(
+                cfg, opt, batch_fn, steps=RESUME_STEPS, generator=0,
+                checkpoint_dir=ckdir, checkpoint_every=2, keep_last=2,
+                on_step=kill, **loop_kw)
+            fail("resume: the host-kill run did not raise")
+        except SimulatedHostLoss:
+            pass
+        killed, start = train.resume_train_state(ckdir, cfg, opt,
+                                                 unstacked=True,
+                                                 device=device)
+        if start != RESUME_KILL_AFTER - 1 or killed.step != start:
+            fail(f"resume: after a kill at step {RESUME_KILL_AFTER} the "
+                 f"resume came from step {start}")
+        del killed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    steps_run = RESUME_STEPS * 2 + RESUME_KILL_AFTER
+    per_layer = 1 if remat in (False, "none") else 2
+    want = (per_layer * cfg.num_layers * steps_run,
+            cfg.num_layers * steps_run)
+    got = (fa.flash_attention.fwd_launches, fa.flash_attention.bwd_launches)
+    out.update(fwd_launches=got[0], bwd_launches=got[1])
+    if cuda and got != want:
+        fail(f"resume: flash launches fwd {got[0]} bwd {got[1]}, expected "
+             f"{want[0]} and {want[1]}")
+    log("resume: " + json.dumps(out))
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 9: HF import ------------------------------------------------------
+
+
+def write_safetensors(torch, path: Path, tensors: dict) -> None:
+    """The safetensors format: a little-endian u64 header length, a JSON
+    header (each name's dtype, shape, byte range in the buffer), padded
+    with spaces to 8 bytes, then the tensors' bytes in header order."""
+    import struct
+
+    names = {"torch.bfloat16": "BF16", "torch.float16": "F16",
+             "torch.float32": "F32"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[str(t.dtype)], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.contiguous().cpu().reshape(-1).view(torch.uint8)
+                    .numpy())
+
+
+def hf_tensors(torch, cfg, device: str, seed: int = 7) -> dict:
+    """Llama weights under HF's names and [out, in] layout, random bf16 on
+    the device: linear weights with std 1/sqrt(fan_in), norms near 1."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, f = cfg.hidden_size, cfg.intermediate_size
+
+    def lin(out_f, in_f):
+        return (torch.randn((out_f, in_f), generator=gen, device=device)
+                * in_f ** -0.5).to(torch.bfloat16)
+
+    def norm():
+        return (1 + 0.1 * torch.randn((d,), generator=gen, device=device)
+                ).to(torch.bfloat16)
+
+    t = {"model.embed_tokens.weight": lin(cfg.vocab_size, d),
+         "model.norm.weight": norm()}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        t.update({p + "input_layernorm.weight": norm(),
+                  p + "post_attention_layernorm.weight": norm(),
+                  p + "self_attn.q_proj.weight": lin(cfg.q_dim, d),
+                  p + "self_attn.k_proj.weight": lin(cfg.kv_dim, d),
+                  p + "self_attn.v_proj.weight": lin(cfg.kv_dim, d),
+                  p + "self_attn.o_proj.weight": lin(d, cfg.q_dim),
+                  p + "mlp.gate_proj.weight": lin(f, d),
+                  p + "mlp.up_proj.weight": lin(f, d),
+                  p + "mlp.down_proj.weight": lin(d, f)})
+    if not cfg.tie_embeddings:
+        t["lm_head.weight"] = lin(cfg.vocab_size, d)
+    return t
+
+
+def hf_import_phase(torch, cfg=None, device: str = "cuda") -> dict:
+    """Writes Llama-3.2-1B (full width and depth, random bf16 weights from
+    a seed) as an HF checkpoint in HF_SHARDS safetensors shards with its
+    config.json, loads it with load_hf_llama: config_from_hf must give the
+    config, every loaded leaf must equal its source tensor (transposed
+    where HF stores [out, in]); then a paged engine decodes greedy tokens
+    from the loaded weights through the paged-decode kernel, each checked
+    against a plain forward (run_engine).  ``cfg`` defaults to the
+    chip's; a CPU rehearsal passes a small one and ``device="cpu"``."""
+    import shutil
+    import tempfile
+
+    from dstack_tpu_torch.models.checkpoint import (
+        config_from_hf,
+        load_hf_llama,
+    )
+    from dstack_tpu_torch.models.llama import LlamaConfig
+    from dstack_tpu_torch.ops.rotary import RopeScaling
+
+    rs = HF_ROPE_SCALING
+    scaling = RopeScaling(rs["factor"], rs["low_freq_factor"],
+                          rs["high_freq_factor"],
+                          rs["original_max_position_embeddings"])
+    if cfg is None:
+        cfg = LlamaConfig.llama3_1b(rope_scaling=scaling)
+    cuda = device == "cuda"
+    src = hf_tensors(torch, cfg, device)
+    nbytes = sum(t.numel() * t.element_size() for t in src.values())
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-hf-"))
+    out = {"num_layers": cfg.num_layers, "bytes": nbytes}
+    try:
+        t0 = time.perf_counter()
+        names = sorted(src)
+        for k in range(HF_SHARDS):
+            shard = f"model-{k + 1:05d}-of-{HF_SHARDS:05d}.safetensors"
+            write_safetensors(torch, root / shard,
+                              {n: src[n] for n in names[k::HF_SHARDS]})
+        (root / "config.json").write_text(json.dumps({
+            "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta,
+            "rope_scaling": rs if cfg.rope_scaling else None,
+            "rms_norm_eps": cfg.rms_eps,
+            "max_position_embeddings": cfg.max_seq_len,
+            "tie_word_embeddings": cfg.tie_embeddings,
+            "torch_dtype": "bfloat16"}))
+        out["write_s"] = time.perf_counter() - t0
+        if config_from_hf(root) != cfg:
+            fail(f"hf-import: config_from_hf gave {config_from_hf(root)}, "
+                 f"wanted {cfg}")
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_cfg, params = load_hf_llama(root, device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["load_gb_per_s"] = nbytes / out["load_s"] / 1e9
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if got_cfg != cfg:
+        fail(f"hf-import: load_hf_llama gave {got_cfg}")
+    # (tree key, HF name, layer): linear weights come back transposed
+    pairs = [("embed", "model.embed_tokens.weight", None),
+             ("final_norm", "model.norm.weight", None)]
+    hf_names = {"attn_norm": "input_layernorm", "wq": "self_attn.q_proj",
+                "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+                "wo": "self_attn.o_proj",
+                "mlp_norm": "post_attention_layernorm",
+                "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+                "w_down": "mlp.down_proj"}
+    for key, hf in hf_names.items():
+        pairs += [(key, f"model.layers.{i}.{hf}.weight", i)
+                  for i in range(cfg.num_layers)]
+    if not cfg.tie_embeddings:
+        pairs.append(("lm_head", "lm_head.weight", None))
+    differ = []
+    for key, name, layer in pairs:
+        got = params[key] if layer is None else params["layers"][key][layer]
+        want = src[name] if key in ("embed", "final_norm", "attn_norm",
+                                    "mlp_norm") else src[name].T
+        if got.dtype != torch.bfloat16 or not torch.equal(got, want):
+            differ.append(name)
+    if differ or sorted(params) != sorted(
+            ["embed", "layers", "final_norm"]
+            + ([] if cfg.tie_embeddings else ["lm_head"])):
+        fail(f"hf-import: loaded leaves differ from the written ones: "
+             f"{differ[:3]}")
+    out["leaves_checked"] = len(pairs)
+    del src
+    out["launches"] = run_engine(torch, cfg, None,
+                                 f"hf-import {cfg.num_layers}-layer bf16 "
+                                 f"pages", device=device, params=params)
+    log("hf-import: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1168,6 +1627,13 @@ def main() -> int:
             run["bwd_launches"]
         trained.append(run)
     plain = train_plain(torch)
+    resumed = resume_phase(torch)
+    for way in ("fwd", "bwd"):
+        kernels[f"flash_attention_{way}[llama3-1b,D=64]"]["launches"] += \
+            resumed[f"{way}_launches"]
+    imported = hf_import_phase(torch)
+    kernels["paged_decode_attention[bf16,llama3-1b]"]["launches"] += \
+        imported["launches"]
     for k in kernels.values():
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on its path")
@@ -1180,6 +1646,14 @@ def main() -> int:
                                  "step_median_s", "max_memory_allocated_gb",
                                  "losses")}))
     log("train-plain summary: " + json.dumps(plain))
+    log("resume summary: " + json.dumps(
+        {k: resumed[k] for k in ("snapshot_bytes", "copy_s", "write_s",
+                                 "restore_s", "step_median_s",
+                                 "tokens_per_s", "telemetry_tokens_per_s",
+                                 "telemetry_mfu", "resumed_loss_rel_err")}))
+    log("hf-import summary: " + json.dumps(
+        {k: imported[k] for k in ("bytes", "load_s", "load_gb_per_s",
+                                  "launches")}))
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

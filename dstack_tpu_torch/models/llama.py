@@ -104,7 +104,8 @@ class LlamaConfig:
 def init_params(cfg: LlamaConfig, device: Union[str, torch.device],
                 generator: torch.Generator) -> Params:
     """Scaled-normal init, allocated on ``device`` from ``generator`` (which
-    must live on the same device).  Each [in, out] matrix is drawn in f32
+    must live on the same device; None on the meta device, which only
+    records shapes and dtypes).  Each [in, out] matrix is drawn in f32
     one layer at a time and cast into its stacked ``cfg.dtype`` buffer, so
     an 8B model never exists in f32 or on the host."""
     d, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers

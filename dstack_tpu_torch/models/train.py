@@ -8,14 +8,18 @@ with optax's semantics.  Unlike the JAX step (a pure function of a donated
 state), the port updates the parameters and moments in place: no second
 copy of the model exists during the update.
 
+``run_train_loop`` resumes from the newest published snapshot, saves
+periodic snapshots and flushes one on a preemption notice
+(:mod:`dstack_tpu_torch.models.checkpoint`).
+
 Not ported yet (each raises "not yet ported"): a ``mesh`` or sharding
-``policy``, ``telemetry``, ``compile_cache``, and the checkpointing of
-``run_train_loop`` (``checkpoint_dir``, ``guard``).
+``policy`` and ``compile_cache``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Callable, ClassVar, List, Optional, Union
 
 import torch
@@ -26,6 +30,8 @@ from dstack_tpu_torch.models import llama
 from dstack_tpu_torch.models.llama import LlamaConfig, Params, tree_leaves
 from dstack_tpu_torch.ops.loss import chunked_cross_entropy
 from dstack_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -162,9 +168,10 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
     and {"loss": 0-dim f32 tensor, "step": int, "grad_norm": 0-dim f32
     tensor}: the norm is computed for clipping anyway, so unlike the JAX
     step there is no ``with_grad_norm`` to drop it.  Nothing waits for the
-    card: read the tensors when the host needs them."""
-    _not_ported(mesh=mesh, policy=policy, telemetry=telemetry,
-                compile_cache=compile_cache)
+    card: read the tensors when the host needs them.  A ``telemetry``
+    (:class:`dstack_tpu_torch.telemetry.training.TrainTelemetry`) wraps
+    the step, which then reads each loss on the host to time the step."""
+    _not_ported(mesh=mesh, policy=policy, compile_cache=compile_cache)
     llama.remat_mode(remat)  # reject a bad mode before the first step
 
     def loss_fn(params, batch):
@@ -186,15 +193,70 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
         return state, {"loss": loss.detach(), "step": state.step,
                        "grad_norm": norm}
 
-    return step
+    if telemetry is None:
+        return step
+    return telemetry.wrap(step, cfg)
+
+
+# -- preemption-aware resumable training -------------------------------------
+
+
+def state_template(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
+                   policy: Any = None, unstacked: bool = False) -> TrainState:
+    """The restore target of :func:`checkpoint.read_snapshot`: the params
+    as meta tensors (shapes and dtypes, no memory on any device), the
+    ``optimizer`` as ``opt_state`` (its moments mirror the params), step 0.
+    Resuming therefore allocates the state once, on the restore's device,
+    with no throwaway init."""
+    _not_ported(mesh=mesh, policy=policy)
+    params = llama.init_params(cfg, "meta", None)
+    if unstacked:
+        params = llama.unstack_params(params)
+    return TrainState(params=params, opt_state=optimizer, step=0)
+
+
+def resume_train_state(checkpoint_dir, cfg: LlamaConfig, optimizer: AdamW,
+                       *, mesh: Any = None, policy: Any = None,
+                       generator: Union[int, torch.Generator, None] = None,
+                       unstacked: bool = False,
+                       device: Optional[Union[str, torch.device]] = None
+                       ) -> tuple:
+    """``(state, start_step)``: restored onto ``device`` (CUDA unless the
+    caller names another) from the newest published snapshot under
+    ``checkpoint_dir``, with AdamW's moments and step count; or, when no
+    snapshot exists, fresh from ``generator`` (required then)."""
+    from dstack_tpu_torch.models import checkpoint as ckpt
+
+    _not_ported(mesh=mesh, policy=policy)
+    step = (ckpt.latest_snapshot_step(checkpoint_dir)
+            if checkpoint_dir is not None else None)
+    if step is None:
+        if generator is None:
+            raise ValueError(
+                "no published snapshot to resume from and no generator to "
+                "initialize fresh state")
+        state = create_state(generator, cfg, optimizer, unstacked=unstacked,
+                             device=device)
+        return state, 0
+    template = state_template(cfg, optimizer, unstacked=unstacked)
+    state, step = ckpt.read_snapshot(checkpoint_dir, template, step,
+                                     device=device)
+    logger.info("resumed train state from %s at step %d",
+                checkpoint_dir, step)
+    return state, int(step)
 
 
 @dataclasses.dataclass
 class TrainLoopResult:
     state: TrainState
-    step: int                      # steps completed
+    step: int                      # steps completed (global, not per-run)
     losses: List[float]            # per executed step, in order
-    status: str                    # "completed"
+    status: str                    # "completed" | "preempted"
+    resumed_from: Optional[int]    # checkpoint step this run started from
+    #: the run's (closed) checkpointer: its last published step, dropped
+    #: snapshots and per-snapshot copy and write seconds; None without a
+    #: checkpoint_dir
+    checkpointer: Any = None
 
 
 def run_train_loop(cfg: LlamaConfig, optimizer: AdamW,
@@ -202,32 +264,87 @@ def run_train_loop(cfg: LlamaConfig, optimizer: AdamW,
                    generator: Union[int, torch.Generator, None] = None,
                    device: Optional[Union[str, torch.device]] = None,
                    mesh: Any = None, policy: Any = None,
-                   checkpoint_dir: Any = None, guard: Any = None,
+                   checkpoint_dir: Any = None, checkpoint_every: int = 100,
+                   keep_last: int = 3, guard: Any = None,
                    on_step: Optional[Callable[[int, dict], None]] = None,
                    telemetry: Any = None, unstacked: bool = False,
                    **step_kw) -> TrainLoopResult:
-    """Train ``steps`` steps from a fresh state drawn from ``generator`` (an
-    int seed or a generator) on ``device``, as :func:`create_state` does:
-    CUDA unless the caller names the CPU.
+    """Preemption-aware training loop: resume, snapshot, emergency-flush.
 
-    ``batch_fn(step)`` gives the batch consumed by step ``step`` (0-based).
+    The state is resumed from the newest snapshot under ``checkpoint_dir``
+    or, when there is none, drawn from ``generator`` (an int seed or a
+    generator), on ``device`` as :func:`create_state` puts it: CUDA
+    unless the caller names the CPU.
+
+    - ``batch_fn(step)`` must be deterministic in ``step`` so a resumed run
+      replays the same data order (step is 0-based: the batch consumed BY
+      step ``s`` produces the state published as step ``s+1``).
+    - ``checkpoint_dir``: periodic snapshots every ``checkpoint_every``
+      steps, written by a :class:`checkpoint.AsyncCheckpointer` that keeps
+      the last ``keep_last``.
+    - ``guard``: a :class:`checkpoint.PreemptionGuard`; when it fires
+      (SIGTERM, spot notice, manual trigger) the loop publishes a snapshot
+      of the current step synchronously and returns with
+      ``status="preempted"``.
+    - An exception from a step or from ``on_step`` publishes nothing
+      in flight: a resume comes from the last periodic snapshot.
+
     The loop reads each step's loss on the host (monitoring-grade); a
-    throughput run drives the step function itself.  Checkpointing and
-    preemption (``checkpoint_dir``, ``guard``) are not yet ported."""
-    _not_ported(checkpoint_dir=checkpoint_dir, guard=guard)
-    if generator is None:
-        raise ValueError("run_train_loop needs a generator to initialise "
-                         "the state (resuming from a checkpoint is not yet "
-                         "ported)")
-    state = create_state(generator, cfg, optimizer, mesh=mesh, policy=policy,
-                         unstacked=unstacked, device=device)
+    throughput run drives the step function itself."""
+    from dstack_tpu_torch.models.checkpoint import AsyncCheckpointer
+
+    state, start = resume_train_state(
+        checkpoint_dir, cfg, optimizer, mesh=mesh, policy=policy,
+        generator=generator, unstacked=unstacked, device=device)
+    resumed_from = start if start > 0 else None
     step_fn = make_train_step(cfg, optimizer, mesh=mesh, policy=policy,
                               telemetry=telemetry, **step_kw)
+    checkpointer = None
+    if checkpoint_dir is not None:
+        checkpointer = AsyncCheckpointer(
+            checkpoint_dir, keep_last=keep_last, every_steps=checkpoint_every)
     losses: List[float] = []
-    for step in range(steps):
-        state, metrics = step_fn(state, batch_fn(step))
-        losses.append(float(metrics["loss"]))
-        if on_step is not None:
-            on_step(step + 1, metrics)
-    return TrainLoopResult(state=state, step=steps, losses=losses,
-                           status="completed")
+    step = start
+    status = "completed"
+    failed = False
+    try:
+        while step < steps:
+            if guard is not None and guard.preempted:
+                status = "preempted"
+                break
+            state, metrics = step_fn(state, batch_fn(step))
+            step += 1
+            losses.append(float(metrics["loss"]))
+            if checkpointer is not None:
+                checkpointer.maybe_save(state, step)
+            if on_step is not None:
+                on_step(step, metrics)
+        if guard is not None and guard.preempted and status == "completed":
+            status = "preempted"  # notice arrived on the final step
+    except BaseException:
+        # a hard failure (host loss, a failed step) must not publish the
+        # in-flight state: mid-step the in-place update may be half done;
+        # resume comes from the last PERIODIC snapshot instead
+        failed = True
+        raise
+    finally:
+        if checkpointer is not None:
+            # emergency flush on preemption; normal completion publishes
+            # the final state too so a later job continues exactly here
+            if not failed and checkpointer.last_enqueued != step:
+                checkpointer.save(state, step, block=True)
+            if failed:
+                # already propagating the hard failure — a secondary
+                # writer error must not mask it
+                try:
+                    checkpointer.close()
+                except Exception:
+                    logger.exception(
+                        "checkpoint writer error during failure teardown")
+            else:
+                # close() raises on writer errors: a "completed" result
+                # must never hide a failed final checkpoint write
+                checkpointer.close()
+    return TrainLoopResult(state=state, step=step, losses=losses,
+                           status=status, resumed_from=resumed_from,
+                           checkpointer=checkpointer)

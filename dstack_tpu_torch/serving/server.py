@@ -19,8 +19,10 @@ import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 from typing import List, Optional
 
+from dstack_tpu_torch.models.checkpoint import load_hf_llama
 from dstack_tpu_torch.models.llama import LlamaConfig
 from dstack_tpu_torch.ops.flash_attention import paged_decode_attention
 from dstack_tpu_torch.serving import deadlines
@@ -29,7 +31,7 @@ from dstack_tpu_torch.serving.engine import (
     InferenceEngine,
     Request,
 )
-from dstack_tpu_torch.serving.tokenizer import load_tokenizer
+from dstack_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
 from dstack_tpu_torch.telemetry import tracing
 from dstack_tpu_torch.telemetry.exposition import render
 from dstack_tpu_torch.telemetry.serving import (
@@ -520,7 +522,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="torch device; the CPU runs only when named "
                              "(--device cpu)")
     parser.add_argument("--checkpoint", default=None,
-                        help="HF Llama checkpoint dir (not yet ported)")
+                        help="HF Llama checkpoint dir: config, weights and "
+                             "(unless --tokenizer) the tokenizer")
     parser.add_argument("--quantize", default=None, choices=["int8"],
                         help="weight-only quantization (serving/quant.py)")
     parser.add_argument("--tokenizer", default=None,
@@ -583,7 +586,6 @@ def unported_flags(args) -> List[str]:
         ("--speculation", args.speculation is not None),
         ("--speculation-k", args.speculation_k is not None),
         ("--kv-quantize int4", args.kv_quantize == "int4"),
-        ("--checkpoint", args.checkpoint is not None),
         ("--compile-cache", args.compile_cache is not None),
         ("--compile-cache-peers", args.compile_cache_peers is not None),
         ("--snapshot-dir", args.snapshot_dir is not None),
@@ -594,6 +596,25 @@ def unported_flags(args) -> List[str]:
     return [flag for flag, on in checks if on]
 
 
+def load_model(args) -> tuple:
+    """``(cfg, params, tokenizer, model_name)`` of the command line: with
+    ``--checkpoint``, the HF checkpoint's config and weights (on
+    ``--device``) and its tokenizer (``--tokenizer`` overrides); else the
+    named config, whose weights the engine draws from ``--seed``."""
+    if not args.checkpoint:
+        return (CONFIGS[args.config](), None, load_tokenizer(args.tokenizer),
+                args.model_name or args.config)
+    tokenizer = load_tokenizer(args.tokenizer or args.checkpoint)
+    if isinstance(tokenizer, ByteTokenizer):
+        # real weights + byte fallback = fluent-looking garbage; fail
+        # loudly instead
+        raise SystemExit(f"could not load a tokenizer for {args.checkpoint} "
+                         "(pass --tokenizer explicitly)")
+    cfg, params = load_hf_llama(args.checkpoint, device=args.device)
+    return (cfg, params, tokenizer,
+            args.model_name or Path(args.checkpoint).name)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -601,13 +622,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     if missing:
         parser.exit(2, f"not yet ported: {', '.join(missing)}\n")
     logging.basicConfig(level=logging.INFO)
-    tokenizer = load_tokenizer(args.tokenizer)
-    cfg = CONFIGS[args.config]()
+    cfg, params, tokenizer, model_name = load_model(args)
     if tokenizer.vocab_size > cfg.vocab_size:
         raise SystemExit(f"tokenizer vocab {tokenizer.vocab_size} exceeds "
                          f"model vocab {cfg.vocab_size}")
     engine = InferenceEngine(
-        cfg, batch_size=args.batch_size, max_len=args.max_len,
+        cfg, params=params, batch_size=args.batch_size, max_len=args.max_len,
         rng_seed=args.seed, quantize=args.quantize, paged=args.paged,
         kv_block_size=args.kv_block_size,
         total_kv_blocks=args.total_kv_blocks,
@@ -620,11 +640,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         telemetry=None if args.no_telemetry else make_engine_telemetry(),
         device=args.device,
     )
-    app = ServingApp(engine, tokenizer,
-                     model_name=args.model_name or args.config)
+    app = ServingApp(engine, tokenizer, model_name=model_name)
     app.start_engine()
     server = app.make_server("0.0.0.0", args.port)
-    logger.info("serving %s on port %d (%s)", args.config,
+    logger.info("serving %s on port %d (%s)", model_name,
                 server.server_address[1], engine.device)
     try:
         server.serve_forever()

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: nothing in ``dstack_tpu_torch/`` or
-``chip_smoke.py`` imports JAX or the JAX package (``dstack_tpu``), and the
-chip smoke script refuses to run without a card or outside a checkout."""
+``chip_smoke.py`` imports JAX or the JAX package (``dstack_tpu``), nor a
+package the card's machine lacks that only the JAX side's checkpointing
+used (``safetensors``, ``orbax``, ``ml_dtypes``), and the chip smoke
+script refuses to run without a card or outside a checkout."""
 
 import ast
 import subprocess
@@ -10,7 +12,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "dstack_tpu")
+FORBIDDEN = ("jax", "jaxlib", "dstack_tpu", "safetensors", "orbax",
+             "ml_dtypes")
 PORT = ROOT / "dstack_tpu_torch"
 # build/ holds compiled kernels (and nothing git tracks): not the port's code
 PORT_FILES = sorted(p for p in PORT.rglob("*.py")
@@ -36,6 +39,8 @@ def _forbidden(module: str) -> bool:
 def test_forbidden_matches_the_package_not_the_port():
     assert _forbidden("dstack_tpu.serving.engine")
     assert _forbidden("jax.numpy")
+    assert _forbidden("safetensors.torch") and _forbidden("ml_dtypes")
+    assert _forbidden("orbax.checkpoint")
     assert not _forbidden("dstack_tpu_torch.serving.engine")
 
 

@@ -1,6 +1,7 @@
 """The port's OpenAI-compatible server, tiny config on the CPU, driven over
 real HTTP on 127.0.0.1 (port 0), plus its command line's refusals."""
 
+import dataclasses
 import json
 import threading
 import urllib.request
@@ -129,7 +130,7 @@ def test_bad_json_is_a_400(base_url):
     ["--speculation", "ngram"],
     ["--speculation-k", "2"],
     ["--kv-quantize", "int4"],
-    ["--checkpoint", "ckpt"],
+    ["--checkpoint", "ckpt", "--snapshot-dir", "snap"],
     ["--compile-cache", "cache"],
     ["--compile-cache-peers", "http://peer"],
     ["--snapshot-dir", "snap"],
@@ -148,3 +149,85 @@ def test_server_without_cuda_refuses_the_default_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_server.main(["--config", "tiny"])
+
+
+def _hf_checkpoint(path):
+    """A one-layer tied HF Llama checkpoint of the tiny shape (random bf16
+    weights, [out, in] layout, safetensors), and its config."""
+    st = pytest.importorskip("safetensors.torch")
+    cfg = dataclasses.replace(LlamaConfig.tiny(tie_embeddings=True),
+                              num_layers=1)
+    g = torch.Generator().manual_seed(0)
+    d, f, p = cfg.hidden_size, cfg.intermediate_size, "model.layers.0."
+    shapes = {"model.embed_tokens.weight": (cfg.vocab_size, d),
+              "model.norm.weight": (d,), p + "input_layernorm.weight": (d,),
+              p + "post_attention_layernorm.weight": (d,),
+              p + "self_attn.q_proj.weight": (cfg.q_dim, d),
+              p + "self_attn.k_proj.weight": (cfg.kv_dim, d),
+              p + "self_attn.v_proj.weight": (cfg.kv_dim, d),
+              p + "self_attn.o_proj.weight": (d, cfg.q_dim),
+              p + "mlp.gate_proj.weight": (f, d),
+              p + "mlp.up_proj.weight": (f, d),
+              p + "mlp.down_proj.weight": (d, f)}
+    path.mkdir()
+    st.save_file({n: torch.randn(s, generator=g).to(torch.bfloat16)
+                  for n, s in shapes.items()},
+                 str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps({
+        "vocab_size": cfg.vocab_size, "hidden_size": d,
+        "intermediate_size": f, "num_hidden_layers": 1,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_eps,
+        "max_position_embeddings": cfg.max_seq_len,
+        "tie_word_embeddings": True}))
+    return cfg
+
+
+def test_checkpoint_loads_config_weights_and_tokenizer(tmp_path,
+                                                       monkeypatch):
+    """--checkpoint takes the model's config and weights (stacked, [in,
+    out], on --device) and asks for the tokenizer in the same directory
+    (a stand-in answers: loading an HF tokenizer is transformers' work)."""
+    path = tmp_path / "tiny-hf"
+    want = _hf_checkpoint(path)
+    asked = []
+
+    class WordTokenizer:
+        vocab_size, bos_id, eos_id = 300, 298, 299
+
+        def encode(self, text):
+            return [self.bos_id] + [len(w) for w in text.split()]
+
+    def load_tokenizer(name):
+        asked.append(name)
+        return WordTokenizer()
+
+    monkeypatch.setattr(t_server, "load_tokenizer", load_tokenizer)
+    args = t_server.build_parser().parse_args(
+        ["--checkpoint", str(path), "--device", "cpu"])
+    assert t_server.unported_flags(args) == []
+    cfg, params, tokenizer, name = t_server.load_model(args)
+    assert asked == [str(path)] and isinstance(tokenizer, WordTokenizer)
+    assert cfg == want and name == "tiny-hf"
+    assert params["layers"]["wq"].shape == (1, cfg.hidden_size, cfg.q_dim)
+    assert params["embed"].device.type == "cpu"
+    engine = InferenceEngine(cfg, params=params, batch_size=1, max_len=64,
+                             device="cpu")
+    req = engine.generate(tokenizer.encode("a few words"),
+                          max_new_tokens=3)
+    assert len(req.output) == 3
+    assert all(0 <= t < cfg.vocab_size for t in req.output)
+
+
+def test_checkpoint_without_a_tokenizer_is_refused(tmp_path, monkeypatch):
+    """Real weights with the byte fallback (what load_tokenizer returns
+    when no HF tokenizer loads) would serve fluent-looking garbage: the
+    server exits instead."""
+    path = tmp_path / "no-tok"
+    _hf_checkpoint(path)
+    monkeypatch.setattr(t_server, "load_tokenizer",
+                        lambda name: ByteTokenizer())
+    with pytest.raises(SystemExit,
+                       match="could not load a tokenizer .*--tokenizer"):
+        t_server.main(["--checkpoint", str(path), "--device", "cpu"])

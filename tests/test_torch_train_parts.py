@@ -150,14 +150,14 @@ def test_training_entry_points_need_cuda_unless_the_cpu_is_named(
 def test_not_yet_ported_arguments_raise():
     cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
     opt = train.default_optimizer()
-    for kw in ({"mesh": object()}, {"telemetry": object()},
-               {"compile_cache": object()}):
+    for kw in ({"mesh": object()}, {"compile_cache": object()}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             train.make_train_step(cfg, opt, **kw)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         train.run_train_loop(cfg, opt, lambda s: None, steps=1,
-                             checkpoint_dir="ckpt",
-                             generator=torch.Generator())
+                             policy=object(), generator=torch.Generator())
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        train.state_template(cfg, opt, mesh=object())
     tokens = torch.zeros((1, 8), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         llama.backbone({}, tokens, cfg, mesh=object())
