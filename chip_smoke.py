@@ -29,7 +29,11 @@ Phases (any failure stops the run with a non-zero exit and no result):
              seed) with `python -m dstack_tpu_torch.serving.server --paged`
              and sends concurrent /v1/completions (one streaming) and a
              /v1/chat/completions; checks the answers, /metrics and /stats,
-             and that the kernel ran once per layer per decode step.
+             and that the kernel ran once per layer per decode step.  Then
+             (its numbers taken) a prefill-leg request and a decode-leg
+             request carrying its prefill_result, /traces and
+             /traces/{id} of a finished request, /drain (503 while
+             draining, drained turns true) and {"drain": false}.
 4. share   — the server's burst again, in process (Llama-3-8B, bf16
              pages): the kernel's device time per decode step (CUDA
              events around each call, replayed with the stream held so
@@ -74,6 +78,24 @@ Phases (any failure stops the run with a non-zero exit and no result):
              tokens through the paged-decode kernel, each the plain
              forward's argmax (as phase 5).  Prints the load's seconds
              and GB/s.
+10. serving-features — Llama-3-8B (full size, random bf16 weights from
+             seed 1, shared by every engine; batch 8, max_len 1024):
+             prefix caching (paged, chunks of 512: after a miss, a wave
+             of 7 hits on a 512-token prefix, admitted in chunks, must
+             reuse 16 blocks each, and a wave of 7 on a 256-token prefix,
+             each prefilled whole, 8 blocks each; every hit prefills only
+             its suffix); n-gram speculation (dense, k = 2: a sampled
+             request takes the plain window, eight repeating prompts must
+             see drafts accepted) against the plain window's decode rate;
+             int4 KV (quantize_kv4 on the card equal to the CPU's, dense
+             and paged engines beside bf16 ones, the kernel never
+             launched on int4 pages, decode rates at eight slots of 64
+             tokens); a 300-token prefill_export through the wire codec
+             (bitwise) installed into a paged engine.  The kernel
+             launches exactly layers x decode steps on the prefix and PD
+             paths; every greedy token is checked against a plain forward
+             (0.1 std; int4 INT4_GAP_STD).  Decode rates run from the
+             last first token to the last token, prefills left out.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; exits non-zero without
@@ -95,6 +117,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -211,6 +234,12 @@ HF_ROPE_SCALING = {"rope_type": "llama3", "factor": 32.0,
 F32_LOGITS_RTOL = 1e-4
 #: calls replayed per hold of the stream in the share phase
 REPLAY_CHUNK = 128
+# int4 KV engines: each greedy token within this many standard deviations
+# of the logits below the plain bf16 forward's argmax.  The CPU parity test
+# (tests/test_torch_serving_features.py) measures the tiny f32 int4
+# engines' worst gap at 0.198 std and holds it to the same margin; 0.5 is
+# ~2.5x that, room for bf16's own near-ties (0.1) and the 8B's depth.
+INT4_GAP_STD = 0.5
 #: the server phase's prompt, also sent in process by the share phase
 PROMPT = ("The paged KV cache keeps each request's keys and values in "
           "fixed-size blocks; request number {i} asks about it.")
@@ -730,13 +759,18 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def http(url: str, payload=None, timeout: float = 600.0):
+def http(url: str, payload=None, timeout: float = 600.0, headers=None):
+    """(status, body bytes, headers) of a GET (no payload) or a JSON POST;
+    an HTTP error's status, body and headers too."""
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(
-        url, data=data, headers={"Content-Type": "application/json"},
-        method="GET" if payload is None else "POST")
-    with urllib.request.urlopen(req, timeout=timeout) as resp:
-        return resp.status, resp.read()
+        url, data=data, method="GET" if payload is None else "POST",
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as err:
+        return err.code, err.read(), err.headers
 
 
 def stream(url: str, payload, result: dict) -> None:
@@ -802,8 +836,8 @@ def drive_server(base: str, proc) -> dict:
     log(f"server: up in {time.time() - t0:.1f} s")
     # one short request first: the card's first kernels and cuBLAS handles
     # start here, outside the measured run
-    status, _ = http(base + "/v1/completions",
-                     {"prompt": "warm up", "max_tokens": 4})
+    status = http(base + "/v1/completions",
+                  {"prompt": "warm up", "max_tokens": 4})[0]
     if status != 200:
         fail(f"warm-up request answered {status}")
     # time to first token on an idle server: a one-token completion is a
@@ -813,8 +847,8 @@ def drive_server(base: str, proc) -> dict:
     ttfts = []
     for i in range(3):
         t = time.time()
-        status, body = http(base + "/v1/completions",
-                            {"prompt": PROMPT.format(i=i), "max_tokens": 1})
+        status, body, _ = http(base + "/v1/completions",
+                               {"prompt": PROMPT.format(i=i), "max_tokens": 1})
         ttfts.append(time.time() - t)
         if status != 200 or json.loads(body)["usage"][
                 "completion_tokens"] != 1:
@@ -824,15 +858,15 @@ def drive_server(base: str, proc) -> dict:
 
     def complete(i):
         t = time.time()
-        status, body = http(base + "/v1/completions",
-                            {"prompt": PROMPT.format(i=i), "max_tokens": 64})
+        status, body, _ = http(base + "/v1/completions", {
+            "prompt": PROMPT.format(i=i), "max_tokens": 64})
         out = json.loads(body)
         results[i].update(status=status, wall=time.time() - t,
                           tokens=out["usage"]["completion_tokens"])
 
     def chat(i):
         t = time.time()
-        status, body = http(base + "/v1/chat/completions", {
+        status, body, _ = http(base + "/v1/chat/completions", {
             "messages": [{"role": "user", "content": PROMPT.format(i=i)}],
             "max_tokens": 64})
         out = json.loads(body)
@@ -859,7 +893,7 @@ def drive_server(base: str, proc) -> dict:
         fail(f"the stream did not run to its 64 tokens: {results[3]}")
     if results[4].get("role") != "assistant":
         fail(f"chat completion malformed: {results[4]}")
-    status, metrics = http(base + "/metrics")
+    status, metrics, _ = http(base + "/metrics")
     if status != 200 or b"dstack_serving_decode_tokens_total" not in metrics:
         fail("/metrics did not answer with the serving series")
     after = json.loads(http(base + "/stats")[1])
@@ -882,6 +916,87 @@ def drive_server(base: str, proc) -> dict:
            "server_inter_token_p50_s": after["percentiles"].get(
                "dstack_serving_inter_token_seconds", {}).get("p50")}
     log("server: " + json.dumps(out))
+    out["features"] = drive_server_features(base, layers)
+    return out
+
+
+def http_json(url: str, payload=None, headers=None):
+    """(status, JSON body, headers) of :func:`http`."""
+    status, body, got = http(url, payload, headers=headers)
+    return status, json.loads(body), got
+
+
+def drive_server_features(base: str, layers: int) -> dict:
+    """The replica's routes of phase 10, on the served 8B: a prefill-leg
+    request and a decode-leg request carrying its prefill_result (its 16
+    tokens' text must equal a colocated request's: both legs run the same
+    prefill forward, the wire is bitwise and greedy decoding is
+    deterministic), /traces and /traces/{id} of a finished request (404
+    for an unknown id), /drain (a new completion gets 503; drained turns
+    true) and {"drain": false} (completions are accepted again)."""
+    from dstack_tpu_torch.serving.wire import PD_PHASE_HEADER, TRACE_ID_HEADER
+
+    payload = {"prompt": PROMPT.format(i=5), "max_tokens": 16}
+    t0 = time.time()
+    status, result, _ = http_json(base + "/v1/completions", payload,
+                                  {PD_PHASE_HEADER: "prefill"})
+    prefill_s = time.time() - t0
+    if status != 200 or result.get("object") != "prefill_result":
+        fail(f"http pd: the prefill leg answered {status}")
+    if (result["kv_k"]["dtype"] != "bfloat16"
+            or result["kv_k"]["shape"][0] != layers):
+        fail(f"http pd: prefill_result kv_k is {result['kv_k']['shape']} "
+             f"{result['kv_k']['dtype']}")
+    body = dict(payload, prefill_result=result)
+    t0 = time.time()
+    status, decoded, _ = http_json(base + "/v1/completions", body,
+                                   {PD_PHASE_HEADER: "decode"})
+    decode_s = time.time() - t0
+    if status != 200 or decoded["usage"]["completion_tokens"] != 16:
+        fail(f"http pd: the decode leg answered {status} {decoded}")
+    colocated = http_json(base + "/v1/completions", payload)[1]
+    if decoded["choices"][0]["text"] != colocated["choices"][0]["text"]:
+        fail(f"http pd: the decode leg's text "
+             f"{decoded['choices'][0]['text']!r} is not the colocated "
+             f"request's {colocated['choices'][0]['text']!r}")
+    out = {"pd_prefill_s": prefill_s, "pd_decode_s": decode_s,
+           "pd_body_bytes": len(json.dumps(body))}
+
+    _, _, headers = http(base + "/v1/completions",
+                         {"prompt": "trace me", "max_tokens": 4})
+    trace_id = headers[TRACE_ID_HEADER]
+    status, summary, _ = http_json(base + "/traces")
+    if status != 200 or trace_id not in {t["trace_id"]
+                                         for t in summary["traces"]}:
+        fail(f"http traces: /traces answered {status} without {trace_id}")
+    status, detail, _ = http_json(base + "/traces/" + trace_id)
+    names = {sp["name"] for sp in detail.get("spans", [])}
+    if status != 200 or "engine.request" not in names:
+        fail(f"http traces: /traces/{trace_id} answered {status} {names}")
+    if http(base + "/traces/" + "0" * 32)[0] != 404:
+        fail("http traces: an unknown trace id did not answer 404")
+    out["trace_spans"] = sorted(names)
+
+    status, drain, _ = http_json(base + "/drain", {})
+    if status != 200 or drain["status"] != "draining":
+        fail(f"http drain: /drain answered {status} {drain}")
+    refused = http(base + "/v1/completions",
+                   {"prompt": "x", "max_tokens": 2})[0]
+    if refused != 503:
+        fail(f"http drain: a completion while draining answered {refused}")
+    t0 = time.time()
+    while not http_json(base + "/drain", {})[1]["drained"]:
+        if time.time() - t0 > 60:
+            fail("http drain: not drained within 60 s")
+        time.sleep(0.2)
+    status, undrain, _ = http_json(base + "/drain", {"drain": False})
+    if undrain != {"status": "accepting", "drained": False}:
+        fail(f"http drain: {{'drain': false}} answered {status} {undrain}")
+    status, again, _ = http_json(base + "/v1/completions",
+                                 {"prompt": "x", "max_tokens": 2})
+    if status != 200 or again["usage"]["completion_tokens"] != 2:
+        fail(f"http drain: a completion after undrain answered {status}")
+    log("server features: " + json.dumps(out))
     return out
 
 
@@ -994,65 +1109,124 @@ def kernel_share(torch, cfg) -> dict:
 # -- phase 5: in-process engines ---------------------------------------------
 
 
-def run_engine(torch, cfg, kv_quantize, label: str,
-               device: str = "cuda", params=None) -> int:
-    """Decode a few greedy tokens for two prompts, from ``params`` (random
-    from seed 1 when None); returns the kernel's launches during the run.
-    Each generated token must be the plain full-sequence forward's argmax
-    up to a margin (bf16 sums in another order; int8 pages add their
-    quantization error)."""
-    from dstack_tpu_torch.ops import flash_attention as fa
-    from dstack_tpu_torch.serving.engine import (
-        InferenceEngine,
-        Request,
-        _prompt_forward,
-    )
-
-    engine = InferenceEngine(cfg, params=params, batch_size=8, max_len=1024,
-                             paged=True, kv_quantize=kv_quantize, rng_seed=1,
-                             device=device)
-    prompts = [[(i * 37 + 11) % 256 for i in range(40)],
-               [(i * 91 + 3) % 256 for i in range(75)]]
-    reqs = [Request(tokens=p, max_new_tokens=12) for p in prompts]
-    fa.paged_decode_attention.launches = 0
-    steps0 = engine.decode_steps
+def drive(torch, engine, reqs) -> float:
+    """Submit ``reqs`` at once and step the engine until all are done;
+    returns the wall seconds (the device synchronised at the end)."""
+    t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r)
-    t0 = time.time()
     while not all(r.done.is_set() for r in reqs):
         engine.step()
-    if device == "cuda":
+    if engine.device.type == "cuda":
         torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = fa.paged_decode_attention.launches
-    steps = engine.decode_steps - steps0
-    if launches < cfg.num_layers * steps or steps <= 0:
-        fail(f"{label}: {launches} launches over {steps} steps")
-    margin = 0.1 if kv_quantize is None else 0.25
+    return time.perf_counter() - t0
+
+
+def greedy_gaps(torch, params, cfg, reqs, margin: float, label: str,
+                n_tokens: int) -> float:
+    """Each request must have ``n_tokens`` tokens, each the plain
+    full-sequence forward's argmax (finite logits) up to ``margin``
+    standard deviations of the logits; returns the worst gap.  One
+    forward a request over its prompt and tokens gives every position's
+    logits (causal: position i sees only what precedes token i + 1)."""
+    from dstack_tpu_torch.serving.engine import _prompt_forward
+
+    device = params["embed"].device
     worst = 0.0
     for r in reqs:
-        if len(r.output) != 12:
-            fail(f"{label}: {len(r.output)} tokens, wanted 12")
-        seq = list(r.tokens)
-        for tok in r.output:
-            padded = torch.zeros(128, dtype=torch.long, device=device)
-            padded[:len(seq)] = torch.tensor(seq, device=device)
-            logits, _, _ = _prompt_forward(engine.params, cfg, padded,
-                                           len(seq), 128)
-            if not torch.isfinite(logits).all():
-                fail(f"{label}: non-finite logits")
-            gap = ((logits.max() - logits[tok]) / logits.std()).item()
-            worst = max(worst, gap)
-            if gap > margin:
-                fail(f"{label}: token {tok} is {gap:.3f} std below the "
-                     f"plain forward's argmax")
-            seq.append(tok)
-    log(f"engine {label}: {steps} decode steps, {launches} kernel launches, "
-        f"{wall:.2f} s, worst greedy gap {worst:.4f} std")
+        if len(r.output) != n_tokens:
+            fail(f"{label}: {len(r.output)} tokens, wanted {n_tokens}")
+        seq = list(r.tokens) + list(r.output)
+        bucket = max(128, 1 << (len(seq) - 1).bit_length())
+        padded = torch.zeros(bucket, dtype=torch.long, device=device)
+        padded[:len(seq)] = torch.tensor(seq, device=device)
+        logits, _, _ = _prompt_forward(params, cfg, padded, len(seq), bucket,
+                                       every_position=True)
+        logits = logits[len(r.tokens) - 1:-1]
+        if not torch.isfinite(logits).all():
+            fail(f"{label}: non-finite logits")
+        out = torch.tensor(r.output, device=device)[:, None]
+        gaps = ((logits.max(-1).values - logits.gather(1, out)[:, 0])
+                / logits.std(-1)).tolist()
+        i = max(range(n_tokens), key=gaps.__getitem__)
+        if gaps[i] > margin:
+            fail(f"{label}: token {i} ({r.output[i]}) is {gaps[i]:.3f} std "
+                 f"below the plain forward's argmax")
+        worst = max(worst, gaps[i])
+    return worst
+
+
+def decode_rate(reqs) -> float:
+    """Tokens a second of decode alone: every token after each request's
+    first, over the span from the last first token to the last token.
+    Requests submitted at once are admitted in one scheduling step, so no
+    decode window runs before that span starts."""
+    tokens = sum(len(r.output) - 1 for r in reqs)
+    return tokens / (max(r.finished_at for r in reqs)
+                     - max(r.first_token_at for r in reqs))
+
+
+#: two prompts whose greedy tokens each engine run checks
+ENGINE_PROMPTS = ([(i * 37 + 11) % 256 for i in range(40)],
+                  [(i * 91 + 3) % 256 for i in range(75)])
+#: eight prompts of 40-110 tokens, one for each slot of a batch-8 engine:
+#: the load at which a decode rate is taken
+BURST_PROMPTS = tuple([(i * (37 + 6 * p) + 11 + p) % 256
+                       for i in range(40 + 10 * p)] for p in range(8))
+
+
+def run_engine(torch, cfg, kv_quantize, label: str, device: str = "cuda",
+               params=None, paged: bool = True, margin=None,
+               exact: bool = False, rate: bool = False) -> dict:
+    """Decode 12 greedy tokens for each of ENGINE_PROMPTS, submitted at
+    once, on an engine (batch 8, max_len 1024) from ``params`` (random
+    from seed 1 when None), after a short warm-up request.  Each token
+    must be the plain full-sequence forward's argmax up to ``margin`` std
+    (by default 0.1 on bf16 KV and 0.25 on int8: bf16 sums in another
+    order; int8 pages add their quantization error).  With ``rate``,
+    BURST_PROMPTS follow, 64 tokens each, for the decode rate at a full
+    batch.  On the card the kernel must launch layers x decode steps on
+    bf16/int8 pages (exactly with ``exact``, at least otherwise) and
+    never on int4 KV or a dense cache.  Returns the launches and decode
+    steps of both runs, the checked run's wall seconds and worst gap,
+    and the burst's decode rate."""
+    from dstack_tpu_torch.ops import flash_attention as fa
+    from dstack_tpu_torch.serving.engine import InferenceEngine, Request
+
+    engine = InferenceEngine(cfg, params=params, batch_size=8, max_len=1024,
+                             paged=paged, kv_quantize=kv_quantize, rng_seed=1,
+                             device=device)
+    drive(torch, engine, [Request(tokens=list(range(40)), max_new_tokens=4)])
+    reqs = [Request(tokens=list(p), max_new_tokens=12)
+            for p in ENGINE_PROMPTS]
+    fa.paged_decode_attention.launches = 0
+    steps0 = engine.decode_steps
+    wall = drive(torch, engine, reqs)
+    out = {"wall_s": wall}
+    if rate:
+        burst = [Request(tokens=list(p), max_new_tokens=64)
+                 for p in BURST_PROMPTS]
+        drive(torch, engine, burst)
+        if any(len(r.output) != 64 for r in burst):
+            fail(f"{label}: a burst request ended short of 64 tokens")
+        out["decode_tok_per_s"] = decode_rate(burst)
+    launches = fa.paged_decode_attention.launches
+    steps = engine.decode_steps - steps0
+    want = cfg.num_layers * steps if paged and kv_quantize != "int4" else 0
+    if steps <= 0 or device == "cuda" and (
+            launches != want if exact or not want else launches < want):
+        fail(f"{label}: {launches} kernel launches over {steps} decode "
+             f"steps x {cfg.num_layers} layers")
+    if margin is None:
+        margin = 0.1 if kv_quantize is None else 0.25
+    out.update(launches=launches, decode_steps=steps,
+               worst_gap_std=greedy_gaps(torch, engine.params, cfg, reqs,
+                                         margin, label, 12))
+    log(f"engine {label}: " + json.dumps(out))
     del engine
     if device == "cuda":
         torch.cuda.empty_cache()
-    return launches
+    return out
 
 
 # -- phases 6 and 7: training at full width ----------------------------------
@@ -1564,8 +1738,274 @@ def hf_import_phase(torch, cfg=None, device: str = "cuda") -> dict:
     del src
     out["launches"] = run_engine(torch, cfg, None,
                                  f"hf-import {cfg.num_layers}-layer bf16 "
-                                 f"pages", device=device, params=params)
+                                 f"pages", device=device,
+                                 params=params)["launches"]
     log("hf-import: " + json.dumps(out))
+    return out
+
+
+# -- phase 10: the rest of one-card serving -----------------------------------
+
+
+def features_prefix(torch, cfg, params, device: str) -> dict:
+    """Prefix caching on a paged bf16 engine (block 32, chunks of 512),
+    two waves, 16 tokens a request.  Chunked: one request of a 512-token
+    prefix and a 40-token suffix (a miss), then 7 with that prefix and
+    suffixes of 17-89 tokens, each admitted in chunks from past the 16
+    reused blocks.  Whole: a miss of a 256-token prefix and a 30-token
+    suffix, then 7 with suffixes of 20-56 tokens, each prompt within one
+    chunk, so each hit takes the whole-prompt prefill of its suffix over
+    8 reused blocks.  Each hit must reuse its prefix's blocks and prefill
+    only its suffix; the kernel launches layers x decode steps exactly
+    over both; each greedy token is the plain forward's argmax within
+    0.1 std."""
+    from dstack_tpu_torch.ops import flash_attention as fa
+    from dstack_tpu_torch.serving.engine import InferenceEngine, Request
+    from dstack_tpu_torch.telemetry.serving import EngineTelemetry
+
+    tel = EngineTelemetry()
+    bs = 32
+    engine = InferenceEngine(cfg, params=params, batch_size=8, max_len=1024,
+                             paged=True, kv_block_size=bs, prefix_cache=True,
+                             prefill_chunk=512, telemetry=tel, device=device)
+    reused = {}
+    reserve = engine._reserve_blocks
+
+    def spy(slot_id, req):
+        ok = reserve(slot_id, req)
+        if ok:
+            reused[id(req)] = engine._slot_prefix[slot_id][0] // bs
+        return ok
+
+    engine._reserve_blocks = spy
+    # the card's first calls of each shape, outside the measured run: a
+    # prompt as long as the first miss, of other tokens
+    drive(torch, engine, [Request(tokens=[(i * 5 + 3) % 256
+                                          for i in range(552)],
+                                  max_new_tokens=4)])
+    out = {}
+    done = []
+    fa.paged_decode_attention.launches = 0
+    steps0 = engine.decode_steps
+    for name, prefix, miss_len, lengths in (
+            ("chunked", [(i * 37 + 11) % 256 for i in range(512)], 40,
+             [17 + 12 * i for i in range(7)]),
+            ("whole", [(i * 11 + 5) % 256 for i in range(256)], 30,
+             [20 + 6 * i for i in range(7)])):
+        # a request's clock starts when it is made
+        miss = Request(tokens=prefix + [(i * 7 + 1) % 256
+                                        for i in range(miss_len)],
+                       max_new_tokens=16)
+        miss_s = drive(torch, engine, [miss])
+        # each suffix starts with its own token, so no two share a block
+        # past the prefix
+        wave = [Request(tokens=prefix + [(i * 13 + j * 5 + 200 + i) % 256
+                                         for j in range(n)],
+                        max_new_tokens=16) for i, n in enumerate(lengths)]
+        before = tel.prefill_tokens.value
+        wave_s = drive(torch, engine, wave)
+        suffix_tokens = sum(lengths)
+        prefilled = tel.prefill_tokens.value - before
+        hits = [reused[id(r)] for r in wave]
+        blocks = len(prefix) // bs
+        if reused[id(miss)] != 0 or hits != [blocks] * len(wave):
+            fail(f"prefix {name}: reused blocks {reused[id(miss)]} then "
+                 f"{hits}, wanted 0 then {blocks} each")
+        if prefilled != suffix_tokens:
+            fail(f"prefix {name}: the wave prefilled {prefilled} tokens, "
+                 f"its suffixes are {suffix_tokens}")
+        out[name] = {
+            "reused_blocks": hits, "wave_prefill_tokens": prefilled,
+            "miss_ttft_s": miss.first_token_at - miss.submitted_at,
+            "hit_ttft_s": sorted(r.first_token_at - r.submitted_at
+                                 for r in wave),
+            "miss_wall_s": miss_s, "wave_wall_s": wave_s}
+        done += [miss] + wave
+    launches = fa.paged_decode_attention.launches
+    steps = engine.decode_steps - steps0
+    if device == "cuda" and launches != cfg.num_layers * steps:
+        fail(f"prefix: {launches} kernel launches over {steps} decode "
+             f"steps x {cfg.num_layers} layers")
+    out.update(launches=launches, decode_steps=steps,
+               worst_gap_std=greedy_gaps(torch, params, cfg, done, 0.1,
+                                         "prefix", 16))
+    log("features prefix: " + json.dumps(out))
+    return out
+
+
+def features_speculation(torch, cfg, params, device: str) -> dict:
+    """n-gram speculation on a dense bf16 engine, k = 2: a sampled request
+    alone must take the plain window (no verification step counted); then
+    eight greedy prompts, one a slot, each repeating a 32-token pattern
+    four times, 64 tokens each, must see drafts accepted, each token
+    within 0.1 std of the plain forward's argmax.  The same greedy
+    prompts on the plain dense window first give the decode rate to
+    compare (each rate from the last first token to the last token)."""
+    from dstack_tpu_torch.serving.engine import InferenceEngine, Request
+
+    prompts = [[(i * 29 + 7 * p) % 256 for i in range(32)] * 4
+               for p in range(8)]
+    out = {}
+    for spec in (None, "ngram"):
+        engine = InferenceEngine(cfg, params=params, batch_size=8,
+                                 max_len=1024, speculation=spec,
+                                 speculation_k=2, rng_seed=1, device=device)
+        drive(torch, engine, [Request(tokens=list(range(40)),
+                                      max_new_tokens=4)])
+        if spec:
+            sampled = Request(tokens=prompts[0], max_new_tokens=16,
+                              temperature=1.0)
+            steps0 = engine.spec_stats["steps"]
+            drive(torch, engine, [sampled])
+            if (engine.spec_stats["steps"] != steps0
+                    or len(sampled.output) != 16):
+                fail(f"speculation: the sampled request counted "
+                     f"{engine.spec_stats['steps'] - steps0} verification "
+                     f"steps")
+            engine.spec_stats.update(steps=0, accepted=0)
+        reqs = [Request(tokens=list(p), max_new_tokens=64) for p in prompts]
+        drive(torch, engine, reqs)
+        name = "spec" if spec else "plain"
+        out[f"{name}_decode_tok_per_s"] = decode_rate(reqs)
+        out[f"{name}_tokens"] = [r.output for r in reqs]
+        if spec:
+            stats = dict(engine.spec_stats)
+            out["worst_gap_std"] = greedy_gaps(torch, params, cfg, reqs, 0.1,
+                                               "speculation", 64)
+        del engine
+    if stats["accepted"] <= 0:
+        fail(f"speculation: no draft accepted ({stats})")
+    pairs = list(zip(out.pop("spec_tokens"), out.pop("plain_tokens")))
+    # where bf16 near-ties first flip (the 3-wide verify sums in another
+    # order than the plain step): 64 = never
+    first_diff = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                       len(a)) for a, b in pairs]
+    out.update(spec_stats=stats, first_difference=first_diff,
+               tokens_per_verify_step=1 + stats["accepted"] / stats["steps"],
+               speedup=(out["spec_decode_tok_per_s"]
+                        / out["plain_decode_tok_per_s"]))
+    log("features speculation: " + json.dumps(out))
+    return out
+
+
+def features_int4(torch, cfg, params, device: str) -> dict:
+    """int4 KV: quantize_kv4/dequantize_kv4 on the device against the same
+    call on the CPU at 8B's [tokens, 8, 128] rows (bitwise); then dense
+    and paged engines with bf16 weights, int4 KV and, to compare, bf16 KV
+    (run_engine): 12 tokens for each of two prompts, each within
+    INT4_GAP_STD (int4) or 0.1 (bf16) std of the plain forward's argmax
+    (finite logits); then 64 tokens for each of eight prompts, one a
+    slot, for the decode rate.  The kernel must launch exactly layers x
+    decode steps on bf16 pages and never on int4 KV."""
+    from dstack_tpu_torch.serving.quant import dequantize_kv4, quantize_kv4
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    rows = torch.randn((1024, cfg.num_kv_heads, cfg.head_dim), generator=gen,
+                       device=device).to(cfg.dtype)
+    q4, s = quantize_kv4(rows)
+    cq4, cs = quantize_kv4(rows.cpu())
+    back = dequantize_kv4(q4, s, cfg.dtype).cpu()
+    differ = {"bytes": (q4.cpu() != cq4).sum().item(),
+              "scales": (s.cpu() != cs).sum().item(),
+              "values": (back != dequantize_kv4(cq4, cs, cfg.dtype)
+                         ).sum().item()}
+    if any(differ.values()):
+        fail(f"int4: quantize_kv4/dequantize_kv4 on the device differ from "
+             f"the CPU in {differ}")
+    rms = ((back.float() - rows.cpu().float()).pow(2).mean().sqrt()
+           / rows.float().pow(2).mean().sqrt()).item()
+    out = {"kv4_rms_rel_err": rms}
+    for kv in (None, "int4"):
+        for paged in (False, True):
+            label = f"{kv or 'bf16'} {'paged' if paged else 'dense'}"
+            out[label] = run_engine(
+                torch, cfg, kv, f"int4 phase {label}", device=device,
+                params=params, paged=paged,
+                margin=INT4_GAP_STD if kv else 0.1, exact=True, rate=True)
+    log("features int4: " + json.dumps(out))
+    return out
+
+
+def features_pd(torch, cfg, params, device: str) -> dict:
+    """Prefill/decode disaggregation: prefill_export of a 300-token prompt
+    on a dense engine, a round trip of its K/V and logits through the
+    server's wire codec (bitwise), the install into a paged bf16 engine
+    and 16 tokens decoded through the kernel (launches = layers x decode
+    steps), equal to the same prompt prefilled on that engine or each
+    within 0.1 std of the plain forward's argmax."""
+    from dstack_tpu_torch.ops import flash_attention as fa
+    from dstack_tpu_torch.serving.engine import InferenceEngine, Request
+    from dstack_tpu_torch.serving.server import _arr_from_wire, _arr_to_wire
+
+    prompt = [(i * 53 + 17) % 256 for i in range(300)]
+    exporter = InferenceEngine(cfg, params=params, batch_size=1, max_len=1024,
+                               device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp = exporter.prefill_export(prompt, max_new_tokens=16)
+    export_s = time.perf_counter() - t0
+    del exporter
+    t0 = time.perf_counter()
+    text = json.dumps({k: _arr_to_wire(exp[k])
+                       for k in ("ks", "vs", "logits")})
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wire = {k: _arr_from_wire(v) for k, v in json.loads(text).items()}
+    decode_s = time.perf_counter() - t0
+    for k, v in wire.items():
+        if v.dtype != exp[k].dtype or not torch.equal(v, exp[k]):
+            fail(f"pd: {k} changed on the wire")
+    engine = InferenceEngine(cfg, params=params, batch_size=8, max_len=1024,
+                             paged=True, device=device)
+    drive(torch, engine, [Request(tokens=list(range(40)), max_new_tokens=4)])
+    installed = Request(tokens=prompt, max_new_tokens=16, prefill=dict(
+        wire, first_token=exp["first_token"], length=exp["length"]))
+    fa.paged_decode_attention.launches = 0
+    steps0 = engine.decode_steps
+    install_s = drive(torch, engine, [installed])
+    launches = fa.paged_decode_attention.launches
+    steps = engine.decode_steps - steps0
+    if device == "cuda" and launches != cfg.num_layers * steps:
+        fail(f"pd: {launches} kernel launches over {steps} decode steps x "
+             f"{cfg.num_layers} layers")
+    colocated = Request(tokens=prompt, max_new_tokens=16)
+    colocated_s = drive(torch, engine, [colocated])
+    same = installed.output == colocated.output
+    worst = 0.0 if same else greedy_gaps(torch, params, cfg, [installed],
+                                         0.1, "pd install", 16)
+    out = {"wire_bytes": len(text), "kv_bytes": sum(
+               exp[k].numel() * exp[k].element_size() for k in ("ks", "vs")),
+           "export_s": export_s, "encode_s": encode_s, "decode_s": decode_s,
+           "install_and_decode_s": install_s, "colocated_s": colocated_s,
+           "launches": launches, "decode_steps": steps,
+           "same_as_colocated": same, "worst_gap_std": worst}
+    log("features pd: " + json.dumps(out))
+    return out
+
+
+def serving_features_phase(torch, cfg=None, device: str = "cuda") -> dict:
+    """Prefix caching, n-gram speculation, int4 KV and PD export/install
+    at Llama-3-8B (full width and depth) with one set of random bf16
+    weights (seed 1) shared by every engine, batch 8, max_len 1024.
+    Returns each part's numbers and the kernel's launches over the phase.
+    ``cfg`` defaults to the chip's; a CPU rehearsal passes a small one and
+    ``device="cpu"`` (launch counts are then not checked)."""
+    from dstack_tpu_torch.models.llama import LlamaConfig, init_params
+
+    cfg = cfg or LlamaConfig.llama3_8b()
+    params = init_params(cfg, device,
+                         torch.Generator(device=device).manual_seed(1))
+    out = {"prefix": features_prefix(torch, cfg, params, device),
+           "speculation": features_speculation(torch, cfg, params, device),
+           "int4": features_int4(torch, cfg, params, device),
+           "pd": features_pd(torch, cfg, params, device)}
+    out["launches"] = (out["prefix"]["launches"] + out["pd"]["launches"]
+                       + sum(v["launches"] for v in out["int4"].values()
+                             if isinstance(v, dict)))
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1583,7 +2023,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    log(f"card: {smi.stdout.strip()}")
+    card = smi.stdout.strip()
+    log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1614,7 +2055,7 @@ def main() -> int:
         for variant in variants:
             launches = run_engine(torch, cfg,
                                   None if variant == "bf16" else "int8",
-                                  f"{cfg_name} {variant} pages")
+                                  f"{cfg_name} {variant} pages")["launches"]
             kernels[f"paged_decode_attention[{variant},{cfg_name}]"][
                 "launches"] = launches
     trained = []
@@ -1634,6 +2075,9 @@ def main() -> int:
     imported = hf_import_phase(torch)
     kernels["paged_decode_attention[bf16,llama3-1b]"]["launches"] += \
         imported["launches"]
+    features = serving_features_phase(torch)
+    kernels["paged_decode_attention[bf16,llama3-8b]"]["launches"] += \
+        features["launches"]
     for k in kernels.values():
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on its path")
@@ -1654,6 +2098,9 @@ def main() -> int:
     log("hf-import summary: " + json.dumps(
         {k: imported[k] for k in ("bytes", "load_s", "load_gb_per_s",
                                   "launches")}))
+    log("serving-features summary: " + json.dumps(features))
+    # again here, so that the end of a long log still says which card
+    log(f"card: {card}")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -261,8 +261,8 @@ def _pages(pages):
     if isinstance(pages, dict):
         if "q4" in pages:
             raise NotImplementedError(
-                "paged_decode_attention reads bf16 or int8 pages; int4 KV "
-                "is not ported")
+                "paged_decode_attention reads bf16 or int8 pages; the "
+                "engine decodes int4 pages through a gathered view")
         return pages["q"], pages["s"]
     return pages, None
 

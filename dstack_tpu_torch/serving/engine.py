@@ -8,9 +8,11 @@ padded to buckets so the shapes a step sees come from a small set.
 
 The KV cache is dense ([L, B, max_len, Hkv, D]) or paged
 ([L, NUM_BLOCKS, BS, Hkv, D] through per-slot block tables,
-serving/paging.py).  Paged decode reads its cache half through the Hopper
-paged-decode kernel (ops/flash_attention.py paged_decode_attention) on
-every layer of every step.
+serving/paging.py), in the model's dtype, int8 or nibble-packed int4.
+Paged decode reads its cache half through the Hopper paged-decode kernel
+(ops/flash_attention.py paged_decode_attention) on every layer of every
+step; int4 pages, which the kernel does not read, go through a gathered
+view of the slots' blocks instead, as the JAX engine routes them.
 
 PyTorch runs eagerly and asynchronously on the card: a decode window is a
 Python loop (steps x layers) whose launches are queued on the current
@@ -46,11 +48,16 @@ from dstack_tpu_torch.models.llama import (
 from dstack_tpu_torch.ops.flash_attention import paged_decode_attention
 from dstack_tpu_torch.ops.rmsnorm import rms_norm
 from dstack_tpu_torch.ops.rotary import apply_rope, rope_frequencies
-from dstack_tpu_torch.serving.paging import BlockAllocator
+from dstack_tpu_torch.serving.paging import (
+    BlockAllocator,
+    PrefixBlockAllocator,
+)
 from dstack_tpu_torch.serving.quant import (
     dequantize_kv,
+    dequantize_kv4,
     qmatmul,
     quantize_kv,
+    quantize_kv4,
     quantize_params,
 )
 from dstack_tpu_torch.utils.device import resolve_device
@@ -78,6 +85,10 @@ class Request:
     eos_id: Optional[int] = None
     #: called with each generated token id (streaming); None = collect only
     on_token: Optional[Callable[[int], None]] = None
+    #: prefill/decode disaggregation: KV made by a prefill replica
+    #: ({"ks", "vs": [L, n, Hkv, D], "logits": [V] or None, "first_token",
+    #: "length"}); admission installs it instead of running a prefill
+    prefill: Optional[dict] = None
     # filled by the engine
     output: List[int] = dataclasses.field(default_factory=list)
     done: threading.Event = dataclasses.field(default_factory=threading.Event)
@@ -188,16 +199,18 @@ def _layer_kv(layers, cfg: LlamaConfig, x, positions, inv_freqs):
 
 
 def _prompt_forward(params: Params, cfg: LlamaConfig, padded: torch.Tensor,
-                    length: int, bucket: int):
+                    length: int, bucket: int, every_position: bool = False):
     """Forward over a padded prompt: (last-position f32 logits, ks, vs) —
-    the one source of prefill math."""
+    the one source of prefill math.  ``every_position``: logits [length,
+    V] of each prompt position instead."""
     device = padded.device
     positions = torch.arange(bucket, device=device)[None, :]
     x = _embed(params, cfg, padded)[None, :, :]
     x, ks, vs = _layer_kv(_all_layers(params, cfg), cfg, x, positions,
                           _inv_freqs(cfg, device))
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    logits = qmatmul(x[0, length - 1, :], output_head(params, cfg), cfg.dtype,
+    rows = x[0, :length] if every_position else x[0, length - 1, :]
+    logits = qmatmul(rows, output_head(params, cfg), cfg.dtype,
                      preferred=torch.float32)
     return logits, ks, vs
 
@@ -213,21 +226,44 @@ def _kv_layer(cache, l: int):
 
 
 def _kv_mat(cache_leaf, dtype):
-    """A KV tensor ready for attention: plain tensors pass through; int8
-    {"q","s"} dicts dequantize."""
+    """A KV tensor ready for attention: plain tensors pass through;
+    quantized dicts dequantize — int8 {"q","s"} or nibble-packed int4
+    {"q4","s"} (the dict key is the format's marker)."""
     if isinstance(cache_leaf, dict):
+        if "q4" in cache_leaf:
+            return dequantize_kv4(cache_leaf["q4"], cache_leaf["s"], dtype)
         return dequantize_kv(cache_leaf["q"], cache_leaf["s"], dtype)
     return cache_leaf
 
 
 def _kv_map(cache, rows, fn):
     """Apply ``fn(cache_leaf, rows_leaf)`` over a cache that is a plain
-    tensor or an int8 {"q","s"} dict (rows quantized to match).  ``fn``
-    must be generic over trailing dims: the "s" leaf has no D dim."""
+    tensor or a quantized {"q"|"q4","s"} dict (rows quantized to match).
+    ``fn`` must be generic over trailing dims: the int4 "q4" leaf has D/2
+    packed bytes and the "s" leaf no D dim."""
     if isinstance(cache, dict):
-        q, s = quantize_kv(rows)
-        return {"q": fn(cache["q"], q), "s": fn(cache["s"], s)}
+        qk = "q4" if "q4" in cache else "q"
+        q, s = (quantize_kv4 if qk == "q4" else quantize_kv)(rows)
+        return {qk: fn(cache[qk], q), "s": fn(cache["s"], s)}
     return fn(cache, rows)
+
+
+def _dense_window_insert(cache, win, widx, sel) -> None:
+    """End-of-window insert into the DENSE cache, in place: cache row (b, s)
+    takes window column ``widx[b, s]`` wherever ``sel[b, s]`` — the one
+    write the plain and the speculative windows amortize their steps'
+    cache updates into.  ``win`` is [L, cols, B, ...]."""
+    def write(leaf, rows):  # leaf [L, B, S, ...], rows [L, cols, B, ...]
+        extra = (1,) * (rows.dim() - 3)
+        idx = widx.view(widx.shape + extra)
+        mask = sel.view(sel.shape + extra)
+        for l in range(leaf.shape[0]):
+            rows_t = rows[l].transpose(0, 1)         # [B, cols, ...]
+            picked = torch.gather(
+                rows_t, 1, idx.expand(widx.shape + rows_t.shape[2:]))
+            leaf[l] = torch.where(mask, picked, leaf[l])
+
+    _kv_map(cache, win, write)
 
 
 def _suffix_layer(x, lp, cfg: LlamaConfig, positions, inv_freqs, kv_pos,
@@ -263,9 +299,11 @@ class InferenceEngine:
     tokens, and a queued prompt waits at most one window for a free slot.
     """
 
-    #: chunk size the server enables by default (the JAX engine's sweep
-    #: winner, kept so both engines schedule prefill alike)
+    #: chunk size the server enables by default, and the draft length of
+    #: n-gram speculation (the JAX engine's sweep winners, kept so both
+    #: engines schedule alike)
     TUNED_PREFILL_CHUNK = 512
+    TUNED_SPECULATION_K = 2
 
     #: decode-window sizes: the largest is the steady-state path, the small
     #: ones avoid large overshoot on short tails
@@ -287,7 +325,10 @@ class InferenceEngine:
         total_kv_blocks: Optional[int] = None,
         quantize: Optional[str] = None,
         kv_quantize: Optional[str] = None,
+        prefix_cache: bool = False,
         prefill_chunk: Optional[int] = None,
+        speculation: Optional[str] = None,
+        speculation_k: Optional[int] = None,
         telemetry: Optional[Any] = None,
         device: Optional[Union[str, torch.device]] = None,
     ) -> None:
@@ -301,16 +342,32 @@ class InferenceEngine:
         (the request waits queued) when the pool is exhausted — never
         mid-decode.
 
+        ``prefix_cache=True`` (paged only) reuses the KV of shared prompt
+        prefixes: a prompt's full blocks are published under chained
+        content keys after its prefill, and a later prompt that starts
+        with the same blocks takes them (refcounted) and prefills only its
+        suffix (serving/paging.py PrefixBlockAllocator).
+
         ``kv_quantize="int8"`` stores the KV cache as int8 with one f32
         scale per (token, head) row; the paged kernel dequantizes pages
-        in place.  int4 KV is not ported.
+        in place.  ``"int4"`` packs two values per byte (a quarter of the
+        bf16 bytes, ~6% RMS row error); paged int4 decode attends over a
+        gathered view of the slots' blocks, not through the kernel.
 
         ``quantize="int8"``: weight-only int8 (serving/quant.py).
 
         ``prefill_chunk``: prompts longer than this prefill in chunks of at
         most this many tokens, ONE chunk per scheduling step, interleaved
         with decode windows; the slot stays inactive until its last chunk
-        produces the first token.  None disables.
+        produces the first token.  None disables.  A prefix-cache hit
+        starts its chunks past the reused rows.
+
+        ``speculation="ngram"`` (dense cache only): greedy windows verify
+        ``speculation_k`` draft tokens (default ``TUNED_SPECULATION_K``),
+        taken from the slot's own token history, in one (k+1)-wide
+        forward per step, emitting 1..k+1 tokens per step; the tokens are
+        those of plain greedy decode.  Windows with a sampled request take
+        the plain window (:meth:`_decode_window_spec`).
 
         ``telemetry``: a `telemetry.serving.EngineTelemetry`, or None (the
         hot paths then pay one ``is None`` check).
@@ -321,11 +378,11 @@ class InferenceEngine:
         self.batch_size = batch_size
         self.max_len = min(max_len, cfg.max_seq_len)
         self.paged = paged
-        if kv_quantize == "int4":
-            raise NotImplementedError("int4 KV is not yet ported")
-        if kv_quantize not in (None, "int8"):
+        if kv_quantize not in (None, "int8", "int4"):
             raise ValueError(f"unsupported kv_quantize={kv_quantize!r} "
-                             "(only 'int8')")
+                             "(only 'int8' or 'int4')")
+        if kv_quantize == "int4" and cfg.head_dim % 2:
+            raise ValueError("int4 KV packing needs an even head_dim")
         self.kv_quantize = kv_quantize
         self.kv_quant = kv_quantize is not None
         if paged:
@@ -345,13 +402,29 @@ class InferenceEngine:
                 raise ValueError(
                     f"total_kv_blocks must exceed {self._blocks_per_slot} "
                     f"(= max_len / kv_block_size)")
-            self._alloc = BlockAllocator(n_blocks)
+            self._alloc = (PrefixBlockAllocator(n_blocks) if prefix_cache
+                           else BlockAllocator(n_blocks))
             self._tables_host = np.zeros(
                 (batch_size, self._blocks_per_slot), np.int32)
             self._slot_blocks: List[List[int]] = [[] for _ in range(batch_size)]
+        elif prefix_cache:
+            raise ValueError("prefix_cache requires paged=True (the cache "
+                             "is block-addressed)")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         self.prefill_chunk = prefill_chunk
+        if speculation not in (None, "ngram"):
+            raise ValueError(f"unsupported speculation={speculation!r} "
+                             "(only 'ngram')")
+        if speculation and paged:
+            raise ValueError("speculation requires the dense cache")
+        self.speculation = speculation
+        self.speculation_k = (speculation_k if speculation_k is not None
+                              else self.TUNED_SPECULATION_K)
+        self.prefix_cache = prefix_cache
+        #: per-slot (prefix_len, block_keys) staged between reserve and
+        #: prefill (prefix-cache mode)
+        self._slot_prefix: List[tuple] = [(0, []) for _ in range(batch_size)]
         #: slot_id -> {"tokens", "done", ("logits", "n")} for prompts
         #: mid-chunked-prefill
         self._chunking: dict = {}
@@ -392,6 +465,10 @@ class InferenceEngine:
         self._watchdog_s = float(os.environ.get(
             "DSTACK_TPU_ENGINE_WATCHDOG_S", "300"))
         self._step_started_at: Optional[float] = None
+        #: speculative-decode counters: verification steps of decoding
+        #: slots and the draft tokens they accepted (end-of-request
+        #: overshoot included)
+        self.spec_stats = {"steps": 0, "accepted": 0}
 
     def _reset_device_state(self) -> None:
         """(Re-)allocate the KV cache and slot state.  Called at init and
@@ -405,6 +482,12 @@ class InferenceEngine:
                      cfg.head_dim)
 
         def zeros():
+            if self.kv_quantize == "int4":
+                return {"q4": torch.zeros(shape[:-1] + (shape[-1] // 2,),
+                                          dtype=torch.int8,
+                                          device=self.device),
+                        "s": torch.zeros(shape[:-1], dtype=torch.float32,
+                                         device=self.device)}
             if self.kv_quant:
                 return {"q": torch.zeros(shape, dtype=torch.int8,
                                          device=self.device),
@@ -416,6 +499,9 @@ class InferenceEngine:
         self._cache_v = None
         self._cache_k = zeros()
         self._cache_v = zeros()
+        if self.paged and isinstance(self._alloc, PrefixBlockAllocator):
+            # the KV behind every cached key was just reallocated
+            self._alloc.clear_cache()
         self._decode_consts = None
         self._pending = None
         self._chunking = {}
@@ -428,6 +514,10 @@ class InferenceEngine:
         self._last_token = torch.zeros((b,), dtype=torch.int64,
                                        device=self.device)
         self._active = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        #: on-device token history per slot (speculation's n-gram corpus);
+        #: column max_len is a sink for the writes that fall past the span
+        self._hist = torch.zeros((b, self.max_len + 1), dtype=torch.int64,
+                                 device=self.device)
 
     # -- public API --------------------------------------------------------
 
@@ -489,6 +579,17 @@ class InferenceEngine:
     def begin_drain(self) -> None:
         """Stop admitting, keep decoding what is in flight (idempotent)."""
         self.draining = True
+
+    def end_drain(self) -> None:
+        """Leave drain mode (an aborted migration, maintenance over): new
+        work is admitted again, caches intact.  Idempotent."""
+        self.draining = False
+
+    @property
+    def drained(self) -> bool:
+        """True once drain mode is on and no request is queued, admitted
+        or mid-dispatch: the replica can go with nothing dropped."""
+        return self.draining and not self.has_work()
 
     def has_work(self) -> bool:
         return (any(s is not None for s in self._slots)
@@ -600,19 +701,47 @@ class InferenceEngine:
             req = self._slots[slot_id]
             if req is None:
                 continue
+            self._publish_prefix(slot_id, st["n"])
             self._activate(slot_id, req, st["n"],
-                           self._sample_first(st["logits"], req))
+                           self._sample_first(st["logits"], req),
+                           st["tokens"])
 
-    def _activate(self, slot_id: int, req: Request, n: int,
-                  first: int) -> None:
-        """Open a prefilled slot for decode and emit its first token."""
+    def _activate(self, slot_id: int, req: Request, n: int, first: int,
+                  history: List[int]) -> None:
+        """Open a prefilled slot for decode, seed its token history with
+        ``history`` (the prompt) and emit its first token."""
         self._slots[slot_id] = req
         self._slots_gen += 1
         self._lengths[slot_id] = n
         self._host_lengths[slot_id] = n
         self._last_token[slot_id] = first
         self._active[slot_id] = True
+        self._record_history(slot_id, history, first)
         self._emit(slot_id, req, first)
+
+    def _publish_prefix(self, slot_id: int, n: int) -> None:
+        """Prefix-cache mode: publish the full blocks of a slot's finished
+        n-token prompt for later prompts (no-ops for reused blocks)."""
+        if not self.prefix_cache:
+            return
+        blocks = self._slot_blocks[slot_id]
+        for i, bkey in enumerate(self._slot_prefix[slot_id][1]):
+            if (i + 1) * self._block_size <= n and i < len(blocks):
+                self._alloc.register(bkey, blocks[i])
+
+    def _record_history(self, slot_id: int, tokens: List[int],
+                        first: int) -> None:
+        """Seed the slot's on-device token history (speculation's n-gram
+        corpus): the prompt at positions [0, n), the first generated token
+        at n.  The whole row is written, so a reused slot cannot leak its
+        previous request's tokens into drafts."""
+        if not self.speculation:
+            return
+        n = min(len(tokens), self.max_len - 2)
+        row = np.zeros((self.max_len + 1,), np.int64)
+        row[:n] = tokens[:n]
+        row[n] = first
+        self._hist[slot_id] = torch.from_numpy(row).to(self.device)
 
     def _admit(self) -> None:
         for slot_id in range(self.batch_size):
@@ -650,18 +779,21 @@ class InferenceEngine:
                     self._stalled = req
                     return
                 try:
-                    if (self.prefill_chunk is not None
+                    if req.prefill is not None:
+                        self._insert_prefilled(slot_id, req)
+                    elif (self.prefill_chunk is not None
                             and self._prompt_len(req) > self.prefill_chunk):
                         # long prompt: claim the slot now, prefill one chunk
                         # per step; the slot stays inactive until the last
-                        # chunk yields the first token
+                        # chunk yields the first token.  A prefix-cache hit
+                        # starts past the reused rows.
                         self._slots[slot_id] = req
                         self._slots_gen += 1
                         self._mark_admitted(req)
                         self._chunking[slot_id] = {
                             "tokens": self._prompt_tokens(
                                 req.tokens, req.max_new_tokens),
-                            "done": 0}
+                            "done": self._slot_prefix[slot_id][0]}
                     else:
                         self._prefill(slot_id, req)
                 except Exception:
@@ -681,6 +813,10 @@ class InferenceEngine:
                 self.telemetry.record_admitted(
                     req.admitted_at - req.submitted_at,
                     trace_id=req.trace_id)
+                if self.speculation:
+                    # baseline of the decode span's spec-accept attributes
+                    req._spec0 = (self.telemetry.spec_steps.value,
+                                  self.telemetry.spec_accepted.value)
 
     def _prompt_tokens(self, tokens: List[int],
                        max_new_tokens: int) -> List[int]:
@@ -689,19 +825,36 @@ class InferenceEngine:
         return list(tokens[-budget:]) or [0]
 
     def _prompt_len(self, req: Request) -> int:
+        if req.prefill is not None:
+            return min(int(req.prefill["length"]), self.max_len - 2)
         return len(self._prompt_tokens(req.tokens, req.max_new_tokens))
 
     def _reserve_blocks(self, slot_id: int, req: Request) -> bool:
         n = self._prompt_len(req)
         bs = self._block_size
         need = -(-(n + req.max_new_tokens + 1) // bs)
-        # a whole-prompt prefill writes a whole padded bucket
-        need = max(need, self._bucket(n) // bs)
+        matched: List[int] = []
+        keys: list = []
+        if self.prefix_cache and req.prefill is None:
+            tokens = self._prompt_tokens(req.tokens, req.max_new_tokens)
+            keys = PrefixBlockAllocator.block_keys(tokens, bs)
+            # at least one suffix token must remain: the prefill has to
+            # produce the last position's logits
+            matched = self._alloc.lookup(keys[: (n - 1) // bs])
+        prefix_len = len(matched) * bs
+        if req.prefill is None:
+            # a colocated prefill writes a whole padded bucket (past the
+            # reused prefix)
+            need = max(need, (prefix_len + self._bucket(n - prefix_len)) // bs)
         need = min(need, self._blocks_per_slot)
-        blocks = self._alloc.alloc(need)
-        if blocks is None:
+        fresh = self._alloc.alloc(need - len(matched))
+        if fresh is None:
+            if matched:
+                self._alloc.release(matched)  # undo the lookup's refs
             return False
+        blocks = matched + fresh
         self._slot_blocks[slot_id] = blocks
+        self._slot_prefix[slot_id] = (prefix_len, keys)
         self._tables_host[slot_id, :] = 0
         self._tables_host[slot_id, :need] = blocks
         return True
@@ -720,33 +873,105 @@ class InferenceEngine:
     # -- prefill -------------------------------------------------------------
 
     def _prefill(self, slot_id: int, req: Request) -> None:
-        """Whole-prompt prefill into ``slot_id`` (cache written in place)."""
+        """Whole-prompt prefill into ``slot_id`` (cache written in place);
+        after a prefix-cache hit, a prefill of the suffix only, attending
+        over the reused blocks."""
         self._mark_admitted(req)
         tokens = self._prompt_tokens(req.tokens, req.max_new_tokens)
         n = len(tokens)
-        bucket = self._bucket(n)
+        prefix_len = self._slot_prefix[slot_id][0]
+        bucket = self._bucket(n - prefix_len)
         padded = np.zeros((bucket,), np.int64)
-        padded[:n] = tokens[:bucket]
-        logits, ks, vs = _prompt_forward(
-            self.params, self.cfg, torch.from_numpy(padded).to(self.device),
-            n, bucket)
+        padded[:n - prefix_len] = tokens[prefix_len:prefix_len + bucket]
+        padded_t = torch.from_numpy(padded).to(self.device)
+        if prefix_len > 0:
+            logits = self._prefill_paged_chunk(
+                padded_t, n - prefix_len, prefix_len, self._tables_host[slot_id])
+        else:
+            logits, ks, vs = _prompt_forward(self.params, self.cfg, padded_t,
+                                             n, bucket)
+            self._install_rows(slot_id, ks[:, 0], vs[:, 0])
+        self._publish_prefix(slot_id, n)
+        if self.telemetry is not None:
+            # the suffix is what was computed
+            self.telemetry.record_prefill(n - prefix_len, bucket)
+        self._activate(slot_id, req, n, self._sample_first(logits, req),
+                       tokens)
+
+    def _install_rows(self, slot_id: int, ks, vs) -> None:
+        """Write K/V rows [L, rows, Hkv, D] at the start of a slot: dense,
+        its first rows; paged, its first blocks (``rows`` a whole number of
+        blocks)."""
         if self.paged:
-            nblk = bucket // self._block_size
+            nblk = ks.shape[1] // self._block_size
             bids = torch.tensor(self._slot_blocks[slot_id][:nblk],
                                 dtype=torch.int64, device=self.device)
 
-            def insert(leaf, rows):  # rows [L, bucket, ...]
+            def insert(leaf, rows):  # rows [L, nblk * BS, ...]
                 leaf[:, bids] = rows.reshape(
                     (rows.shape[0], nblk, self._block_size) + rows.shape[2:])
         else:
             def insert(leaf, rows):
-                leaf[:, slot_id, :bucket] = rows
+                leaf[:, slot_id, :rows.shape[1]] = rows
 
-        _kv_map(self._cache_k, ks[:, 0], insert)
-        _kv_map(self._cache_v, vs[:, 0], insert)
-        if self.telemetry is not None:
-            self.telemetry.record_prefill(n, bucket)
-        self._activate(slot_id, req, n, self._sample_first(logits, req))
+        _kv_map(self._cache_k, ks, insert)
+        _kv_map(self._cache_v, vs, insert)
+
+    def prefill_export(self, tokens: List[int],
+                       max_new_tokens: int = 128) -> dict:
+        """Prefill/decode disaggregation, the prefill side: the prompt's
+        K/V ([L, n, Hkv, D] on the host) and last-position f32 logits,
+        with no slot taken.  The prompt budget is :meth:`_prefill`'s, so
+        a disaggregated prompt is cut exactly as a colocated one."""
+        max_new_tokens = max(min(max_new_tokens, self.max_len - 2), 1)
+        toks = self._prompt_tokens(tokens, max_new_tokens)
+        n = len(toks)
+        bucket = self._bucket(n)
+        padded = np.zeros((bucket,), np.int64)
+        padded[:n] = toks[:bucket]
+        logits, ks, vs = _prompt_forward(
+            self.params, self.cfg, torch.from_numpy(padded).to(self.device),
+            n, bucket)
+        logits = logits.cpu()
+        return {"ks": ks[:, 0, :n].cpu(), "vs": vs[:, 0, :n].cpu(),
+                # the logits let the decode side sample the first token
+                # with the request's own sampling; first_token is the
+                # greedy one for wire formats without logits
+                "logits": logits, "first_token": int(torch.argmax(logits)),
+                "length": n}
+
+    def _insert_prefilled(self, slot_id: int, req: Request) -> None:
+        """Prefill/decode disaggregation, the decode side: install a
+        prefill replica's K/V into the slot and start decoding from its
+        first token."""
+        self._mark_admitted(req)
+        p = req.prefill
+        n = int(p["length"])
+        ks = torch.as_tensor(p["ks"])
+        vs = torch.as_tensor(p["vs"])
+        # a prefill replica with a larger max_len must not be able to crash
+        # this engine: keep the newest rows that fit
+        limit = self.max_len - 2
+        if n > limit:
+            ks, vs, n = ks[:, n - limit:], vs[:, n - limit:], limit
+        ks = ks.to(self.device, self.cfg.dtype)
+        vs = vs.to(self.device, self.cfg.dtype)
+        if self.paged:
+            # pad to whole blocks, scattered into the slot's blocks
+            pad = -n % self._block_size
+            ks = F.pad(ks, (0, 0, 0, 0, 0, pad))
+            vs = F.pad(vs, (0, 0, 0, 0, 0, pad))
+        self._install_rows(slot_id, ks, vs)
+        if p.get("logits") is not None:
+            # the request's own temperature/top_p/top_k
+            first = self._sample_first(
+                torch.as_tensor(p["logits"]).to(self.device, torch.float32),
+                req)
+        else:
+            first = int(p["first_token"])
+        self._activate(
+            slot_id, req, n, first,
+            self._prompt_tokens(req.tokens, req.max_new_tokens)[:n])
 
     def _chunk_forward(self, padded, length: int, positions, kv_pos,
                        insert, gather):
@@ -858,6 +1083,9 @@ class InferenceEngine:
         (o, lse) over the slot's first ``kv_blocks`` table columns (the
         ragged bucket); the window half is plain torch; the two merge by
         logsumexp.  Dense: one softmax over the concatenated scores.
+        Paged int4, which the kernel does not read: the dense math over a
+        view of each slot's ``kv_blocks`` blocks, gathered (packed) once
+        for the window.
 
         Returns (tokens [W, B], last token [B], new lengths [B]); the
         cache is written in place and no value is read back to the host.
@@ -871,6 +1099,14 @@ class InferenceEngine:
         kv_span = kv_blocks * self._block_size if self.paged else self.max_len
         cache_mask = (torch.arange(kv_span, device=dev)[None, :]
                       < base_len[:, None])[:, None, None, :]
+        use_kernel = self.paged and self.kv_quantize != "int4"
+        view_k, view_v = self._cache_k, self._cache_v
+        if self.paged and not use_kernel:
+            # [L, B, span, ...] linear views, read-only until the insert
+            idx = tables.long()
+            view_k, view_v = (_tree_map(lambda t: t[:, idx].reshape(
+                (cfg.num_layers, b, kv_span) + t.shape[3:]), c)
+                for c in (self._cache_k, self._cache_v))
         head = output_head(self.params, cfg)
         win_k = torch.zeros((cfg.num_layers, w, b, hkv, cfg.head_dim),
                             dtype=cfg.dtype, device=dev)
@@ -888,9 +1124,9 @@ class InferenceEngine:
                 # are left out instead of masked
                 wk, wv = win_k[l, :i + 1], win_v[l, :i + 1]
                 qg = q.reshape(b, hkv, group, cfg.head_dim)
-                layer_k = _kv_layer(self._cache_k, l)
-                layer_v = _kv_layer(self._cache_v, l)
-                if self.paged:
+                layer_k = _kv_layer(view_k, l)
+                layer_v = _kv_layer(view_v, l)
+                if use_kernel:
                     o_c, lse_c = paged_decode_attention(
                         qg, layer_k, layer_v, tables, base_len, scale=scale)
                     s_w = (torch.einsum("bhgd,jbhd->bhgj", qg, wk)
@@ -945,6 +1181,9 @@ class InferenceEngine:
 
             def write(leaf, rows):  # leaf [L, NB, BS, ...], rows [L, W, B, ...]
                 leaf[:, phys, off] = rows.transpose(1, 2)
+
+            _kv_map(self._cache_k, win_k, write)
+            _kv_map(self._cache_v, win_v, write)
         else:
             # cache row p takes window row p - base_len wherever
             # base_len <= p < base_len + W (and the slot is active)
@@ -952,20 +1191,126 @@ class InferenceEngine:
             widx = torch.clamp(kv_index - base_len[:, None], 0, w - 1).long()
             sel = ((kv_index >= base_len[:, None])
                    & (kv_index < base_len[:, None] + w) & active[:, None])
-
-            def write(leaf, rows):  # leaf [L, B, S, ...], rows [L, W, B, ...]
-                for l in range(leaf.shape[0]):
-                    rows_t = rows[l].transpose(0, 1)         # [B, W, ...]
-                    extra = (1,) * (rows_t.dim() - 2)
-                    picked = torch.gather(
-                        rows_t, 1, widx.view(widx.shape + extra).expand(
-                            widx.shape + rows_t.shape[2:]))
-                    leaf[l] = torch.where(sel.view(sel.shape + extra),
-                                          picked, leaf[l])
-
-        _kv_map(self._cache_k, win_k, write)
-        _kv_map(self._cache_v, win_v, write)
+            _dense_window_insert(self._cache_k, win_k, widx, sel)
+            _dense_window_insert(self._cache_v, win_v, widx, sel)
         return torch.stack(tokens_all), last, step_lengths
+
+    def _decode_window_spec(self, *, window: int, k: int):
+        """Greedy decode window with n-gram (prompt-lookup) speculation.
+
+        Each step verifies ``k`` draft tokens plus the real one in ONE
+        (k+1)-wide forward: the drafts are the k tokens that followed the
+        latest earlier occurrence of the slot's current bigram in its
+        on-device history; the forward gives the greedy token at all k+1
+        positions, and the longest matching draft prefix is accepted, so
+        a step emits 1..k+1 tokens for one pass over the weights.
+
+        The window K/V buffer has ``window * (k+1)`` columns whose
+        validity is ``win_pos`` ([B, cols] positions, -1 = invalid).  Rows
+        are written optimistically before acceptance is known and
+        invalidated after: a query at draft depth j is only used when
+        drafts 1..j were accepted, and then every row it attended was
+        real.  Accepted positions of successive steps are disjoint, so the
+        end-of-window insert maps each position to one column.  Greedy
+        and dense only.  Everything stays on the device: the steps queue
+        with no host sync, as the plain window's do.
+
+        Returns (tokens [W, B, k+1], accepted [W, B], last token [B], new
+        lengths [B]); the cache and the history are written in place.
+        """
+        cfg = self.cfg
+        b, dev, span = self.batch_size, self.device, self.max_len
+        hkv, group = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+        scale = cfg.head_dim ** -0.5
+        active = self._active
+        cur_len = self._lengths.long()
+        base_len = torch.clamp(cur_len, max=span - 1)
+        kv_index = torch.arange(span, device=dev)[None, :]
+        cache_mask = (kv_index < base_len[:, None])[:, None, None, None, :]
+        head = output_head(self.params, cfg)
+        wc = window * (k + 1)
+        win_k = torch.zeros((cfg.num_layers, wc, b, hkv, cfg.head_dim),
+                            dtype=cfg.dtype, device=dev)
+        win_v = torch.zeros_like(win_k)
+        win_pos = torch.full((b, wc), -1, dtype=torch.int64, device=dev)
+        jj = torch.arange(k + 1, device=dev)[None, :]
+        pos_r = torch.arange(span - 1, device=dev)[None, :]
+        rows = torch.arange(b, device=dev)[:, None]
+        hist = self._hist
+        last = self._last_token
+        toks, accs = [], []
+        for i in range(window):
+            # invariant: hist[cur_len] == last, so the bigram's first token
+            # is hist[cur_len - 1]; earlier pairs start at p <= cur_len - 2
+            prev = torch.gather(hist, 1,
+                                torch.clamp(cur_len - 1, 0, span - 1)[:, None])
+            m = ((hist[:, :span - 1] == prev)
+                 & (hist[:, 1:span] == last[:, None])
+                 & (pos_r < (cur_len - 1)[:, None]))
+            found = m.any(dim=1) & (cur_len >= 2)
+            p = (span - 2) - torch.argmax(m.flip(1).to(torch.int32), dim=1)
+            didx = p[:, None] + 2 + jj[:, :k]
+            drafts = torch.gather(hist, 1, torch.clamp(didx, 0, span - 1))
+            drafts = torch.where(found[:, None] & (didx < cur_len[:, None]),
+                                 drafts, -1)  # -1 is never accepted
+            tokens_in = torch.cat([last[:, None], drafts.clamp_min(0)], dim=1)
+            positions = torch.clamp(cur_len, max=span - 1)[:, None] + jj
+            positions_c = torch.clamp(positions, max=span - 1)
+            step_pos = torch.where(positions < span, positions, -1)
+            col0, col1 = i * (k + 1), (i + 1) * (k + 1)
+            win_pos[:, col0:col1] = step_pos  # optimistic validity
+            # columns past this step's are all invalid: left out, not masked
+            w_pos = win_pos[:, None, None, None, :col1]
+            w_mask = (w_pos >= 0) & (w_pos <= positions[:, None, None, :, None])
+            x = _embed(self.params, cfg, tokens_in)          # [B, k+1, D]
+            for l, lp in enumerate(self._layers):
+                q, kk, vv = _qkv(x, lp, cfg, positions_c, self._inv_freqs)
+                win_k[l, col0:col1] = kk.transpose(0, 1)
+                win_v[l, col0:col1] = vv.transpose(0, 1)
+                qg = q.reshape(b, k + 1, hkv, group, cfg.head_dim)
+                lk = _kv_mat(_kv_layer(self._cache_k, l), x.dtype)
+                lv = _kv_mat(_kv_layer(self._cache_v, l), x.dtype)
+                wk, wv = win_k[l, :col1], win_v[l, :col1]
+                s_c = torch.einsum("bqhgd,bkhd->bhgqk", qg, lk) * scale
+                s_c = torch.where(cache_mask, s_c, _NEG_INF)
+                s_w = torch.einsum("bqhgd,wbhd->bhgqw", qg, wk) * scale
+                s_w = torch.where(w_mask, s_w, _NEG_INF)
+                probs = torch.softmax(torch.cat([s_c, s_w], dim=-1).float(),
+                                      dim=-1).to(x.dtype)
+                attn = (torch.einsum("bhgqk,bkhd->bqhgd",
+                                     probs[..., :span], lv)
+                        + torch.einsum("bhgqw,wbhd->bqhgd",
+                                       probs[..., span:], wv))
+                x = _layer_tail(x, attn, lp, cfg)
+            x = rms_norm(x, self.params["final_norm"], cfg.rms_eps)
+            logits = qmatmul(x, head, cfg.dtype, preferred=torch.float32)
+            greedy = torch.argmax(logits, dim=-1)             # [B, k+1]
+            match = (drafts == greedy[:, :k]).long()
+            n_acc = torch.where(active, torch.cumprod(match, 1).sum(1), 0)
+            # invalidate the draft rows past the accepted prefix, and every
+            # row of an inactive slot
+            step_valid = (jj <= n_acc[:, None]) & (step_pos >= 0) & active[:, None]
+            win_pos[:, col0:col1] = torch.where(step_valid, step_pos, -1)
+            # emitted tokens enter the history at positions + 1 (each greedy
+            # token continues the position it was predicted at); the rest
+            # land in the sink column
+            wpos = torch.where(step_valid & (positions + 1 < span),
+                               positions + 1, span)
+            hist[rows, wpos] = greedy
+            new_last = torch.gather(greedy, 1, n_acc[:, None])[:, 0]
+            last = torch.where(active, new_last, last)
+            cur_len = cur_len + torch.where(active, n_acc + 1, 0)
+            toks.append(greedy)
+            accs.append(n_acc)
+
+        # end-of-window insert, keyed by each column's position
+        eq = kv_index[:, :, None] == win_pos[:, None, :]       # [B, S, cols]
+        sel = eq.any(dim=-1)
+        widx = torch.argmax(eq.to(torch.int32), dim=-1)
+        _dense_window_insert(self._cache_k, win_k, widx, sel)
+        _dense_window_insert(self._cache_v, win_v, widx, sel)
+        return (torch.stack(toks), torch.stack(accs), last,
+                cur_len.to(self._lengths.dtype))
 
     def _pick_window(self, remaining: int) -> int:
         """Window size minimizing total tail cost = wasted device steps +
@@ -1019,6 +1364,8 @@ class InferenceEngine:
         window = self._pick_window(remaining)
         sampling = any(
             req is not None and req.temperature > 0.0 for req in self._slots)
+        if self.speculation and not sampling:
+            return self._dispatch_window_spec(remaining, window)
         nbk = self._ragged_blocks(window) if self.paged else 0
         # per-slot constants, copied to the device once per slot assignment
         gen = self._slots_gen
@@ -1058,7 +1405,30 @@ class InferenceEngine:
             self._record_dispatch(len(decoding), pending, t0)
         return pending
 
+    def _dispatch_window_spec(self, remaining: int, window: int):
+        """Queue a speculative greedy window (:meth:`_decode_window_spec`).
+        A step emits 1..k+1 tokens per slot, so the drain walks the
+        accepted counts; ``remaining_after`` counts the one token a step
+        always gives (tokens past a request's end are dropped, as the plain
+        window's overshoot is)."""
+        t0 = time.time()
+        toks, accs, self._last_token, self._lengths = \
+            self._decode_window_spec(window=window, k=self.speculation_k)
+        self.decode_steps += window
+        decoding = frozenset(
+            slot_id for slot_id, req in enumerate(self._slots)
+            if req is not None and slot_id not in self._chunking)
+        pending = {"tokens": toks, "accepted": accs, "window": window,
+                   "remaining_after": remaining - window,
+                   "decoding": decoding, "spec": True}
+        if self.telemetry is not None:
+            self._record_dispatch(len(decoding), pending, t0)
+        return pending
+
     def _kv_used_fraction(self) -> float:
+        """KV capacity in use: allocated blocks over the usable pool
+        (paged; prefix blocks parked for reuse count as used — they hold
+        live KV) or cached rows over batch * max_len (dense)."""
         if self.paged:
             usable = self._alloc.num_blocks - 1  # block 0 is the NULL block
             return (usable - self._alloc.free_blocks) / max(usable, 1)
@@ -1081,12 +1451,20 @@ class InferenceEngine:
 
     def _drain_window(self) -> None:
         """Copy the in-flight window's tokens to the host and emit them —
-        the ONE device->host sync per window."""
+        the ONE device->host sync per window.  A speculative window's step
+        emits its first ``accepted + 1`` tokens ([W, B, k+1]), a plain
+        window's step one ([W, B])."""
         p = self._pending
         if p is None:
             return
         self._pending = None
         tokens_np = p["tokens"].cpu().numpy()
+        if p.get("spec"):
+            accs_np = p["accepted"].cpu().numpy()             # [W, B]
+            self._count_spec(p, accs_np)
+        else:
+            tokens_np = tokens_np[..., None]
+            accs_np = np.zeros(tokens_np.shape[:2], np.int64)
         emitted = 0
         for step in range(p["window"]):
             for slot_id, req in enumerate(self._slots):
@@ -1094,12 +1472,28 @@ class InferenceEngine:
                     # finished mid-window (overshoot) or still prefilling
                     # when the window was queued
                     continue
-                self._host_lengths[slot_id] += 1  # mirrors device lengths
-                emitted += 1
-                self._emit(slot_id, req, int(tokens_np[step, slot_id]))
+                for j in range(int(accs_np[step, slot_id]) + 1):
+                    if self._slots[slot_id] is None:
+                        break  # finished mid-step: drop the rest
+                    self._host_lengths[slot_id] += 1  # mirrors the device
+                    emitted += 1
+                    self._emit(slot_id, req, int(tokens_np[step, slot_id, j]))
         if self.telemetry is not None and "t0" in p:
             self.telemetry.record_drain(emitted, time.time() - p["t0"],
                                         len(p["decoding"]))
+
+    def _count_spec(self, p: dict, accs_np: np.ndarray) -> None:
+        """Speculation's acceptance over a window's decoding slots: into
+        ``spec_stats`` and the telemetry's counters."""
+        cols = sorted(p["decoding"])
+        if not cols:
+            return
+        steps_n = p["window"] * len(cols)
+        accepted_n = int(accs_np[:, cols].sum())
+        self.spec_stats["steps"] += steps_n
+        self.spec_stats["accepted"] += accepted_n
+        if self.telemetry is not None:
+            self.telemetry.record_spec(steps_n, accepted_n)
 
     def _sample_first(self, logits, req: Request) -> int:
         """A request's FIRST token, from the same sampler as the decode
@@ -1161,6 +1555,9 @@ class InferenceEngine:
         self._slots_gen += 1
         self._host_lengths[slot_id] = 0
         if self.paged and self._slot_blocks[slot_id]:
+            # refcounted in prefix-cache mode (shared blocks park in the
+            # allocator's LRU); plain free otherwise
             self._alloc.release(self._slot_blocks[slot_id])
             self._slot_blocks[slot_id] = []
+            self._slot_prefix[slot_id] = (0, [])
             self._tables_host[slot_id, :] = 0

@@ -1,14 +1,15 @@
-"""Weight-only int8 quantization and int8 KV rows for the serving engine.
+"""Weight-only int8 quantization and int8/int4 KV rows for the serving
+engine.
 
 Symmetric per-channel (absmax) weights: ``{"q": int8 [..., in, out], "s":
 f32 [..., out]}``; norms and the embedding stay in the original dtype (a
 tied head gets its own int8 copy, see :func:`quantize_params`).  KV rows
-quantize per (token, head) row with one f32 scale each.
+quantize per (token, head) row with one f32 scale each, at 8 bits or at 4
+bits packed two to a byte.
 
 Plain torch: ``qmatmul`` converts the int8 weight to the compute dtype
 before the product, so on the card the int8 bytes are read once and the
 converted copy once more — a fused dequant-matmul kernel is later work.
-int4 KV (nibble-packed) is not part of this port yet.
 """
 
 from __future__ import annotations
@@ -73,3 +74,36 @@ def dequantize_kv(q: torch.Tensor, s: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
     """Inverse of :func:`quantize_kv`, computed in ``dtype``."""
     return q.to(dtype) * s[..., None].to(dtype)
+
+
+def quantize_kv4(x: torch.Tensor):
+    """[..., D] K/V rows -> (int8 [..., D/2] nibble-packed, f32 scales [...]).
+
+    The per-(token, head)-row absmax scheme of :func:`quantize_kv` at 4
+    bits: values quantize to [-7, 7] and adjacent pairs pack two to a byte,
+    the even index in the low nibble.  Needs an even D."""
+    d = x.shape[-1]
+    if d % 2:
+        raise ValueError(f"int4 KV packing needs an even head_dim, got {d}")
+    x32 = x.float()
+    # a divisor on x's device: CUDA divides by a Python number as a
+    # product with its reciprocal, which can move a scale by one ulp
+    # from the CPU's (and JAX's) quotient
+    seven = torch.full((), 7.0, device=x.device)
+    s = (x32.abs().amax(dim=-1, keepdim=True) / seven).clamp_min(1e-12)
+    q = torch.clamp(torch.round(x32 / s), -7, 7).to(torch.int8)
+    lo = q[..., 0::2] & 0x0F
+    hi = q[..., 1::2] << 4
+    return lo | hi, s[..., 0].float()
+
+
+def dequantize_kv4(q4: torch.Tensor, s: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv4`, computed in ``dtype``: arithmetic
+    shifts of the int8 bytes sign-extend both nibbles, which interleave
+    back to [..., D]."""
+    lo = (q4 << 4) >> 4
+    hi = q4 >> 4
+    vals = torch.stack([lo, hi], dim=-1).reshape(
+        q4.shape[:-1] + (2 * q4.shape[-1],))
+    return vals.to(dtype) * s[..., None].to(dtype)

@@ -2,8 +2,9 @@
 
 Standard-library HTTP (``http.server.ThreadingHTTPServer``): one thread per
 connection, the engine on its own thread.  Endpoints: /health, /v1/models,
-/v1/completions, /v1/chat/completions (non-streaming and SSE streaming),
-/metrics (Prometheus text, OpenMetrics on request), /stats, /load.
+/v1/completions, /v1/chat/completions (non-streaming and SSE streaming, and
+the two legs of prefill/decode disaggregation), /metrics (Prometheus text,
+OpenMetrics on request), /stats, /load, /drain, /traces, /traces/{id}.
 
 Run: python -m dstack_tpu_torch.serving.server --config llama3-8b --paged
 (CUDA by default; ``--device cpu`` runs on the CPU).
@@ -12,6 +13,7 @@ Run: python -m dstack_tpu_torch.serving.server --config llama3-8b --paged
 from __future__ import annotations
 
 import argparse
+import base64
 import json
 import logging
 import queue
@@ -22,7 +24,14 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import List, Optional
 
-from dstack_tpu_torch.models.checkpoint import load_hf_llama
+import numpy as np
+import torch
+
+from dstack_tpu_torch.models.checkpoint import (
+    _dtype_name,
+    _torch_dtype,
+    load_hf_llama,
+)
 from dstack_tpu_torch.models.llama import LlamaConfig
 from dstack_tpu_torch.ops.flash_attention import paged_decode_attention
 from dstack_tpu_torch.serving import deadlines
@@ -32,6 +41,7 @@ from dstack_tpu_torch.serving.engine import (
     Request,
 )
 from dstack_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
+from dstack_tpu_torch.serving.wire import PD_PHASE_HEADER
 from dstack_tpu_torch.telemetry import tracing
 from dstack_tpu_torch.telemetry.exposition import render
 from dstack_tpu_torch.telemetry.serving import (
@@ -47,6 +57,23 @@ CONFIGS = {
     "llama3-8b": LlamaConfig.llama3_8b,
     "llama3-70b": LlamaConfig.llama3_70b,
 }
+
+
+def _arr_to_wire(t: torch.Tensor) -> dict:
+    """An array as JSON: its raw bytes in base64, its shape and numpy's
+    name of its dtype (bf16 travels as raw 2-byte words named
+    "bfloat16"), the JAX replica's prefill_result encoding."""
+    t = t.detach().cpu().contiguous()
+    raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+    return {"b64": base64.b64encode(raw).decode(), "shape": list(t.shape),
+            "dtype": _dtype_name(t.dtype)}
+
+
+def _arr_from_wire(obj: dict) -> torch.Tensor:
+    """Inverse of :func:`_arr_to_wire`: a host tensor, bit for bit."""
+    raw = np.frombuffer(base64.b64decode(obj["b64"]), np.uint8).copy()
+    return torch.from_numpy(raw).view(_torch_dtype(obj["dtype"])).reshape(
+        obj["shape"])
 
 
 class Response:
@@ -179,12 +206,57 @@ class ServingApp:
 
     # -- handlers ----------------------------------------------------------
 
+    def _speculation(self) -> dict:
+        """Speculation's acceptance so far (read once: the engine thread
+        updates the counters)."""
+        steps = self.engine.spec_stats["steps"]
+        accepted = self.engine.spec_stats["accepted"]
+        return {"steps": steps, "accepted": accepted,
+                "accept_rate": accepted / steps if steps else 0.0}
+
     def health(self, handler) -> Response:
         wedged = self._wedged_response()
         if wedged is not None:
             return wedged
         status = "draining" if self.engine.draining else "ok"
-        return json_response({"status": status, "model": self.model_name})
+        out = {"status": status, "model": self.model_name}
+        if self.engine.speculation:
+            out["speculation"] = self._speculation()
+        return json_response(out)
+
+    def drain(self, handler) -> Response:
+        """Enter drain mode (idempotent): stop admitting, finish what is in
+        flight; the answer says whether the engine is already drained, so
+        an orchestrator can poll this endpoint.  A body ``{"drain":
+        false}`` leaves drain mode."""
+        try:
+            body = handler.json_body()
+        except BadRequest:
+            body = None
+        if isinstance(body, dict) and body.get("drain") is False:
+            self.engine.end_drain()
+        else:
+            self.engine.begin_drain()
+        return json_response({
+            "status": "draining" if self.engine.draining else "accepting",
+            "drained": bool(self.engine.drained)})
+
+    def traces(self, handler) -> Response:
+        """Recent and tail-retained traces, newest first; 404 when tracing
+        is off."""
+        if self.tracer is None:
+            return json_response({"detail": "tracing disabled"}, status=404)
+        return json_response(self.tracer.summary())
+
+    def trace_detail(self, handler) -> Response:
+        if self.tracer is None:
+            return json_response({"detail": "tracing disabled"}, status=404)
+        trace_id = handler.route_path[len("/traces/"):]
+        spans = self.tracer.trace(trace_id)
+        if not spans:
+            return json_response({"detail": f"unknown trace {trace_id}"},
+                                 status=404)
+        return json_response({"trace_id": trace_id, "spans": spans})
 
     def load(self, handler) -> Response:
         wedged = self._wedged_response()
@@ -222,6 +294,8 @@ class ServingApp:
         out["kernels"] = {
             "paged_decode_attention": {
                 "launches": paged_decode_attention.launches}}
+        if self.engine.speculation:
+            out["speculation"] = self._speculation()
         return json_response(out)
 
     def models(self, handler) -> Response:
@@ -247,17 +321,65 @@ class ServingApp:
         return self._generate(handler, payload, self.tokenizer.encode(prompt),
                               chat=True)
 
+    # -- prefill/decode disaggregation ---------------------------------------
+
+    def _prefill_phase(self, ids: List[int], payload) -> Response:
+        """The prefill leg: the prompt's K/V and last-position logits,
+        computed here with no slot taken, for the router to hand to a
+        decode replica as ``prefill_result``."""
+        result = self.engine.prefill_export(
+            ids, max_new_tokens=int(payload.get("max_tokens", 128)))
+        return json_response({
+            "object": "prefill_result",
+            "model": payload.get("model", self.model_name),
+            "first_token": result["first_token"],
+            "length": result["length"],
+            "prompt_ids": list(ids),
+            "kv_k": _arr_to_wire(result["ks"]),
+            "kv_v": _arr_to_wire(result["vs"]),
+            "logits": _arr_to_wire(result["logits"]),
+        })
+
+    def _request_from_prefill(self, payload) -> Request:
+        p = payload["prefill_result"]
+        req = self._make_request(list(p["prompt_ids"]), payload)
+        req.prefill = {
+            "ks": _arr_from_wire(p["kv_k"]),
+            "vs": _arr_from_wire(p["kv_v"]),
+            "logits": (_arr_from_wire(p["logits"])
+                       if p.get("logits") else None),
+            "first_token": int(p["first_token"]),
+            "length": int(p["length"]),
+        }
+        return req
+
+    def _phase_request(self, ids: List[int], payload, handler):
+        """The leg a request is, from the router's phase header: ("prefill",
+        None), or (None, the engine request: a decode leg installs its
+        ``prefill_result``, any other request prefills here)."""
+        phase = handler.headers.get(PD_PHASE_HEADER, "")
+        if phase == "prefill":
+            return "prefill", None
+        if phase == "decode" and payload.get("prefill_result"):
+            req = self._request_from_prefill(payload)
+        else:
+            req = self._make_request(ids, payload)
+        if handler.trace is not None:
+            req.trace_id, req.parent_span_id = handler.trace
+        return None, req
+
     def _generate(self, handler, payload, ids: List[int], chat: bool):
         if self.engine.draining:
             return self._draining_response()
-        req = self._make_request(ids, payload)
-        if handler.trace is not None:
-            req.trace_id, req.parent_span_id = handler.trace
+        marker, req = self._phase_request(ids, payload, handler)
         remaining = deadlines.parse_remaining(handler.headers)
         if remaining is not None:
             if remaining <= 0.0:
                 return self._deadline_response()
-            req.deadline = time.time() + remaining
+            if req is not None:
+                req.deadline = time.time() + remaining
+        if marker == "prefill":
+            return self._prefill_phase(ids, payload)
         if payload.get("stream"):
             return self._stream(handler, req, chat, payload)
         self._install_stop(req, payload)
@@ -397,6 +519,10 @@ class ServingApp:
             ("GET", "/metrics"): self.metrics,
             ("GET", "/stats"): self.stats,
             ("GET", "/load"): self.load,
+            ("POST", "/drain"): self.drain,
+            ("GET", "/traces"): self.traces,
+            # a key ending in "/" matches every path under it
+            ("GET", "/traces/"): self.trace_detail,
             ("GET", "/v1/models"): self.models,
             ("POST", "/v1/completions"): self.completions,
             # OpenAI-compatible surface for external clients
@@ -424,6 +550,8 @@ class _Handler(BaseHTTPRequestHandler):
     app: ServingApp
     table: dict
     trace = None
+    #: the request's path without its query
+    route_path = ""
 
     def log_message(self, fmt, *args) -> None:
         logger.debug("%s " + fmt, self.address_string(), *args)
@@ -445,8 +573,10 @@ class _Handler(BaseHTTPRequestHandler):
         return body
 
     def _dispatch(self, method: str) -> None:
-        path = self.path.split("?", 1)[0]
+        path = self.route_path = self.path.split("?", 1)[0]
         fn = self.table.get((method, path))
+        if fn is None and "/" in path[1:]:
+            fn = self.table.get((method, path[:path.rindex("/") + 1]))
         if fn is None:
             self._send(json_response({"detail": "not found"}, status=404))
             return
@@ -544,21 +674,26 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--total-kv-blocks", type=int, default=None,
         help="paged-mode pool size; default = batch_size * max_len / block")
-    parser.add_argument("--prefix-cache", action="store_true",
-                        help="prefix caching (not yet ported)")
+    parser.add_argument(
+        "--prefix-cache", action="store_true",
+        help="reuse the KV of shared prompt prefixes across requests; "
+             "implies --paged")
     parser.add_argument(
         "--kv-quantize", choices=["int8", "int4"], default=None,
-        help="store the KV cache quantized with per-row scales (int8; int4 "
-             "is not yet ported)")
+        help="store the KV cache quantized with per-row scales: int8, or "
+             "int4 packed two values per byte (~6%% RMS row error)")
     parser.add_argument(
         "--prefill-chunk", type=int, default=None, metavar="N",
         help="prefill long prompts in N-token chunks interleaved with "
              f"decode windows; default {InferenceEngine.TUNED_PREFILL_CHUNK}; "
              "0 disables chunking")
-    parser.add_argument("--speculation", choices=["ngram"], default=None,
-                        help="speculative decoding (not yet ported)")
-    parser.add_argument("--speculation-k", type=int, default=None,
-                        metavar="K", help="(not yet ported)")
+    parser.add_argument(
+        "--speculation", choices=["ngram"], default=None,
+        help="n-gram speculative decoding for greedy requests (dense cache)")
+    parser.add_argument(
+        "--speculation-k", type=int, default=None, metavar="K",
+        help="draft tokens verified per speculative step; default "
+             f"{InferenceEngine.TUNED_SPECULATION_K}")
     parser.add_argument(
         "--no-telemetry", action="store_true",
         help="disable the in-process serving telemetry (/metrics + /stats "
@@ -582,10 +717,6 @@ def unported_flags(args) -> List[str]:
     """Flags set on the command line whose feature the port lacks."""
     checks = [
         ("--tensor-parallel", args.tensor_parallel > 1),
-        ("--prefix-cache", args.prefix_cache),
-        ("--speculation", args.speculation is not None),
-        ("--speculation-k", args.speculation_k is not None),
-        ("--kv-quantize int4", args.kv_quantize == "int4"),
         ("--compile-cache", args.compile_cache is not None),
         ("--compile-cache-peers", args.compile_cache_peers is not None),
         ("--snapshot-dir", args.snapshot_dir is not None),
@@ -615,6 +746,28 @@ def load_model(args) -> tuple:
             args.model_name or Path(args.checkpoint).name)
 
 
+def build_engine(args, cfg: LlamaConfig, params) -> InferenceEngine:
+    """The engine of the command line."""
+    return InferenceEngine(
+        cfg, params=params, batch_size=args.batch_size, max_len=args.max_len,
+        rng_seed=args.seed, quantize=args.quantize,
+        paged=args.paged or args.prefix_cache,
+        kv_block_size=args.kv_block_size,
+        total_kv_blocks=args.total_kv_blocks,
+        prefix_cache=args.prefix_cache,
+        kv_quantize=args.kv_quantize,
+        # the engine's None means DISABLED, so the default lives here;
+        # --prefill-chunk 0 opts out
+        prefill_chunk=(InferenceEngine.TUNED_PREFILL_CHUNK
+                       if args.prefill_chunk is None
+                       else (args.prefill_chunk or None)),
+        speculation=args.speculation,
+        speculation_k=args.speculation_k,
+        telemetry=None if args.no_telemetry else make_engine_telemetry(),
+        device=args.device,
+    )
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -626,20 +779,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     if tokenizer.vocab_size > cfg.vocab_size:
         raise SystemExit(f"tokenizer vocab {tokenizer.vocab_size} exceeds "
                          f"model vocab {cfg.vocab_size}")
-    engine = InferenceEngine(
-        cfg, params=params, batch_size=args.batch_size, max_len=args.max_len,
-        rng_seed=args.seed, quantize=args.quantize, paged=args.paged,
-        kv_block_size=args.kv_block_size,
-        total_kv_blocks=args.total_kv_blocks,
-        kv_quantize=args.kv_quantize,
-        # the engine's None means DISABLED, so the default lives here;
-        # --prefill-chunk 0 opts out
-        prefill_chunk=(InferenceEngine.TUNED_PREFILL_CHUNK
-                       if args.prefill_chunk is None
-                       else (args.prefill_chunk or None)),
-        telemetry=None if args.no_telemetry else make_engine_telemetry(),
-        device=args.device,
-    )
+    engine = build_engine(args, cfg, params)
     app = ServingApp(engine, tokenizer, model_name=model_name)
     app.start_engine()
     server = app.make_server("0.0.0.0", args.port)

@@ -11,11 +11,14 @@ the suite's first half-minute, where it runs the dtlint scan-speed
 guard.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dstack_tpu.models.llama import LlamaConfig as j_config
 from dstack_tpu.serving import engine as j_engine
 from dstack_tpu_torch.models.llama import LlamaConfig, params_from_jax
 from dstack_tpu_torch.serving import engine as t_engine
@@ -90,15 +93,26 @@ def test_engine_without_device_raises_when_cuda_is_missing(monkeypatch):
         t_engine.InferenceEngine(LlamaConfig.tiny())
 
 
-@pytest.mark.parametrize("kw, exc", [
-    (dict(kv_quantize="int4"), NotImplementedError),
-    (dict(kv_quantize="fp8"), ValueError),
-    (dict(paged=True, kv_block_size=12), ValueError),
-    (dict(prefill_chunk=0), ValueError),
-], ids=["int4", "bad-kv", "block-size", "chunk"])
-def test_engine_rejects_unsupported_options(kw, exc):
-    with pytest.raises(exc):
-        t_engine.InferenceEngine(CFG, **ENGINE_KW, **kw)
+@pytest.mark.parametrize("kw, head_dim", [
+    (dict(kv_quantize="fp8"), 16),
+    (dict(paged=True, kv_block_size=12), 16),
+    (dict(prefill_chunk=0), 16),
+    (dict(prefix_cache=True), 16),
+    (dict(speculation="ngram", **PAGED_KW), 16),
+    (dict(speculation="eagle"), 16),
+    (dict(kv_quantize="int4"), 15),
+], ids=["bad-kv", "block-size", "chunk", "prefix-cache-dense",
+        "speculation-paged", "speculation-unknown", "int4-odd-head-dim"])
+def test_engine_rejects_unsupported_options(kw, head_dim):
+    """Each refusal is the JAX engine's too (its checks run before it
+    builds any JAX program)."""
+    shape = dict(num_heads=4, num_kv_heads=2, head_dim=head_dim)
+    with pytest.raises(ValueError):
+        t_engine.InferenceEngine(dataclasses.replace(CFG, **shape),
+                                 **ENGINE_KW, **kw)
+    with pytest.raises(ValueError):
+        j_engine.InferenceEngine(dataclasses.replace(j_config.tiny(), **shape),
+                                 batch_size=2, max_len=64, **kw)
 
 
 def test_pick_window_matches_jax():

@@ -126,10 +126,6 @@ def test_bad_json_is_a_400(base_url):
 
 @pytest.mark.parametrize("flags", [
     ["--tensor-parallel", "2"],
-    ["--prefix-cache"],
-    ["--speculation", "ngram"],
-    ["--speculation-k", "2"],
-    ["--kv-quantize", "int4"],
     ["--checkpoint", "ckpt", "--snapshot-dir", "snap"],
     ["--compile-cache", "cache"],
     ["--compile-cache-peers", "http://peer"],
