@@ -96,6 +96,26 @@ Phases (any failure stops the run with a non-zero exit and no result):
              paths; every greedy token is checked against a plain forward
              (0.1 std; int4 INT4_GAP_STD).  Decode rates run from the
              last first token to the last token, prefills left out.
+11. moe     — Mixtral-8x7B (full width and depth, random weights from a
+             seed) with int8 weights, drawn and quantized a matrix at a
+             time (the bf16 tree does not fit the card), served paged
+             (batch 8, max_len 1024, chunks of 512, capacity factor 4.0:
+             dropless): a 64-token prompt alone (TTFT), eight prompts of
+             64 tokens (the decode rate at a full batch), a 700-token
+             prompt in two chunks (the second padded, its pads masked
+             out of routing); the paged-decode kernel launches exactly
+             layers x decode steps.  Then its layers at 8 deep with bf16
+             experts on a dense cache, the same requests.  Every greedy
+             token is held to moe.forward on the same weights, routed
+             as the engine routed where the two differ (each such flip on
+             a router near-tie: MOE_TIE_EPS), within 0.1 std.
+             Then training at Mixtral width, 2 layers, b4 s2048, remat:
+             6 steps (loss falls, aux loss finite, flash launches exact)
+             and one step through the kernels against one through
+             flash_attention_plain (TRAIN_PLAIN_RTOL).  Prints TTFT,
+             decode rate and step, train step and tokens/s (no MFU: the
+             parameter count holds all 8 experts, a token uses 2), peak
+             memory.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; exits non-zero without
@@ -109,6 +129,7 @@ wrapper_host_report).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -240,6 +261,36 @@ REPLAY_CHUNK = 128
 # engines' worst gap at 0.198 std and holds it to the same margin; 0.5 is
 # ~2.5x that, room for bf16's own near-ties (0.1) and the 8B's depth.
 INT4_GAP_STD = 0.5
+#: moe phase: Mixtral-8x7B served whole with int8 weights (paged, block
+#: 32, batch 8, max_len 1024, chunks of 512); its layers at 8 deep with
+#: bf16 experts (dense cache); trained at 2 layers, b4 s2048, remat.
+#: Served at capacity factor 4.0 (= E / k: dropless at any length), so
+#: that the forward and per-token decode route alike, as the JAX package's
+#: MoE serving tests set it
+MOE_SERVE_CAPACITY_FACTOR = 4.0
+MOE_BF16_LAYERS = 8
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 2048, 6
+#: the long prompt: one chunk of 512, then 188 tokens in a 256 bucket, so
+#: padding is masked out of routing
+MOE_LONG_PROMPT = 700
+#: routing near-ties.  A decode step's hidden state differs from the full
+#: forward's by bf16 rounding, and where a token's k-th and (k+1)-th
+#: router logits nearly tie the engine may take other experts than the
+#: forward; that is routing, not a fault.  The check replays the engine's
+#: routing in the forward wherever the two differ; then the engine's
+#: router logits must be within MOE_TIE_EPS of the forward's at every
+#: position and layer, and each flip must sit on a forward gap below it.
+#: From bf16's unit roundoff u = 2^-8: after L = 32 layers of bf16
+#: residual adds the two paths' hidden states differ by about sqrt(L) u
+#: relative, and router logits are unit-scale sums of them (rms-normed
+#: hiddens, fan-in-scaled router), so each differs by about sigma =
+#: sqrt(L) u = 0.022; the largest of a run's ~5e5 logits by about 5 sigma
+#: = 0.11, a gap (a difference of two) by about 0.16.  The limit, 2^-2,
+#: is 1.6x that.  Measured on an H100 (700 W): 0.091 at most, flips on
+#: gaps up to 0.087 (int8, 32 layers, attention dequantized for the
+#: forward); 0.061 and 0.042 (bf16, 8 layers).
+MOE_TIE_EPS = 2.0 ** -2
 #: the server phase's prompt, also sent in process by the share phase
 PROMPT = ("The paged KV cache keeps each request's keys and values in "
           "fixed-size blocks; request number {i} asks about it.")
@@ -2009,6 +2060,408 @@ def serving_features_phase(torch, cfg=None, device: str = "cuda") -> dict:
     return out
 
 
+# -- phase 11: Mixtral-style MoE ---------------------------------------------
+
+
+def int8_moe_params(torch, cfg, device: str, seed: int) -> dict:
+    """An MoE tree drawn as ``moe.init_params`` draws it (the same
+    generator calls in the same order, each matrix rounded to
+    ``cfg.dtype``), every layer matrix and the head quantized to int8 by
+    ``quantize_weight`` one (layer, expert) matrix at a time as it is
+    drawn, and a tied model given an int8 head copy: equal to
+    ``quantize_params(init_params(...), tied_head_copy=tie_embeddings)``
+    with no full-precision tree on the device (Mixtral-8x7B's is 93.4 GB
+    in bf16)."""
+    from dstack_tpu_torch.models import moe
+    from dstack_tpu_torch.serving.quant import _LAYER_WEIGHTS, quantize_weight
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape, fan_in, dtype):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device) * fan_in ** -0.5).to(dtype)
+
+    def leaf(name, meta):
+        if "norm" in name:
+            return torch.ones(meta.shape, dtype=meta.dtype, device=device)
+        if name == "embed":  # [V, D], fan-in D
+            return draw(meta.shape, meta.shape[-1], meta.dtype)
+        lead, shape = meta.shape[:-2], meta.shape[-2:]  # [..., in, out]
+        if name not in _LAYER_WEIGHTS + ("lm_head",):  # the f32 router
+            out = torch.empty(meta.shape, dtype=meta.dtype, device=device)
+            for part in out.view((-1,) + shape):
+                part.copy_(draw(shape, shape[0], meta.dtype))
+            return out
+        q = torch.empty(meta.shape, dtype=torch.int8, device=device)
+        s = torch.empty(lead + shape[-1:], dtype=torch.float32,
+                        device=device)
+        for qp, sp in zip(q.view((-1,) + shape), s.view((-1, shape[-1]))):
+            w = quantize_weight(draw(shape, shape[0], meta.dtype))
+            qp.copy_(w["q"])
+            sp.copy_(w["s"])
+        return {"q": q, "s": s}
+
+    # the generator's calls in init_params' order: embed, layers, head
+    out = {k: ({n: leaf(n, m) for n, m in v.items()} if k == "layers"
+               else leaf(k, v))
+           for k, v in moe.init_params(cfg, "meta", None).items()}
+    if cfg.tie_embeddings:
+        out["lm_head"] = quantize_weight(out["embed"].T)
+    return out
+
+
+def dequantized_dense(torch, params, dtype) -> dict:
+    """``params`` with its attention matrices and head dequantized to
+    ``dtype`` and its expert stacks left int8: the tree ``moe.forward``
+    takes (its attention multiplies plain tensors, its experts take int8
+    as the reference's ``qeinsum`` does)."""
+    def deq(w):
+        return (w["q"].to(dtype) * w["s"][..., None, :].to(dtype)
+                if isinstance(w, dict) else w)
+
+    out = dict(params, layers={
+        k: deq(w) if k in ("wq", "wk", "wv", "wo") else w
+        for k, w in params["layers"].items()})
+    if "lm_head" in params:
+        out["lm_head"] = deq(params["lm_head"])
+    return out
+
+
+class RouteTap:
+    """Within ``with``: the router logits of every ``moe._route`` call, in
+    call order (one call a layer of each forward the engine runs)."""
+
+    def __enter__(self):
+        from dstack_tpu_torch.models import moe
+
+        self.moe, self.route, self.calls = moe, moe._route, []
+
+        def tap(logits, k, capacity, token_mask=None):
+            self.calls.append(logits.detach())
+            return self.route(logits, k, capacity, token_mask)
+
+        moe._route = tap
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+
+def engine_routes(torch, calls, reqs, num_layers: int, chunk: int) -> list:
+    """Each request's router logits as the engine computed them, [L,
+    positions, E] for every position the engine fed (the prompt and each
+    output token but the last), from the calls of one drive of ``reqs``
+    submitted at once on an idle engine: their prefills in order (chunks of
+    ``chunk``, one call a layer, rows past the chunk padding), then decode
+    steps in lockstep (one call a layer, row b the slot of request b,
+    which holds its token j at step j)."""
+    i, routes = 0, []
+    for r in reqs:
+        rows = [[] for _ in range(num_layers)]
+        for done in range(0, len(r.tokens), chunk):
+            m = min(chunk, len(r.tokens) - done)
+            for l in range(num_layers):
+                rows[l].append(calls[i][:m])
+                i += 1
+        routes.append(rows)
+    if (len(calls) - i) % num_layers:
+        fail(f"moe: {len(calls) - i} decode-step router calls, not a "
+             f"multiple of {num_layers} layers")
+    for j in range((len(calls) - i) // num_layers):
+        for l in range(num_layers):
+            for b, r in enumerate(reqs):
+                if j < len(r.output) - 1:
+                    routes[b][l].append(calls[i][b:b + 1])
+            i += 1
+    return [torch.stack([torch.cat(rows) for rows in r]) for r in routes]
+
+
+def moe_check_tokens(torch, params, cfg, runs, label: str) -> dict:
+    """Each request's greedy tokens against ``moe.forward`` over its prompt
+    and tokens (one teacher-forced forward a request, at its exact length)
+    routed as the engine routed: layer by layer, wherever the engine's
+    top-k experts at a position differ from the forward's, the forward
+    takes the engine's router logits there, and the forward's own gap
+    between its k-th and (k+1)-th logits there must be below MOE_TIE_EPS;
+    everywhere the engine's router logits must be within MOE_TIE_EPS of
+    the forward's.  Every token must then be the forward's argmax within
+    0.1 std of the logits.  ``runs``: (requests, their engine_routes).  Returns the worst
+    gap, the tokens checked, the routing flips and their largest gap, and
+    the largest router-logit difference where the two routed alike."""
+    from dstack_tpu_torch.models import moe
+
+    k = cfg.experts_per_token
+    route = moe._route
+    device = params["embed"].device
+    stats = {"worst_gap_std": 0.0, "tokens_checked": 0, "flips": 0,
+             "flip_max_router_gap": 0.0, "router_max_abs_diff": 0.0}
+
+    def topk(x):
+        return torch.sort(x, dim=-1, descending=True, stable=True)
+
+    for reqs, routes in runs:
+        for r, eng in zip(reqs, routes):
+            layer = iter(eng)
+
+            def replay(logits, k_, capacity, token_mask=None):
+                e = next(layer).to(logits.dtype)
+                n = e.shape[0]
+                mine, theirs = topk(logits[:n]), topk(e)
+                flip = (mine.indices[:, :k].sort(-1).values
+                        != theirs.indices[:, :k].sort(-1).values).any(-1)
+                gap = mine.values[:, k - 1] - mine.values[:, k]
+                if flip.any():
+                    worst = gap[flip].max().item()
+                    if worst >= MOE_TIE_EPS:
+                        fail(f"{label}: the engine routed a token to other "
+                             f"experts than the forward where their gap is "
+                             f"{worst:.4f}")
+                    stats["flips"] += int(flip.sum())
+                    stats["flip_max_router_gap"] = max(
+                        stats["flip_max_router_gap"], worst)
+                    logits = logits.clone()
+                    logits[:n][flip] = e[flip]
+                diff = (logits[:n] - e).abs().amax().item()
+                if diff > MOE_TIE_EPS:
+                    fail(f"{label}: the engine's router logits differ from "
+                         f"the forward's by {diff:.4f}")
+                stats["router_max_abs_diff"] = max(
+                    stats["router_max_abs_diff"], diff)
+                return route(logits, k_, capacity, token_mask)
+
+            seq = list(r.tokens) + list(r.output)
+            if eng.shape[:2] != (cfg.num_layers, len(seq) - 1):
+                fail(f"{label}: engine routes {tuple(eng.shape)} for a "
+                     f"sequence of {len(seq)}")
+            moe._route = replay
+            try:
+                with torch.no_grad():
+                    logits = moe.forward(params, torch.tensor(
+                        [seq], device=device), cfg)[0, len(r.tokens) - 1:-1]
+            finally:
+                moe._route = route
+            if not torch.isfinite(logits).all():
+                fail(f"{label}: non-finite logits")
+            out = torch.tensor(r.output, device=device)[:, None]
+            gaps = ((logits.max(-1).values - logits.gather(1, out)[:, 0])
+                    / logits.std(-1)).tolist()
+            i = max(range(len(gaps)), key=gaps.__getitem__)
+            if gaps[i] > 0.1:
+                fail(f"{label}: token {i} ({r.output[i]}) is {gaps[i]:.3f} "
+                     f"std below the argmax of moe.forward routed as the "
+                     f"engine routed")
+            stats["worst_gap_std"] = max(stats["worst_gap_std"], gaps[i])
+            stats["tokens_checked"] += len(gaps)
+    return stats
+
+
+def moe_serve(torch, cfg, params, label: str, device: str, paged: bool,
+              long_prompt: bool) -> dict:
+    """An engine (batch 8, max_len 1024, chunks of 512) over ``params``:
+    a warm-up request; one 64-token prompt alone (its TTFT); the burst of
+    BURST_PROMPTS, 64 tokens each (the decode rate at a full batch); with
+    ``long_prompt`` a prompt of MOE_LONG_PROMPT tokens (two chunks, the
+    second padded).  Paged on the card, the paged-decode kernel must
+    launch exactly layers x decode steps; dense, never.  Returns the
+    numbers and, for each drive, its requests and the engine's router
+    logits for them (engine_routes), which moe_check_tokens checks."""
+    from dstack_tpu_torch.ops import flash_attention as fa
+    from dstack_tpu_torch.serving.engine import InferenceEngine, Request
+
+    engine = InferenceEngine(cfg, params=params, batch_size=8, max_len=1024,
+                             paged=paged, prefill_chunk=512, device=device)
+    drive(torch, engine, [Request(tokens=list(range(40)), max_new_tokens=4)])
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.paged_decode_attention.launches = 0
+    steps0 = engine.decode_steps
+    runs = []
+
+    def run(reqs):
+        with RouteTap() as tap:
+            wall = drive(torch, engine, reqs)
+        runs.append((reqs, engine_routes(torch, tap.calls, reqs,
+                                         cfg.num_layers, 512)))
+        return wall
+
+    single = Request(tokens=list(BURST_PROMPTS[2][:64]), max_new_tokens=16)
+    run([single])
+    burst = [Request(tokens=list(p), max_new_tokens=64)
+             for p in BURST_PROMPTS]
+    burst_s = run(burst)
+    if any(len(r.output) != 64 for r in burst):
+        fail(f"{label}: a burst request ended short of 64 tokens")
+    out = {"ttft_s": single.first_token_at - single.submitted_at,
+           "decode_tok_per_s": decode_rate(burst), "burst_wall_s": burst_s}
+    if long_prompt:
+        long = Request(tokens=[(i * 53 + 17) % 256
+                               for i in range(MOE_LONG_PROMPT)],
+                       max_new_tokens=16)
+        out["long_wall_s"] = run([long])
+        out["long_ttft_s"] = long.first_token_at - long.submitted_at
+    launches = fa.paged_decode_attention.launches
+    steps = engine.decode_steps - steps0
+    want = cfg.num_layers * steps if paged else 0
+    if steps <= 0 or cuda and launches != want:
+        fail(f"{label}: {launches} kernel launches over {steps} decode "
+             f"steps x {cfg.num_layers} layers (paged: {paged})")
+    out.update(launches=launches, decode_steps=steps,
+               # 8 slots decode one token each a step
+               decode_step_s=8 / out["decode_tok_per_s"])
+    if cuda:
+        out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del engine
+    return out, runs
+
+
+def moe_train(torch, cfg, device: str, batch: int, seq: int,
+              steps: int) -> dict:
+    """``steps`` MoE train steps (remat=True, unstacked, seed 0) on one
+    repeated batch of random tokens: the cross entropy finite and falling,
+    the aux loss finite, the flash kernels launched exactly twice per
+    layer per step forward (the backward recomputes each layer) and once
+    backward.  Then one step through the kernels and one through
+    ``flash_attention_plain`` from the same fresh state and batch (b2,
+    remat off): loss and grad norm within TRAIN_PLAIN_RTOL."""
+    from dstack_tpu_torch.models import moe, train
+    from dstack_tpu_torch.ops import flash_attention as fa
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    opt = train.default_optimizer()
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = moe.create_state(gen, cfg, opt, unstacked=True, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                           device=device, dtype=torch.int32)
+    step_fn = moe.make_train_step(cfg, opt)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.fwd_launches = fa.flash_attention.bwd_launches = 0
+    losses, auxes, norms, times = [], [], [], []
+    for _ in range(steps):
+        t = time.time()
+        state, metrics = step_fn(state, {"tokens": tokens})
+        losses.append(metrics["loss"].item())
+        auxes.append(metrics["aux_loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        sync()
+        times.append(time.time() - t)
+    fwd, bwd = fa.flash_attention.fwd_launches, fa.flash_attention.bwd_launches
+    want_fwd, want_bwd = 2 * cfg.num_layers * steps, cfg.num_layers * steps
+    if cuda and (fwd != want_fwd or bwd != want_bwd):
+        fail(f"moe train: flash launches fwd {fwd} bwd {bwd}, expected "
+             f"{want_fwd} and {want_bwd}")
+    if not all(map(math.isfinite, losses + auxes + norms)):
+        fail(f"moe train: non-finite loss, aux loss or grad norm: {losses} "
+             f"{auxes} {norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"moe train: loss did not fall: {losses}")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    out = {"num_layers": cfg.num_layers, "num_params": cfg.num_params(),
+           "batch": batch, "seq": seq, "steps": steps, "losses": losses,
+           "aux_losses": auxes, "grad_norms": norms, "step_s": times,
+           "step_median_s": step_s, "tokens_per_s": batch * seq / step_s,
+           "fwd_launches": fwd, "bwd_launches": bwd}
+    if cuda:
+        out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, step_fn, metrics
+    if cuda:
+        torch.cuda.empty_cache()
+    kernel_fn, routes = fa.flash_attention, {}
+    for route in ("kernel", "plain"):
+        gen = torch.Generator(device=device).manual_seed(1)
+        state = moe.create_state(gen, cfg, opt, unstacked=True,
+                                 device=device)
+        plain_batch = torch.randint(0, cfg.vocab_size, (TRAIN_PLAIN_BATCH,
+                                                        seq + 1),
+                                    generator=gen, device=device,
+                                    dtype=torch.int32)
+        if route == "plain":
+            fa.flash_attention = fa.flash_attention_plain
+        try:
+            _, metrics = moe.make_train_step(cfg, opt, remat=False)(
+                state, {"tokens": plain_batch})
+            routes[route] = {"loss": metrics["loss"].item(),
+                             "grad_norm": metrics["grad_norm"].item()}
+        finally:
+            fa.flash_attention = kernel_fn
+        del state, metrics
+        if cuda:
+            torch.cuda.empty_cache()
+    for key, limit in TRAIN_PLAIN_RTOL.items():
+        got, want = routes["kernel"][key], routes["plain"][key]
+        rel = abs(got - want) / abs(want)
+        routes[f"{key}_rel_err"] = rel
+        if not (math.isfinite(got) and rel <= limit):
+            fail(f"moe train-plain: {key} {got} through the kernels vs "
+                 f"{want} through the plain versions (rel {rel:.2e} > "
+                 f"{limit})")
+    out["plain"] = routes
+    return out
+
+
+def moe_phase(torch, cfg=None, device: str = "cuda",
+              seq: int = MOE_TRAIN_SEQ) -> dict:
+    """Mixtral-style MoE on one card, in three parts, each freed before the
+    next is built: Mixtral-8x7B at full size with int8 weights (seed 2,
+    drawn by int8_moe_params) served paged, with chunked prefill of a long
+    prompt; its layers at MOE_BF16_LAYERS deep with bf16 experts (seed 3)
+    served on a dense cache; training at MOE_TRAIN_LAYERS layers
+    (moe_train).  Each served greedy token is held to ``moe.forward`` on
+    the same weights (int8 experts; attention and head dequantized, as
+    the forward multiplies plain tensors).  ``cfg`` defaults to
+    Mixtral-8x7B; a CPU rehearsal passes a small one, ``device="cpu"`` and
+    a short ``seq`` (launch counts are then not checked)."""
+    from dstack_tpu_torch.models.llama import tree_leaves
+    from dstack_tpu_torch.models.moe import MoEConfig, init_params
+
+    cuda = device == "cuda"
+    base = cfg or MoEConfig.mixtral_8x7b()
+    serve_cfg = dataclasses.replace(
+        base, capacity_factor=MOE_SERVE_CAPACITY_FACTOR)
+    out = {}
+
+    params = int8_moe_params(torch, serve_cfg, device, seed=2)
+    out["int8_weight_bytes"] = sum(
+        t.numel() * t.element_size() for t in tree_leaves(params))
+    out["int8"], runs = moe_serve(torch, serve_cfg, params, "moe int8 paged",
+                                  device, paged=True, long_prompt=True)
+    out["int8"].update(moe_check_tokens(
+        torch, dequantized_dense(torch, params, serve_cfg.dtype), serve_cfg,
+        runs, "moe int8 paged"))
+    log("moe int8: " + json.dumps(out["int8"]))
+    del params, runs
+    if cuda:
+        torch.cuda.empty_cache()
+
+    bf16_cfg = dataclasses.replace(
+        serve_cfg, num_layers=min(MOE_BF16_LAYERS, serve_cfg.num_layers))
+    params = init_params(bf16_cfg, device,
+                         torch.Generator(device=device).manual_seed(3))
+    out["bf16_weight_bytes"] = sum(
+        t.numel() * t.element_size() for t in tree_leaves(params))
+    out["bf16"], runs = moe_serve(torch, bf16_cfg, params, "moe bf16 dense",
+                                  device, paged=False, long_prompt=False)
+    out["bf16"].update(moe_check_tokens(torch, params, bf16_cfg, runs,
+                                        "moe bf16 dense"))
+    log("moe bf16: " + json.dumps(out["bf16"]))
+    del params, runs
+    if cuda:
+        torch.cuda.empty_cache()
+
+    train_cfg = dataclasses.replace(base, num_layers=MOE_TRAIN_LAYERS)
+    out["train"] = moe_train(torch, train_cfg, device, MOE_TRAIN_BATCH, seq,
+                             MOE_TRAIN_STEPS)
+    log("moe train: " + json.dumps(out["train"]))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2078,6 +2531,14 @@ def main() -> int:
     features = serving_features_phase(torch)
     kernels["paged_decode_attention[bf16,llama3-8b]"]["launches"] += \
         features["launches"]
+    # Mixtral's attention is Llama-3-8B's (32 query heads, 8 kv heads,
+    # head_dim 128): its launches run the rows' shapes
+    mixtral = moe_phase(torch)
+    kernels["paged_decode_attention[bf16,llama3-8b]"]["launches"] += \
+        mixtral["int8"]["launches"]
+    for way in ("fwd", "bwd"):
+        kernels[f"flash_attention_{way}[llama3-8b-fit,D=128]"][
+            "launches"] += mixtral["train"][f"{way}_launches"]
     for k in kernels.values():
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on its path")
@@ -2099,6 +2560,20 @@ def main() -> int:
         {k: imported[k] for k in ("bytes", "load_s", "load_gb_per_s",
                                   "launches")}))
     log("serving-features summary: " + json.dumps(features))
+    log("moe summary: " + json.dumps(
+        {"weight_bytes": {k: mixtral[f"{k}_weight_bytes"]
+                          for k in ("int8", "bf16")},
+         **{k: {n: v for n, v in mixtral[k].items()
+                if n in ("ttft_s", "long_ttft_s", "decode_tok_per_s",
+                         "decode_step_s", "max_memory_allocated_gb",
+                         "tokens_checked", "flips", "flip_max_router_gap",
+                         "router_max_abs_diff", "worst_gap_std")}
+            for k in ("int8", "bf16")},
+         "train": {n: mixtral["train"][n] for n in (
+             "step_median_s", "tokens_per_s", "max_memory_allocated_gb",
+             "losses", "aux_losses")},
+         "train_plain": {n: mixtral["train"]["plain"][n] for n in (
+             "loss_rel_err", "grad_norm_rel_err")}}))
     # again here, so that the end of a long log still says which card
     log(f"card: {card}")
     log(json.dumps({"kernels": list(kernels.values())}))

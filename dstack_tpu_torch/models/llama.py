@@ -202,24 +202,26 @@ def params_from_jax(np_tree: Any, device: Union[str, torch.device],
     stacked, or unstacked (``layers`` a list of per-layer dicts).
 
     The layout is kept as it is (``[L, in, out]`` matmul weights — no
-    transpose).  Floating leaves become ``dtype``; integer leaves (the
-    int8 ``"q"`` of a quantized weight) keep their type, and the f32 ``"s"``
-    scales of a quantized dict stay f32."""
+    transpose).  Floating leaves become ``dtype``, with one exception: an
+    MoE tree's ``"router"`` stays f32, as the reference keeps it (routing
+    in ``dtype`` would pick other experts).  Integer leaves (the int8
+    ``"q"`` of a quantized weight) keep their type, and the ``"s"`` scales
+    of a quantized dict stay f32 (they are its dtype, not the model's)."""
     def leaf(a, key=None):
         a = np.asarray(a)
         if np.issubdtype(a.dtype, np.integer):
             return torch.tensor(a, device=device)
         t = torch.tensor(np.asarray(a, dtype=np.float32), device=device)
-        return t if key == "s" else t.to(dtype)
+        return t if key in ("s", "router") else t.to(dtype)
 
-    def walk(node):
+    def walk(node, key=None):
         if isinstance(node, dict):
             if "q" in node and "s" in node:
                 return {"q": leaf(node["q"]), "s": leaf(node["s"], "s")}
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return [walk(v) for v in node]
-        return leaf(node)
+            return [walk(v, key) for v in node]
+        return leaf(node, key)
 
     return walk(np_tree)
 

@@ -66,7 +66,12 @@ class AdamW:
       bias-corrected by ``1 - b**count``, and the update ``mu_hat /
       (sqrt(nu_hat) + eps) + weight_decay * p`` times ``-lr``.  The
       clipped gradients are rounded to their dtype (as optax's are); the
-      fused step runs in f32 and rounds once into each leaf's dtype."""
+      fused step runs in f32 and rounds once into each leaf's dtype.
+
+    Leaves may mix dtypes (an MoE router in f32 among bf16 weights): each
+    keeps its moments in its own dtype, and the norm is accumulated in f32
+    over all of them (optax sums a bf16 leaf's squares in bf16, so its
+    norm may differ by ~2^-9 relative)."""
 
     lr: float = 3e-4
     weight_decay: float = 0.1
@@ -148,7 +153,13 @@ def create_state(generator: Union[int, torch.Generator], cfg: LlamaConfig,
     weights (and grads, and moments) as separate buffers."""
     _not_ported(mesh=mesh, policy=policy)
     gen = _generator_on(generator, device)
-    params = llama.init_params(cfg, gen.device, gen)
+    return _fresh_state(llama.init_params(cfg, gen.device, gen), optimizer,
+                        unstacked)
+
+
+def _fresh_state(params: Params, optimizer: AdamW,
+                 unstacked: bool) -> TrainState:
+    """Step 0 of training ``params`` (unstacked first when asked)."""
     if unstacked:
         params = llama.unstack_params(params)
     for p in tree_leaves(params):
@@ -177,25 +188,36 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
     def loss_fn(params, batch):
         tokens = batch["tokens"]
         x = llama.backbone(params, tokens[:, :-1], cfg, remat=remat)
-        return chunked_cross_entropy(x, llama.output_head(params, cfg),
+        loss = chunked_cross_entropy(x, llama.output_head(params, cfg),
                                      tokens[:, 1:], batch.get("mask"))
+        return loss, {"loss": loss.detach()}
+
+    step = _step_from_loss(loss_fn, optimizer)
+    if telemetry is None:
+        return step
+    return telemetry.wrap(step, cfg)
+
+
+def _step_from_loss(loss_fn: Callable[[Params, dict], tuple],
+                    optimizer: AdamW) -> Callable[[TrainState, dict], tuple]:
+    """``step(state, batch)`` from ``loss_fn(params, batch) -> (loss,
+    metrics)``: the gradients of ``loss`` through autograd, the AdamW
+    update in place; the step's metrics are ``metrics`` with "step" and
+    "grad_norm" added."""
 
     def step(state: TrainState, batch) -> tuple:
         leaves = tree_leaves(state.params)
         # named ranges for torch.profiler (tools/train_profile.py)
         with record_function("train.forward"):
-            loss = loss_fn(state.params, batch)
+            loss, metrics = loss_fn(state.params, batch)
         with record_function("train.backward"):
             grads = torch.autograd.grad(loss, leaves)
         with record_function("train.optimizer"):
             norm = optimizer.update(leaves, grads, state.opt_state)
         state.step += 1
-        return state, {"loss": loss.detach(), "step": state.step,
-                       "grad_norm": norm}
+        return state, {**metrics, "step": state.step, "grad_norm": norm}
 
-    if telemetry is None:
-        return step
-    return telemetry.wrap(step, cfg)
+    return step
 
 
 # -- preemption-aware resumable training -------------------------------------

@@ -1,4 +1,5 @@
-"""Continuous-batching inference engine on the Llama stack (PyTorch).
+"""Continuous-batching inference engine on the Llama stack (PyTorch), dense
+or with Mixtral-style routed experts (models/moe.py) in every MLP.
 
 A fixed pool of decode *slots* shares one batched KV cache; prefill
 computes a prompt's K/V with the full forward pass and inserts them into a
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dstack_tpu_torch.models import moe
 from dstack_tpu_torch.models.llama import (
     LlamaConfig,
     Params,
@@ -140,11 +142,24 @@ def _embed(params: Params, cfg: LlamaConfig, tokens: torch.Tensor):
     return params["embed"][tokens].to(cfg.dtype)
 
 
-def _mlp_block(h, lp, cfg: LlamaConfig):
-    """Dense SwiGLU MLP on [B, S, D] normed hiddens."""
-    gated = F.silu(qmatmul(h, lp["w_gate"], cfg.dtype))
-    up = qmatmul(h, lp["w_up"], cfg.dtype)
-    return qmatmul(gated * up, lp["w_down"], cfg.dtype)
+def _mlp_block(h, lp, cfg: LlamaConfig, token_mask=None):
+    """Dense SwiGLU or routed-expert MLP on [B, S, D] normed hiddens: the
+    one point where the engine tells Llama-family from Mixtral-style MoE
+    weights (a layer with a "router").
+
+    MoE decode (one token a slot) routes with DROPLESS capacity (B * S):
+    no generated token loses an expert to its batch neighbours.  Wider
+    forwards (prefill, the speculative verify) take the config's capacity,
+    and ``token_mask`` [B, S] keeps bucket padding out of routing, so pads
+    never take a real token's slot."""
+    if "router" not in lp:
+        gated = F.silu(qmatmul(h, lp["w_gate"], cfg.dtype))
+        up = qmatmul(h, lp["w_up"], cfg.dtype)
+        return qmatmul(gated * up, lp["w_down"], cfg.dtype)
+    b, s, _ = h.shape
+    out, _aux = moe._moe_mlp(h, lp, cfg, capacity=b * s if s == 1 else None,
+                             token_mask=token_mask)
+    return out
 
 
 def _masked_attention(q, k, v, q_pos, kv_pos):
@@ -177,22 +192,24 @@ def _qkv(x, lp, cfg: LlamaConfig, positions, inv_freqs):
             apply_rope(k, positions, inv_freqs), v)
 
 
-def _layer_tail(x, attn, lp, cfg: LlamaConfig):
-    """Post-attention half of a layer (wo + MLP), shared by every path."""
+def _layer_tail(x, attn, lp, cfg: LlamaConfig, token_mask=None):
+    """Post-attention half of a layer (wo + MLP), shared by every path;
+    ``token_mask`` [B, S] marks the real tokens of a padded prefill."""
     b, s = x.shape[:2]
     x = x + qmatmul(attn.reshape(b, s, cfg.q_dim), lp["wo"], cfg.dtype)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    return x + _mlp_block(h, lp, cfg)
+    return x + _mlp_block(h, lp, cfg, token_mask)
 
 
-def _layer_kv(layers, cfg: LlamaConfig, x, positions, inv_freqs):
+def _layer_kv(layers, cfg: LlamaConfig, x, positions, inv_freqs,
+              token_mask=None):
     """Full-sequence forward through every layer, keeping each layer's K/V
     (prefill).  Returns (x, ks, vs) with ks/vs [L, B, S, Hkv, D]."""
     ks, vs = [], []
     for lp in layers:
         q, k, v = _qkv(x, lp, cfg, positions, inv_freqs)
         attn = _masked_attention(q, k, v, positions, positions)
-        x = _layer_tail(x, attn, lp, cfg)
+        x = _layer_tail(x, attn, lp, cfg, token_mask)
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)
@@ -207,7 +224,7 @@ def _prompt_forward(params: Params, cfg: LlamaConfig, padded: torch.Tensor,
     positions = torch.arange(bucket, device=device)[None, :]
     x = _embed(params, cfg, padded)[None, :, :]
     x, ks, vs = _layer_kv(_all_layers(params, cfg), cfg, x, positions,
-                          _inv_freqs(cfg, device))
+                          _inv_freqs(cfg, device), positions < length)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     rows = x[0, :length] if every_position else x[0, length - 1, :]
     logits = qmatmul(rows, output_head(params, cfg), cfg.dtype,
@@ -267,20 +284,21 @@ def _dense_window_insert(cache, win, widx, sel) -> None:
 
 
 def _suffix_layer(x, lp, cfg: LlamaConfig, positions, inv_freqs, kv_pos,
-                  layer_k, layer_v, insert, gather):
+                  token_mask, layer_k, layer_v, insert, gather):
     """One layer of a chunk prefill: project the new tokens' K/V,
     ``insert`` them into the slot's cache (in place), then attend the new
     queries over the ``gather``-ed slot span (earlier rows + causal within
     the new ones, absolute RoPE positions).  The callbacks are the only
     difference between the paged chunk (block scatter/gather) and the
-    dense chunk (row slice)."""
+    dense chunk (row slice); ``token_mask`` [1, S] marks the chunk's real
+    tokens for MoE routing."""
     q, k, v = _qkv(x, lp, cfg, positions, inv_freqs)
     _kv_map(layer_k, k, insert)
     _kv_map(layer_v, v, insert)
     kv_k = _kv_mat(gather(layer_k), cfg.dtype)
     kv_v = _kv_mat(gather(layer_v), cfg.dtype)
     attn = _masked_attention(q, kv_k, kv_v, positions, kv_pos)
-    return _layer_tail(x, attn, lp, cfg)
+    return _layer_tail(x, attn, lp, cfg, token_mask)
 
 
 def _tree_map(fn, cache):
@@ -428,9 +446,21 @@ class InferenceEngine:
         #: slot_id -> {"tokens", "done", ("logits", "n")} for prompts
         #: mid-chunked-prefill
         self._chunking: dict = {}
+        #: Mixtral-style MoE: an MoEConfig, or a layer tree with a router
+        self._is_moe = isinstance(cfg, moe.MoEConfig) or (
+            params is not None and "router" in (
+                params["layers"][0]
+                if isinstance(params["layers"], (list, tuple))
+                else params["layers"]))
+        if self._is_moe and not isinstance(cfg, moe.MoEConfig):
+            raise ValueError(
+                "these params route their MLP through experts (a layer has "
+                "a 'router'): pass a models.moe.MoEConfig, which says how "
+                "many experts a token takes")
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(rng_seed)
-            params = init_params(cfg, self.device, gen)
+            params = (moe.init_params if self._is_moe else init_params)(
+                cfg, self.device, gen)
         if quantize is not None:
             if quantize != "int8":
                 raise ValueError(f"unsupported quantize={quantize!r} "
@@ -980,9 +1010,11 @@ class InferenceEngine:
         last real position's f32 logits."""
         cfg = self.cfg
         x = _embed(self.params, cfg, padded)[None, :, :]
+        token_mask = (torch.arange(padded.shape[0], device=self.device)
+                      < length)[None, :]
         for l, lp in enumerate(self._layers):
             x = _suffix_layer(x, lp, cfg, positions, self._inv_freqs, kv_pos,
-                              _kv_layer(self._cache_k, l),
+                              token_mask, _kv_layer(self._cache_k, l),
                               _kv_layer(self._cache_v, l), insert, gather)
         x = rms_norm(x, self.params["final_norm"], cfg.rms_eps)
         return qmatmul(x[0, length - 1, :], output_head(self.params, cfg),
