@@ -116,6 +116,28 @@ Phases (any failure stops the run with a non-zero exit and no result):
              decode rate and step, train step and tokens/s (no MFU: the
              parameter count holds all 8 experts, a token uses 2), peak
              memory.
+12. sharded — (run right after phase 8) in fresh processes, one rank
+             per visible card, each forming its process group with the
+             port's initialize(force=True) from the control plane's
+             variables (DSTACK_MASTER_NODE_IP,
+             DSTACK_NODES_NUM, DSTACK_NODE_RANK, DSTACK_GPUS_PER_NODE, a
+             free DSTACK_COORDINATOR_PORT; LOCAL_RANK per rank): NCCL,
+             build_mesh(MeshSpec.auto(world)), the default ShardingPolicy.
+             On one card the world is 1 rank and every mesh axis 1; the
+             path is the sharded one all the same (DTensor state, the
+             layout's gathers, flash_attention_sharded).  The Llama-3-8B
+             layer geometry at 6 layers (b4 s2048, selective remat) 3
+             steps unsharded and 3 sharded from the same seed and batch;
+             Llama-3.2-1B at 4 layers (b8 s1024) 5 steps unsharded, 3
+             sharded through run_train_loop with an AsyncCheckpointer
+             snapshot of step 3, resume_train_state onto the mesh (bitwise
+             equal to the state on the card), 2 more sharded steps.  Fails
+             unless every sharded loss is within 1e-3 and grad norm within
+             5e-3 of the unsharded step's, the resumed losses within 1e-3
+             of the uninterrupted run's, the backend is nccl and the flash
+             kernels launched exactly layers x steps (x2 forward) on the
+             sharded steps.  Prints each step's median and tokens/s both
+             ways, and the snapshot's copy, writer and restore seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; exits non-zero without
@@ -242,6 +264,13 @@ RESUME_LOSS_RTOL = 1e-3
 #: phase's own median step (host clock between the loop's step
 #: callbacks); medians, since one step on a busy host can be far off
 TELEMETRY_RTOL = 0.10
+#: phase 12, sharded training: steps of each trainer on the mesh, the 1B
+#: trainer's depth there, the steps it takes after its snapshot's restore,
+#: and the seconds the ranks get in all
+SHARDED_STEPS = 3
+SHARDED_1B_LAYERS = 4
+SHARDED_RESUME_STEPS = 2
+SHARDED_TIMEOUT_S = 420
 #: hf-import phase: Llama-3.2-1B (full width and depth) in HF's layout,
 #: random bf16 weights from a seed, written in this many safetensors
 #: shards, with Llama-3.2-1B's published llama3 rope scaling
@@ -1634,6 +1663,307 @@ def resume_phase(torch, cfg=None, batch: int = 0, seq: int = 0,
     return out
 
 
+# -- phase 12: sharded training ----------------------------------------------
+
+
+def local_leaves(torch, state) -> list:
+    """(path, this rank's tensor) of every snapshot leaf of a state."""
+    from dstack_tpu_torch.models import checkpoint as ckpt
+    from dstack_tpu_torch.parallel.mesh import local_tensor
+
+    return [(p, local_tensor(t)) for p, t in ckpt.state_leaves(state)]
+
+
+def stripe_of(mesh, tokens):
+    """This rank's rows of a global batch (its coordinate on the batch
+    axes of the default policy)."""
+    from dstack_tpu_torch.models.llama import ShardingPolicy
+    from dstack_tpu_torch.parallel import mesh as mesh_lib
+
+    index, count = mesh_lib.batch_stripe(
+        mesh_lib.mesh_sizes(mesh), mesh_lib.mesh_coordinate(mesh),
+        ShardingPolicy().batch_axes)
+    rows = tokens.shape[0] // count
+    return tokens[index * rows:(index + 1) * rows]
+
+
+def check_rel(label: str, got: list, want: list, limit: float) -> list:
+    """Relative errors of ``got`` against ``want``; fails past ``limit``."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if len(got) != len(want) or not all(
+            math.isfinite(x) and x <= limit for x in rel):
+        fail(f"{label}: {got} against {want} (rel {rel}, limit {limit})")
+    return rel
+
+
+def median_step(stamps: list) -> float:
+    """Median wall between consecutive step ends (the first step's own
+    warm-up left out)."""
+    gaps = sorted(b - a for a, b in zip(stamps, stamps[1:]))
+    return gaps[len(gaps) // 2]
+
+
+def sharded_8b(torch, mesh, device: str, trained=None) -> dict:
+    """The 8B layer geometry at 6 layers (b4 s2048, selective remat) for
+    SHARDED_STEPS steps on one batch: unsharded, then sharded from the
+    same seed (the same init and tokens: each rank draws every matrix and
+    keeps its blocks).  Holds the losses and grad norms to
+    TRAIN_PLAIN_RTOL and counts the kernels' launches on the sharded
+    steps."""
+    from dstack_tpu_torch.models import train
+    from dstack_tpu_torch.ops import flash_attention as fa
+
+    cfg, batch, seq, remat = trained or trainer("llama3-8b-fit")
+    cuda = device == "cuda"
+    out = {"num_layers": cfg.num_layers, "batch": batch, "seq": seq,
+           "steps": SHARDED_STEPS}
+    for route in ("unsharded", "sharded"):
+        kw = {} if route == "unsharded" else {"mesh": mesh}
+        gen = torch.Generator(device=device).manual_seed(0)
+        opt = train.default_optimizer()
+        state = train.create_state(gen, cfg, opt, unstacked=True,
+                                   device=device, **kw)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                               generator=gen, device=device,
+                               dtype=torch.int32)
+        if route == "sharded":
+            tokens = stripe_of(mesh, tokens)
+        step_fn = train.make_train_step(cfg, opt, remat=remat, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        fa.flash_attention.fwd_launches = fa.flash_attention.bwd_launches = 0
+        losses, norms, stamps = [], [], [time.perf_counter()]
+        for _ in range(SHARDED_STEPS):
+            state, metrics = step_fn(state, {"tokens": tokens})
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+            if cuda:
+                torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        step_s = median_step(stamps[1:])
+        out[route] = {"losses": losses, "grad_norms": norms,
+                      "step_s": [b - a for a, b in zip(stamps, stamps[1:])],
+                      "step_median_s": step_s,
+                      "tokens_per_s": batch * seq / step_s}
+        del state, step_fn
+        if cuda:
+            torch.cuda.empty_cache()
+    out["fwd_launches"] = fa.flash_attention.fwd_launches
+    out["bwd_launches"] = fa.flash_attention.bwd_launches
+    per_layer = 1 if remat in (False, "none") else 2
+    want = (per_layer * cfg.num_layers * SHARDED_STEPS,
+            cfg.num_layers * SHARDED_STEPS)
+    if cuda and (out["fwd_launches"], out["bwd_launches"]) != want:
+        fail(f"sharded 8b: flash launches fwd {out['fwd_launches']} bwd "
+             f"{out['bwd_launches']}, expected {want[0]} and {want[1]}")
+    for key, limit in TRAIN_PLAIN_RTOL.items():
+        plural = "losses" if key == "loss" else "grad_norms"
+        out[f"{key}_rel_err"] = check_rel(
+            f"sharded 8b {key}", out["sharded"][plural],
+            out["unsharded"][plural], limit)
+    if torch.distributed.get_rank() == 0:
+        log("sharded 8b: " + json.dumps(out))
+    return out
+
+
+def sharded_1b(torch, mesh, ckpt_dir: str, device: str,
+               trained=None) -> dict:
+    """Llama-3.2-1B at SHARDED_1B_LAYERS layers (b8 s1024, selective
+    remat): an unsharded run_train_loop of SHARDED_STEPS +
+    SHARDED_RESUME_STEPS steps (the uninterrupted run); a sharded one of
+    SHARDED_STEPS steps from the same seed whose AsyncCheckpointer writes
+    a sharded snapshot of the last step (every rank its shards, rank 0
+    publishing); resume_train_state onto the mesh must restore it bitwise,
+    and SHARDED_RESUME_STEPS more sharded steps must give the
+    uninterrupted run's losses within RESUME_LOSS_RTOL.  The sharded
+    steps' losses and grad norms are held to the unsharded ones
+    (TRAIN_PLAIN_RTOL), and their kernel launches counted."""
+    from dstack_tpu_torch.models import train
+    from dstack_tpu_torch.ops import flash_attention as fa
+
+    if trained is None:
+        base, batch, seq, remat = trainer("llama3-1b")
+        cfg = dataclasses.replace(base, num_layers=SHARDED_1B_LAYERS)
+    else:
+        cfg, batch, seq, remat = trained
+    cuda = device == "cuda"
+    total = SHARDED_STEPS + SHARDED_RESUME_STEPS
+    opt = train.default_optimizer()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def batch_fn(step, sharded=True):
+        gen = torch.Generator(device=device).manual_seed(2000 + step)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                               generator=gen, device=device,
+                               dtype=torch.int32)
+        return {"tokens": stripe_of(mesh, tokens) if sharded else tokens}
+
+    def recorder(norms, stamps):
+        def on_step(step, metrics):
+            norms.append(metrics["grad_norm"].item())
+            sync()
+            stamps.append(time.perf_counter())
+        return on_step
+
+    loop_kw = dict(unstacked=True, remat=remat, device=device)
+    ref_norms, ref_stamps = [], []
+    ref = train.run_train_loop(
+        cfg, opt, lambda step: batch_fn(step, sharded=False), steps=total,
+        generator=0, on_step=recorder(ref_norms, ref_stamps), **loop_kw)
+    ref_losses = ref.losses
+    del ref
+    if cuda:
+        torch.cuda.empty_cache()
+    out = {"num_layers": cfg.num_layers, "batch": batch, "seq": seq,
+           "unsharded": {"losses": ref_losses, "grad_norms": ref_norms,
+                         "step_median_s": median_step(ref_stamps)}}
+    out["unsharded"]["tokens_per_s"] = (
+        batch * seq / out["unsharded"]["step_median_s"])
+
+    fa.flash_attention.fwd_launches = fa.flash_attention.bwd_launches = 0
+    norms, stamps = [], []
+    run = train.run_train_loop(
+        cfg, opt, batch_fn, steps=SHARDED_STEPS, generator=0, mesh=mesh,
+        checkpoint_dir=ckpt_dir, checkpoint_every=SHARDED_STEPS,
+        on_step=recorder(norms, stamps), **loop_kw)
+    cp = run.checkpointer
+    out["sharded"] = {"losses": run.losses, "grad_norms": norms}
+    # the last step's stamp comes after its snapshot's copy: time the
+    # steps between, and the resumed ones below
+    walls = [b - a for a, b in zip(stamps[:-1], stamps[1:-1])]
+    out.update(snapshot_bytes=cp.snapshot_bytes,
+               copy_s=cp.copy_seconds.get(SHARDED_STEPS),
+               write_s=cp.write_seconds.get(SHARDED_STEPS))
+    for key, limit in TRAIN_PLAIN_RTOL.items():
+        plural = "losses" if key == "loss" else "grad_norms"
+        out[f"{key}_rel_err"] = check_rel(
+            f"sharded 1b {key}", out["sharded"][plural],
+            out["unsharded"][plural][:SHARDED_STEPS], limit)
+    sync()
+    t0 = time.perf_counter()
+    restored, start = train.resume_train_state(
+        ckpt_dir, cfg, opt, mesh=mesh, unstacked=True, device=device)
+    sync()
+    out["restore_s"] = time.perf_counter() - t0
+    differ = differing(torch, local_leaves(torch, restored),
+                       local_leaves(torch, run.state))
+    if start != SHARDED_STEPS or differ:
+        fail(f"sharded 1b: restored step {start}, leaves differing from the "
+             f"state on the card: {differ[:3]}")
+    del run
+    step_fn = train.make_train_step(cfg, opt, mesh=mesh, remat=remat)
+    resumed = []
+    for step in range(SHARDED_STEPS, total):
+        sync()
+        t0 = time.perf_counter()
+        restored, metrics = step_fn(restored, batch_fn(step))
+        resumed.append(metrics["loss"].item())
+        sync()
+        walls.append(time.perf_counter() - t0)
+    step_s = sorted(walls)[len(walls) // 2]
+    out["sharded"].update(step_s=walls, step_median_s=step_s,
+                          tokens_per_s=batch * seq / step_s)
+    out["resumed_losses"] = resumed
+    out["resumed_loss_rel_err"] = check_rel(
+        "sharded 1b resumed loss", resumed, ref_losses[SHARDED_STEPS:],
+        RESUME_LOSS_RTOL)
+    del restored, step_fn
+    out["fwd_launches"] = fa.flash_attention.fwd_launches
+    out["bwd_launches"] = fa.flash_attention.bwd_launches
+    per_layer = 1 if remat in (False, "none") else 2
+    want = (per_layer * cfg.num_layers * total, cfg.num_layers * total)
+    if cuda and (out["fwd_launches"], out["bwd_launches"]) != want:
+        fail(f"sharded 1b: flash launches fwd {out['fwd_launches']} bwd "
+             f"{out['bwd_launches']}, expected {want[0]} and {want[1]}")
+    if torch.distributed.get_rank() == 0:
+        log("sharded 1b: " + json.dumps(out))
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_rank(torch, out_path: str, ckpt_dir: str, tensor: str = "1",
+                 device: str = "cuda", trained: dict = None) -> dict:
+    """One rank of phase 12: the process group from the control plane's
+    variables (initialize(force=True): NCCL on the card), the mesh of
+    MeshSpec.auto(world, tensor=tensor) with the default ShardingPolicy,
+    then the 8B and 1B sharded runs.  Rank 0 writes the result to ``out_path``; the group
+    is destroyed however the phase ends.  ``trained`` (name -> config,
+    batch, seq, remat) replaces the trainers for a CPU rehearsal
+    (``device="cpu"``: a gloo group)."""
+    import torch.distributed as dist
+
+    from dstack_tpu_torch.parallel import distributed
+    from dstack_tpu_torch.parallel import mesh as mesh_lib
+
+    trained = trained or {}
+    distributed.initialize(force=True, device=device)
+    try:
+        world = dist.get_world_size()
+        backend = dist.get_backend()
+        if device == "cuda" and backend != "nccl":
+            fail(f"sharded: the process group's backend is {backend}")
+        spec = mesh_lib.MeshSpec.auto(world, tensor=int(tensor))
+        mesh = mesh_lib.build_mesh(spec, device)
+        out = {"world": world, "backend": backend,
+               "mesh": {k: v for k, v in spec.sizes.items() if v > 1} or
+               {"fsdp": 1},
+               "llama3-8b-fit": sharded_8b(torch, mesh, device,
+                                           trained.get("llama3-8b-fit")),
+               "llama3-1b": sharded_1b(torch, mesh, ckpt_dir, device,
+                                       trained.get("llama3-1b"))}
+        if dist.get_rank() == 0:
+            Path(out_path).write_text(json.dumps(out))
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(torch, tensor: int = 1) -> dict:
+    """Phase 12 in fresh processes, one rank per visible card (its process
+    group never meets the other phases): the control plane's variables
+    for one node of that many cards and a free coordinator port; fails
+    unless every rank exits 0 within SHARDED_TIMEOUT_S.  ``tensor``, the
+    tensor-parallel degree of the mesh (the rest is FSDP), must divide
+    the card count; the script's own run leaves it at 1."""
+    import shutil
+    import tempfile
+
+    n = torch.cuda.device_count()
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-sharded-"))
+    env = dict(os.environ, DSTACK_MASTER_NODE_IP="127.0.0.1",
+               DSTACK_NODES_NUM="1", DSTACK_NODE_RANK="0",
+               DSTACK_GPUS_PER_NODE=str(n),
+               DSTACK_COORDINATOR_PORT=str(free_port()))
+    env.pop("DSTACK_GPUS_NUM", None)
+    out_path = tmp / "result.json"
+    procs = []
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank",
+             str(out_path), str(tmp / "snapshots"), str(tensor)],
+            env={**env, "LOCAL_RANK": str(r)}) for r in range(n)]
+        deadline = time.time() + SHARDED_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+        codes = [p.returncode for p in procs]
+        if any(codes) or not out_path.exists():
+            fail(f"sharded: ranks exited {codes}")
+        out = json.loads(out_path.read_text())
+    except subprocess.TimeoutExpired:
+        fail(f"sharded: ranks still running after {SHARDED_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 # -- phase 9: HF import ------------------------------------------------------
 
 
@@ -2473,6 +2803,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_rank(torch, *sys.argv[2:5])
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -2525,6 +2858,12 @@ def main() -> int:
     for way in ("fwd", "bwd"):
         kernels[f"flash_attention_{way}[llama3-1b,D=64]"]["launches"] += \
             resumed[f"{way}_launches"]
+    sharded = sharded_phase(torch)
+    for way in ("fwd", "bwd"):
+        for name, row in (("llama3-8b-fit", "llama3-8b-fit,D=128"),
+                          ("llama3-1b", "llama3-1b,D=64")):
+            kernels[f"flash_attention_{way}[{row}]"]["launches"] += \
+                sharded[name][f"{way}_launches"]
     imported = hf_import_phase(torch)
     kernels["paged_decode_attention[bf16,llama3-1b]"]["launches"] += \
         imported["launches"]
@@ -2556,6 +2895,16 @@ def main() -> int:
                                  "restore_s", "step_median_s",
                                  "tokens_per_s", "telemetry_tokens_per_s",
                                  "telemetry_mfu", "resumed_loss_rel_err")}))
+    log("sharded summary: " + json.dumps({
+        "card": card, "world": sharded["world"],
+        "backend": sharded["backend"], "mesh": sharded["mesh"],
+        **{name: {k: sharded[name][k] for k in (
+            "unsharded", "sharded", "loss_rel_err", "grad_norm_rel_err",
+            "fwd_launches", "bwd_launches")} for name in (
+                "llama3-8b-fit", "llama3-1b")},
+        "snapshot": {k: sharded["llama3-1b"][k] for k in (
+            "snapshot_bytes", "copy_s", "write_s", "restore_s",
+            "resumed_loss_rel_err")}}))
     log("hf-import summary: " + json.dumps(
         {k: imported[k] for k in ("bytes", "load_s", "load_gb_per_s",
                                   "launches")}))

@@ -23,8 +23,16 @@ returns, so the next step cannot write into a copy in flight.
 
 bf16 leaves are written as their 2-byte words under the dtype name
 ``bfloat16`` and rebuilt with a ``torch.bfloat16`` view: never widened,
-so a restore is bitwise.  One process writes and reads; the multi-host
-staging barrier of the JAX package is not ported yet.
+so a restore is bitwise.
+
+A sharded state (DTensor leaves, see :func:`dstack_tpu_torch.models.train.
+create_state`) is written by every rank of the process group into its own
+``host_<rank>.npz``: each block of a leaf once, by its owner
+(:func:`dstack_tpu_torch.parallel.mesh.owns`), with its global index.
+Rank 0 publishes once every rank's file is staged (a filesystem barrier,
+as in the JAX package; the JAX package dedupes per host, the port across
+ranks), and a restore reassembles each leaf whole and places this rank's
+blocks onto the template's placements, which may be a smaller mesh's.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import torch
 from dstack_tpu_torch.models.llama import LlamaConfig, Params
 from dstack_tpu_torch.models.train import TrainState
 from dstack_tpu_torch.ops.rotary import RopeScaling
+from dstack_tpu_torch.parallel import mesh as mesh_lib
 from dstack_tpu_torch.parallel.distributed import RESUME_ATTEMPT_ENV
 from dstack_tpu_torch.utils.device import resolve_device
 
@@ -141,14 +150,18 @@ def state_leaves(state: Any) -> List[Tuple[str, torch.Tensor]]:
         return _tree_items(state, "")
     params = _tree_items(state.params, ".params")
     mu_paths, nu_paths = _moment_paths([p for p, _ in params])
-    per_param = [state.opt_state.state.get(p, {}) for _, p in params]
+    per_param = [state.opt_state.state.get(mesh_lib.local_tensor(p), {})
+                 for _, p in params]
     # one fused AdamW call steps every parameter: their counts are equal
     first = per_param[0]
     count = torch.tensor(int(first["step"]) if "step" in first else 0,
                          dtype=torch.int32)
 
     def moment(s, key, p):
-        return s[key] if key in s else torch.zeros_like(p)
+        # the optimizer holds a DTensor parameter's local shard
+        local = mesh_lib.local_tensor(p)
+        m = s[key] if key in s else torch.zeros_like(local)
+        return m if local is p else _like(m, p)
 
     return (params + [(f"{_ADAM_PATH}.count", count)]
             + [(path, moment(s, "exp_avg", p)) for path, s, (_, p)
@@ -156,6 +169,25 @@ def state_leaves(state: Any) -> List[Tuple[str, torch.Tensor]]:
             + [(path, moment(s, "exp_avg_sq", p)) for path, s, (_, p)
                in zip(nu_paths, per_param, params)]
             + [(".step", torch.tensor(int(state.step), dtype=torch.int32))])
+
+
+def _like(local: torch.Tensor, p: Any) -> Any:
+    """``local``, a shard shaped as DTensor ``p``'s, as a DTensor placed as
+    ``p``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, p.device_mesh, p.placements,
+                              run_check=False, shape=p.shape,
+                              stride=p.stride())
+
+
+def _process() -> Tuple[int, int]:
+    """(rank, world size) of the process group; (0, 1) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -231,20 +263,40 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 
 
 def snapshot_train_state(state: Any) -> dict:
-    """Copy every leaf to host memory and wait for the copies.
+    """Copy this process's part of every leaf to host memory and wait for
+    the copies.
 
     Called on the train loop's thread before the next step: that step
     updates the parameters and moments in place, so every copy is
     complete when this returns.  The (slow) disk write happens later on
-    the writer thread against this host copy."""
+    the writer thread against this host copy.  A DTensor leaf gives its
+    local block with its global index, when this rank owns it; a plain
+    leaf is copied whole by rank 0 only, so a replicated block is written
+    once."""
+    from torch.distributed.tensor import DTensor
+
     leaves = state_leaves(state)
-    host = [_to_host(t) for _, t in leaves]
-    for dev in {t.device for _, t in leaves if t.device.type == "cuda"}:
+    rank = _process()[0]
+    blobs, pending = {}, []
+    for i, (_, t) in enumerate(leaves):
+        if isinstance(t, DTensor):
+            if not mesh_lib.owns(t):
+                continue
+            mesh = t.device_mesh
+            index = mesh_lib.shard_index(
+                mesh_lib.dtensor_spec(t), t.shape, mesh_lib.mesh_sizes(mesh),
+                mesh_lib.mesh_coordinate(mesh))
+            local = mesh_lib.local_tensor(t)
+        elif rank == 0:
+            index, local = [[0, s] for s in t.shape], t
+        else:
+            continue
+        blobs[f"{i}/0"] = {"index": index, "data": _to_host(local)}
+        pending.append(local.device)
+    for dev in {d for d in pending if d.type == "cuda"}:
         torch.cuda.current_stream(dev).synchronize()
     meta = [{"path": path, "shape": list(t.shape),
              "dtype": _dtype_name(t.dtype)} for path, t in leaves]
-    blobs = {f"{i}/0": {"index": [[0, s] for s in h.shape], "data": h}
-             for i, h in enumerate(host)}
     return {"meta": meta, "blobs": blobs}
 
 
@@ -296,11 +348,18 @@ def _write_manifest(staging: Path, snapshot_meta: List[dict], step: int,
 
 
 def stage_snapshot(directory: str | Path, snapshot: dict, step: int, *,
-                   process_index: int = 0,
+                   process_index: Optional[int] = None,
                    attempt: Optional[int] = None) -> Path:
-    """Write this host's shard file into the step's staging dir (not yet
-    published).  The staging dir is scoped to this submission's retry
-    ``attempt`` (env-derived by default)."""
+    """Write this process's shard file into the step's staging dir (not
+    yet published).  Every process stages into the same dir on a shared
+    filesystem; rank 0 publishes only after all have (see
+    :class:`AsyncCheckpointer`).  ``process_index`` defaults to the
+    process group's rank.  The staging dir is scoped to this submission's
+    retry ``attempt`` (env-derived by default, the same on every rank), so
+    files staged by a crashed earlier attempt, perhaps of a bigger mesh,
+    never count toward this attempt's barrier."""
+    if process_index is None:
+        process_index = _process()[0]
     staging = Path(directory) / _staging_dirname(step, attempt)
     staging.mkdir(parents=True, exist_ok=True)
     _write_host_file(staging, snapshot, process_index)
@@ -308,11 +367,14 @@ def stage_snapshot(directory: str | Path, snapshot: dict, step: int, *,
 
 
 def publish_snapshot(directory: str | Path, snapshot_meta: List[dict],
-                     step: int, *, num_processes: int = 1,
+                     step: int, *, num_processes: Optional[int] = None,
                      keep_last: Optional[int] = None,
                      attempt: Optional[int] = None) -> Path:
     """Publish a fully-staged step: manifest + atomic rename + LATEST +
-    pruning."""
+    pruning.  Rank 0 only, and only after every process has staged;
+    ``num_processes`` defaults to the process group's size."""
+    if num_processes is None:
+        num_processes = _process()[1]
     directory = Path(directory)
     final = directory / _step_dirname(step)
     staging = directory / _staging_dirname(step, attempt)
@@ -340,10 +402,14 @@ def publish_snapshot(directory: str | Path, snapshot_meta: List[dict],
 def write_snapshot(directory: str | Path, snapshot: dict, step: int, *,
                    keep_last: Optional[int] = None,
                    attempt: Optional[int] = None) -> Path:
-    """Stage + publish in one call, as the one process of a run."""
-    stage_snapshot(directory, snapshot, step, attempt=attempt)
+    """Stage + publish in one call, as the one process of a run (several
+    processes go through :class:`AsyncCheckpointer`, whose rank 0 waits
+    for the others' files between the two halves)."""
+    stage_snapshot(directory, snapshot, step, process_index=0,
+                   attempt=attempt)
     return publish_snapshot(directory, snapshot["meta"], step,
-                            keep_last=keep_last, attempt=attempt)
+                            num_processes=1, keep_last=keep_last,
+                            attempt=attempt)
 
 
 def list_snapshot_steps(directory: str | Path) -> List[int]:
@@ -488,6 +554,8 @@ def _restore(template: Any, leaves_meta: List[dict],
     and dtype must match.  Each leaf is copied to the device once: the
     template leaf's own, or ``device`` (CUDA by default) for a meta one.
     """
+    from torch.distributed.tensor import DTensor
+
     items = _template_items(template)
     if len(items) != len(tensors):
         raise ValueError(f"template has {len(items)} leaves but {where} "
@@ -500,8 +568,21 @@ def _restore(template: Any, leaves_meta: List[dict],
                              f"template's {want}")
     meta = (resolve_device(device)
             if any(t.device.type == "meta" for _, t in items) else None)
-    by_path = {path: x.to(meta if t.device.type == "meta" else t.device)
-               for (path, t), x in zip(items, tensors)}
+
+    def place(t, x):
+        if isinstance(t, DTensor):
+            # this rank's block of the whole leaf, onto the template's
+            # placements (a smaller mesh's, after an elastic shrink)
+            mesh = t.device_mesh
+            index = mesh_lib.shard_index(
+                mesh_lib.dtensor_spec(t), t.shape, mesh_lib.mesh_sizes(mesh),
+                mesh_lib.mesh_coordinate(mesh))
+            block = x[tuple(slice(a, b) for a, b in index)]
+            return _like(
+                mesh_lib.copy_to(block, mesh_lib.mesh_device(mesh)), t)
+        return x.to(meta if t.device.type == "meta" else t.device)
+
+    by_path = {path: place(t, x) for (path, t), x in zip(items, tensors)}
     if not isinstance(template, TrainState):
         return _rebuild(template, "", by_path)
     params = _rebuild(template.params, ".params", by_path)
@@ -510,12 +591,15 @@ def _restore(template: Any, leaves_meta: List[dict],
     for path, p in _tree_items(params, ".params"):
         p.requires_grad_(True)
         tail = path[len(".params"):]
-        opt.state[p] = {
+        local = mesh_lib.local_tensor(p)
+        opt.state[local] = {
             # torch's fused AdamW keeps its step as f32 on the device
             "step": torch.tensor(count, dtype=torch.float32,
-                                 device=p.device),
-            "exp_avg": by_path[f"{_ADAM_PATH}.mu{tail}"],
-            "exp_avg_sq": by_path[f"{_ADAM_PATH}.nu{tail}"]}
+                                 device=local.device),
+            "exp_avg": mesh_lib.local_tensor(
+                by_path[f"{_ADAM_PATH}.mu{tail}"]),
+            "exp_avg_sq": mesh_lib.local_tensor(
+                by_path[f"{_ADAM_PATH}.nu{tail}"])}
     return TrainState(params=params, opt_state=opt,
                       step=int(by_path[".step"]))
 
@@ -627,18 +711,35 @@ class AsyncCheckpointer:
 
     ``copy_seconds`` and ``write_seconds`` (step -> seconds) record the
     loop thread's copy and the writer's stage + publish of each snapshot.
+
+    Several processes (a sharded state): every rank stages its own file,
+    and rank 0's writer publishes once all ``num_processes`` files are
+    staged (:meth:`_await_staged`); the queue then blocks instead of
+    dropping, since ranks dropping different steps would strand rank 0's
+    barrier.  ``process_index`` and ``num_processes`` default to the
+    process group's rank and size.
     """
 
     def __init__(self, directory: str | Path, *, keep_last: int = 3,
                  every_steps: int = 100,
+                 process_index: Optional[int] = None,
+                 num_processes: Optional[int] = None,
+                 stage_timeout: float = 300.0,
                  attempt: Optional[int] = None) -> None:
         self.directory = Path(directory)
         self.directory.mkdir(parents=True, exist_ok=True)
         self.keep_last = keep_last
         self.every_steps = max(int(every_steps), 1)
-        #: staging-dir scope: this submission's retry attempt, resolved
-        #: once so an env mutation mid-run cannot split the staging dirs
+        rank, world = _process()
+        self._process_index = rank if process_index is None else process_index
+        self._num_processes = world if num_processes is None else num_processes
+        #: staging-dir scope: this submission's retry attempt (the same on
+        #: every rank), resolved once so an env mutation mid-run cannot
+        #: split the staging dirs
         self._attempt = _current_attempt() if attempt is None else int(attempt)
+        #: several processes: how long rank 0's writer waits for every
+        #: rank's file before giving the step up (a rank was likely lost)
+        self.stage_timeout = float(stage_timeout)
         self._queue: "queue.Queue[tuple]" = queue.Queue(maxsize=2)
         self._errors: List[BaseException] = []
         self._last_published: Optional[int] = None
@@ -673,11 +774,36 @@ class AsyncCheckpointer:
 
     def _write(self, step: int, snapshot: dict) -> None:
         t0 = time.perf_counter()
-        stage_snapshot(self.directory, snapshot, step, attempt=self._attempt)
-        publish_snapshot(self.directory, snapshot["meta"], step,
-                         keep_last=self.keep_last, attempt=self._attempt)
+        stage_snapshot(self.directory, snapshot, step,
+                       process_index=self._process_index,
+                       attempt=self._attempt)
+        if self._process_index == 0:
+            if self._num_processes > 1:
+                # a filesystem barrier, never a collective: this thread
+                # runs beside the train loop's own collectives.  Raises on
+                # timeout: the step is abandoned unpublished.
+                self._await_staged(step, self._num_processes)
+            publish_snapshot(self.directory, snapshot["meta"], step,
+                             num_processes=self._num_processes,
+                             keep_last=self.keep_last, attempt=self._attempt)
         self.write_seconds[step] = time.perf_counter() - t0
         self._last_published = step
+
+    def _await_staged(self, step: int, num_processes: int) -> None:
+        """Wait until ``num_processes`` shard files are staged for ``step``
+        under this attempt (files are renamed into place complete)."""
+        staging = self.directory / _staging_dirname(step, self._attempt)
+        deadline = time.monotonic() + self.stage_timeout
+        while True:
+            present = len(list(staging.glob("host_*.npz")))
+            if present >= num_processes:
+                return
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"checkpoint step {step}: {present}/{num_processes} "
+                    f"processes staged after {self.stage_timeout:.0f}s — "
+                    "refusing to publish a partial snapshot")
+            time.sleep(0.05)
 
     # -- producer API ------------------------------------------------------
 
@@ -714,20 +840,25 @@ class AsyncCheckpointer:
         self.copy_seconds[int(step)] = time.perf_counter() - t0
         self.snapshot_bytes = snapshot_nbytes(snapshot)
         self._ensure_thread()
-        with self._lock:
-            try:
-                self._queue.put_nowait((int(step), snapshot))
-            except queue.Full:
-                # latest wins: drop the oldest PENDING snapshot (never the
-                # one being written)
-                try:
-                    self._queue.get_nowait()
-                    self._queue.task_done()
-                    self._dropped += 1
-                except queue.Empty:
-                    pass
-                self._queue.put((int(step), snapshot))
+        if self._num_processes > 1:
+            # every rank must stage every step rank 0 waits for
+            self._queue.put((int(step), snapshot))
             self._last_enqueued = int(step)
+        else:
+            with self._lock:
+                try:
+                    self._queue.put_nowait((int(step), snapshot))
+                except queue.Full:
+                    # latest wins: drop the oldest PENDING snapshot (never
+                    # the one being written)
+                    try:
+                        self._queue.get_nowait()
+                        self._queue.task_done()
+                        self._dropped += 1
+                    except queue.Empty:
+                        pass
+                    self._queue.put((int(step), snapshot))
+                self._last_enqueued = int(step)
         if block:
             self.flush()
 
@@ -768,6 +899,10 @@ def save_train_state(path: str | Path, state: Any) -> None:
     complete, so a preemption mid-write never touches the old checkpoint.
     Not Orbax-compatible: the JAX package's ``save_train_state`` writes an
     Orbax checkpoint at the same call."""
+    if _process()[1] > 1:
+        raise NotImplementedError(
+            "save_train_state writes one process's state; several processes "
+            "save through AsyncCheckpointer")
     path = Path(path).absolute()
     tmp = path.with_name(path.name + f".tmp-{os.getpid()}")
     if tmp.exists():

@@ -12,7 +12,8 @@
   runs (double buffering).
 
 The same windows and order as the JAX package's ``models/data.py``; the
-process index and count are given explicitly (default one process).
+process index and count are given explicitly (default one process), or
+taken from a rank's place on a device mesh (:meth:`DataLoader.on_mesh`).
 """
 
 from __future__ import annotations
@@ -121,6 +122,24 @@ class DataLoader:
             raise ValueError(
                 f"dataset has {len(self.dataset)} windows < one global "
                 f"batch of {self.global_batch}")
+
+    @classmethod
+    def on_mesh(cls, dataset: TokenDataset, global_batch: int, mesh,
+                policy=None, **kw) -> "DataLoader":
+        """The loader of this rank of ``mesh``: its stripe is its
+        coordinate along the policy's batch axes (major first, as the
+        sharded step shards the batch), not its rank, so ranks that
+        differ only in ``tensor`` read the same rows."""
+        from dstack_tpu_torch.models.llama import ShardingPolicy
+        from dstack_tpu_torch.parallel.mesh import (batch_stripe,
+                                                    mesh_coordinate,
+                                                    mesh_sizes)
+
+        policy = policy or ShardingPolicy()
+        index, count = batch_stripe(mesh_sizes(mesh), mesh_coordinate(mesh),
+                                    policy.batch_axes)
+        return cls(dataset, global_batch, process_index=index,
+                   num_processes=count, **kw)
 
     @property
     def local_batch(self) -> int:

@@ -232,16 +232,16 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: MoEConfig, *,
 
     Attention is :func:`flash_attention` exactly when ``supports`` holds,
     else :func:`causal_attention`.  ``remat`` is one of
-    :data:`llama.REMAT_MODES`; the MoE layer names no tensor for a
-    checkpoint policy to keep, so every mode but "none" keeps only the
-    layer's input and recomputes the whole layer in the backward, as the
-    reference's named policies do on this layer.  ``expert_axis`` acts
+    :data:`llama.REMAT_MODES` or a tuple of checkpoint names; the MoE
+    layer names no tensor for a checkpoint policy to keep, so every mode
+    but "none" keeps only the layer's input and recomputes the whole layer
+    in the backward, as the reference's named policies do on this layer.  ``expert_axis`` acts
     only under a mesh, which is not yet ported."""
     if mesh is not None or policy is not None:
         raise NotImplementedError(
             "sharded MoE (mesh, ShardingPolicy, expert parallelism) is not "
             "yet ported")
-    mode = llama.remat_mode(remat)
+    keep = llama.remat_names(remat)
     b, s = tokens.shape
     dev = tokens.device
     inv_freqs = torch.from_numpy(rope_frequencies(
@@ -267,7 +267,7 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: MoEConfig, *,
         moe_out, layer_aux = _moe_mlp(h, lp, cfg)
         return x + moe_out, layer_aux
 
-    layer_fn = layer if mode == "none" else (
+    layer_fn = layer if keep is None else (
         lambda x, lp: _ckpt(layer, x, lp))
     x = F.embedding(tokens, params["embed"].to(cfg.dtype))
     aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -302,7 +302,7 @@ def make_train_step(cfg: MoEConfig, optimizer: train.AdamW, mesh: Any = None,
     place; metrics {"loss": the cross entropy, "aux_loss", "step",
     "grad_norm"}."""
     train._not_ported(mesh=mesh, policy=policy)
-    llama.remat_mode(remat)  # reject a bad mode before the first step
+    llama.remat_names(remat)  # reject a bad mode before the first step
 
     def loss_fn(params, batch):
         tokens = batch["tokens"]

@@ -9,6 +9,8 @@ GQA attention over [B, S, H, D], differentiable through a
 ``torch.autograd.Function`` whose forward is ``csrc/flash_fwd.cu`` and
 whose backward is ``csrc/flash_bwd.cu``.  The forward keeps only o and the
 softmax logsumexp; the backward recomputes the probabilities from them.
+:func:`flash_attention_sharded` runs the same on each rank's rows and heads
+of DTensors over a device mesh (the JAX package's ``shard_map`` wrapper).
 
 **Paged decode attention** (serving): single-query GQA attention for the
 serving engine's decode loop, read straight out of the paged KV pool
@@ -251,6 +253,31 @@ def flash_attention(q, k, v, scale: Optional[float] = None):
 
 flash_attention.fwd_launches = 0
 flash_attention.bwd_launches = 0
+
+
+def flash_attention_sharded(mesh, q, k, v, *,
+                            batch_axes=("dcn", "data", "fsdp"),
+                            head_axis="tensor"):
+    """:func:`flash_attention` over a device mesh: q, k, v are DTensors
+    with the batch sharded over ``batch_axes`` (major first), the heads
+    over ``head_axis`` and the sequence whole (redistributed there if
+    placed otherwise).  Each rank runs the same kernels (the plain
+    versions on the CPU) on its local shard, so the kernels never see a
+    DTensor; the result is a DTensor placed as q."""
+    from torch.distributed.tensor import DTensor
+
+    from dstack_tpu_torch.parallel.mesh import placements
+
+    want = placements((tuple(batch_axes), None, head_axis, None), mesh)
+
+    def local(x):
+        if tuple(x.placements) != want:
+            x = x.redistribute(mesh, want)
+        return x.to_local()
+
+    o = flash_attention(local(q), local(k), local(v))
+    return DTensor.from_local(o, mesh, want, run_check=False, shape=q.shape,
+                              stride=q.stride())
 
 
 # -- paged decode attention (serving) -----------------------------------------

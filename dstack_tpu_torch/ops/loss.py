@@ -63,15 +63,14 @@ def _chunk_nll(x, head, targets, mask):
     return nll.sum() if mask is None else (nll * mask.float()).sum()
 
 
-def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
-                          targets: torch.Tensor,
-                          mask: Optional[torch.Tensor] = None,
-                          chunk: int = 512) -> torch.Tensor:
-    """Mean NLL over (masked) positions without full logits.
-
-    x: [B, S, D] final hidden states; head: [D, V] (``embed.T`` when tied);
-    targets: [B, S] int; mask: [B, S], 1 where the loss counts.  ``chunk``
-    is the target sequence chunk, shrunk to a divisor of S."""
+def chunked_nll_sum(x: torch.Tensor, head: torch.Tensor,
+                    targets: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    chunk: int = 512) -> tuple:
+    """``(total, count)``: the NLL summed over the (masked) positions, f32
+    and differentiable, and the number of those positions, f32 without a
+    gradient (see :func:`chunked_cross_entropy`; a sharded loss sums both
+    over the batch's ranks)."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     b, s, _ = x.shape
@@ -85,4 +84,17 @@ def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
             use_reentrant=False, preserve_rng_state=False)
     count = (torch.tensor(float(b * s)) if mask is None
              else mask.float().sum())
-    return total / count.clamp_min(1.0).to(total.device)
+    return total, count.to(total.device)
+
+
+def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
+                          targets: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          chunk: int = 512) -> torch.Tensor:
+    """Mean NLL over (masked) positions without full logits.
+
+    x: [B, S, D] final hidden states; head: [D, V] (``embed.T`` when tied);
+    targets: [B, S] int; mask: [B, S], 1 where the loss counts.  ``chunk``
+    is the target sequence chunk, shrunk to a divisor of S."""
+    total, count = chunked_nll_sum(x, head, targets, mask, chunk)
+    return total / count.clamp_min(1.0)

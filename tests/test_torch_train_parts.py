@@ -24,6 +24,7 @@ from dstack_tpu_torch.models import data, llama, train
 from dstack_tpu_torch.ops import flash_attention as fa
 from dstack_tpu_torch.ops import loss
 from dstack_tpu_torch.ops.attention import causal_attention
+from dstack_tpu_torch.parallel import mesh as mesh_lib
 
 torch.set_num_threads(1)
 
@@ -100,6 +101,61 @@ def test_remat_recomputes_the_attention_forward(remat, fwd_per_layer,
     assert calls == {"fwd": fwd_per_layer * layers, "bwd": layers}
 
 
+REMAT_NAME_CASES = [("qkv",), ("mlp_mid",), ("qkv", "proj", "attn_out")]
+
+
+@pytest.mark.parametrize("names", REMAT_NAME_CASES,
+                         ids=["-".join(n) for n in REMAT_NAME_CASES])
+def test_remat_names_match_jax_gradients(names, monkeypatch):
+    """Remat as a tuple of checkpoint names: the loss and gradients of one
+    batch against JAX's ``backbone(remat=names)`` from one JAX init (f32
+    sums in another order: the loss to 2e-6 relative, gradients of O(1e-2)
+    to 2e-6), and the attention recomputed in the backward (two flash
+    forwards per layer, one backward), as under the named modes."""
+    name = "tiny"
+    jcfg = j_llama.LlamaConfig(dtype=jnp.float32, **CONFIGS[name])
+    cfg = llama.LlamaConfig(dtype=torch.float32, **CONFIGS[name])
+    jparams = j_llama.unstack_params(j_llama.init_params(
+        jax.random.PRNGKey(0), jcfg))
+    tokens = _batches(cfg.vocab_size)[0]
+
+    def jloss(params):
+        x = j_llama.backbone(params, jnp.asarray(tokens[:, :-1]), jcfg,
+                             remat=names)
+        return j_loss.chunked_cross_entropy(
+            x, j_llama.output_head(params, jcfg), jnp.asarray(tokens[:, 1:]))
+
+    want, wgrads = jax.value_and_grad(jloss)(jparams)
+    calls = {"fwd": 0, "bwd": 0}
+
+    def counting(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(fa, "flash_attention_fwd_plain",
+                        counting("fwd", fa.flash_attention_fwd_plain))
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain",
+                        counting("bwd", fa.flash_attention_bwd_plain))
+    params = llama.params_from_jax(_np_tree(jparams), "cpu", torch.float32)
+    leaves = llama.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    x = llama.backbone(params, torch.from_numpy(tokens[:, :-1]), cfg,
+                       remat=names)
+    got = loss.chunked_cross_entropy(x, llama.output_head(params, cfg),
+                                     torch.from_numpy(tokens[:, 1:]))
+    grads = torch.autograd.grad(got, leaves)
+    layers = cfg.num_layers
+    assert calls == {"fwd": 2 * layers, "bwd": layers}
+    assert got.item() == pytest.approx(float(want), rel=2e-6)
+    want_grads = llama.tree_leaves(llama.params_from_jax(
+        _np_tree(wgrads), "cpu", torch.float32))
+    for g, w in zip(grads, want_grads):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-6, rtol=0)
+
+
 def test_run_train_loop_completes_with_the_steps_losses():
     cfg = dataclasses.replace(llama.LlamaConfig.tiny(dtype=torch.float32),
                               num_layers=1)
@@ -147,24 +203,42 @@ def test_training_entry_points_need_cuda_unless_the_cpu_is_named(
         assert a.device.type == "cpu" and torch.equal(a, b)
 
 
+class _MeshShape:
+    """What the refusals read of a DeviceMesh (its axis names and sizes),
+    before any collective: no process group is needed."""
+
+    mesh_dim_names = mesh_lib.AXIS_ORDER
+
+    def __init__(self, **sizes):
+        spec = mesh_lib.MeshSpec(**sizes)
+        self.shape = tuple(spec.sizes[a] for a in mesh_lib.AXIS_ORDER)
+
+
 def test_not_yet_ported_arguments_raise():
+    """Sequence and pipeline parallelism (an axis above 1) and a compile
+    cache are refused by every entry point; remat names must be the
+    layer's."""
     cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
     opt = train.default_optimizer()
-    for kw in ({"mesh": object()}, {"compile_cache": object()}):
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    for mesh, policy in ((_MeshShape(seq=2), llama.ShardingPolicy(
+            seq_axis="seq")), (_MeshShape(stage=2), llama.ShardingPolicy(
+                stage_axis="stage"))):
+        kw = {"mesh": mesh, "policy": policy}
         with pytest.raises(NotImplementedError, match="not yet ported"):
             train.make_train_step(cfg, opt, **kw)
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            train.run_train_loop(cfg, opt, lambda s: None, steps=1,
+                                 generator=torch.Generator(), **kw)
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            train.state_template(cfg, opt, **kw)
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            llama.backbone({}, tokens, cfg, **kw)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        train.run_train_loop(cfg, opt, lambda s: None, steps=1,
-                             policy=object(), generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train.state_template(cfg, opt, mesh=object())
-    tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        llama.backbone({}, tokens, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train.make_train_step(cfg, opt, remat=("qkv",))
-    with pytest.raises(ValueError, match="remat"):
-        train.make_train_step(cfg, opt, remat="sometimes")
+        train.make_train_step(cfg, opt, compile_cache=object())
+    for remat in ("sometimes", ("qkv", "logits")):
+        with pytest.raises(ValueError, match="remat"):
+            train.make_train_step(cfg, opt, remat=remat)
 
 
 @pytest.mark.parametrize("clip", [1e-3, 1e3], ids=["clipped", "unclipped"])
