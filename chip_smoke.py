@@ -15,7 +15,11 @@ Phases (any failure stops the run with a non-zero exit and no result):
              and its SDPA yardstick as device time with the stream held (the
              host off the critical path, L2 flushed before each call) beside
              the wrapper's host time per call, and at several split counts
-             (ragged, full); then at further head shapes and block sizes
+             (ragged, full); the same at the kv heads a rank holds under
+             a tensor-parallel mesh (Llama-3-8B at tensor=2: Hkv 4, G 4;
+             at tensor=4: Hkv 2, G 4; Llama-3-70B at tensor=4: Hkv 2,
+             G 8), timed and reported where phase 13 runs them on this
+             host's cards; then at further head shapes and block sizes
              (correctness only); and the causal flash-attention
              forward (o, lse) and backward (dq, dk, dv) kernels to theirs
              (largest absolute error, and largest error of a row relative
@@ -138,6 +142,41 @@ Phases (any failure stops the run with a non-zero exit and no result):
              kernels launched exactly layers x steps (x2 forward) on the
              sharded steps.  Prints each step's median and tokens/s both
              ways, and the snapshot's copy, writer and restore seconds.
+             Then its MoE part (sharded_moe): Mixtral width at 2 layers
+             (b4 s2048, remat) 3 steps unsharded and 3 on the mesh
+             MeshSpec(expert=world) from one seed, each rank its stripe
+             and its experts, the routing the global batch's, each step
+             after the first from the unsharded run's state (free-running
+             runs of these steps differ by more than the limits); losses
+             within 1e-3, grad norms within 5e-3, after each step every
+             parameter and AdamW first moment within MOE_UPDATE_RTOL of
+             the unsharded update (its own spread, a second unsharded
+             first step, printed), K1/K2 launches exactly layers x steps
+             (x2 forward).
+13. mesh-serving — Llama-3-8B (full size, seed 1, batch 8, max_len
+             1024, paged) on one card, bf16 and int8 pages, beside the
+             same weights served under a mesh: (a) the world of the
+             visible cards under NCCL — on one card a group of one in
+             this process (MeshSpec(tensor=1): the sharded engine with
+             every axis 1), on N cards N rank processes at tensor=N and
+             the server's --tensor-parallel N over HTTP; (b) two rank
+             processes sharing the one card under gloo
+             (NCCL refuses two ranks on one device; gloo serves them):
+             Llama-3-8B at tensor=2 (each rank 4
+             KV heads: K5 at Hkv 4, G 4), then Mixtral-8x7B at 8 layers
+             in bf16 at expert=2 (seed 3), rank 0 driving, rank 1
+             following it in lockstep.  On four cards (or eight) the
+             NCCL world also serves Llama-3-70B at tensor=N and
+             Mixtral-8x7B in bf16 at expert=N at full depth (timed), each
+             beside the same model cut to MESH_CUT_LAYERS / 8 layers
+             (held).  Every held engine's greedy tokens are held to the
+             plain forward of the same seed's weights on one card within
+             0.1 std (Mixtral: moe_check_tokens with rank 0's routing
+             replayed), K5 launches exactly layers x decode steps on
+             every rank and counts in the row of its shape, and each
+             follower checks every token array rank 0 produced equal to
+             its own.  Prints each engine's decode step and TTFT beside
+             the one-card engine's.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; exits non-zero without
@@ -179,6 +218,12 @@ REPLACES = "dstack_tpu/ops/flash_attention.py:703"
 SHAPES = {"llama3-8b": 128, "llama3-1b": 64}
 LENGTHS = [0, 1, 31, 32, 33, 500, 1000, 1024]
 B, HKV, G, BS, NBK = 8, 8, 4, 32, 32
+#: K5's shapes under a tensor-parallel mesh, each rank on its Hkv / tensor
+#: kv heads (D=128): name -> (kv heads, query heads per kv head).  Held to
+#: the plain version at every case of paged_cases; those the mesh-serving
+#: phase runs on this host's cards are also timed and reported as rows
+K5_MESH_SHAPES = {"llama3-8b/tensor=2": (4, 4), "llama3-8b/tensor=4": (2, 4),
+                  "llama3-70b/tensor=4": (2, 8)}
 #: device cycles the stream is held for while the host queues timed calls
 #: (~0.1 s at the H100's clock; the host's queuing must end before it)
 HOLD_CYCLES = 200_000_000
@@ -300,6 +345,28 @@ MOE_SERVE_CAPACITY_FACTOR = 4.0
 MOE_BF16_LAYERS = 8
 MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 2048, 6
+#: phase 12's MoE part: after each sharded step, the largest difference of
+#: a parameter leaf (and of its AdamW first moment) from this rank's block
+#: of the unsharded state, over the norm of that leaf's unsharded update.
+#: The first moment is the gradient's record; the parameters move by
+#: AdamW's first update, lr * sign(g) wherever |g| >> eps, so a gradient
+#: element near zero that rounding turns over moves its parameter by 2 lr.
+#: The unsharded first step run twice from the seed's state differed by
+#: 0.0224 (parameters) and 0.00257 (first moments) on an H100 (700 W), the
+#: sharded steps of a world of one by 0.0226 / 0.00263 at most: each limit
+#: is ~4x that.  A sharded step that halves one leaf's gradient after the
+#: norm gives 0.5 on that leaf's moment; a lost update 1 on its parameter
+MOE_UPDATE_RTOL = {"param": 0.1, "exp_avg": 0.01}
+#: the same on more than one rank.  There the experts' outputs are summed
+#: by an all-reduce of each rank's bf16 partial sum, rounded otherwise than
+#: the unsharded einsum, so the next layer's router logits differ and
+#: near-ties take other experts (bf16 tiny_moe on the CPU at expert=4:
+#: logits up to 0.019 apart, 12 of 2048 tokens routed otherwise in layer
+#: 1; none in f32), and each such token changes its router gradient by a
+#: whole term.  Measured at expert=4: four H100s (700 W) 0.342 / 0.0959
+#: (layer 1's router, step 1), the CPU's bf16 tiny_moe 0.279 / 0.126;
+#: each limit is ~2x the larger
+MOE_UPDATE_RTOL_MESH = {"param": 0.7, "exp_avg": 0.25}
 #: the long prompt: one chunk of 512, then 188 tokens in a 256 bucket, so
 #: padding is masked out of routing
 MOE_LONG_PROMPT = 700
@@ -336,14 +403,15 @@ def fail(msg: str) -> None:
 # -- phase 2: kernel against its plain version -------------------------------
 
 
-def paged_cases(num_sms: int) -> dict:
+def paged_cases(num_sms: int, hkv: int = HKV) -> dict:
     """case -> (lengths of the 8 slots, table columns walked): the ragged
     burst; a table of 2 columns (one split, no merge); lengths ending
     inside a split, on its boundaries and past it at the split count this
-    card gets; every slot full (the served configuration's worst case)."""
+    card gets at ``hkv`` kv heads; every slot full (the served
+    configuration's worst case)."""
     from dstack_tpu_torch.ops import flash_attention as fa
 
-    splits = fa.paged_decode_splits(NBK, B, HKV, num_sms)
+    splits = fa.paged_decode_splits(NBK, B, hkv, num_sms)
     rows = -(-NBK // splits) * BS  # rows a split walks
     mid = [0, rows - 1, rows, rows + 1, rows + rows // 2 + 3,
            2 * rows + 17, NBK * BS - rows // 2, NBK * BS - 5]
@@ -355,17 +423,17 @@ def paged_cases(num_sms: int) -> dict:
 
 
 def make_case(torch, d: int, quant: bool, seed: int, lengths=LENGTHS,
-              nbk: int = NBK, g: int = G, bs: int = BS):
+              nbk: int = NBK, g: int = G, bs: int = BS, hkv: int = HKV):
     from dstack_tpu_torch.serving.quant import quantize_kv
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(seed)
     nb = B * NBK + 1
-    q = torch.randn((B, HKV, g, d), generator=gen, device=dev).to(
+    q = torch.randn((B, hkv, g, d), generator=gen, device=dev).to(
         torch.bfloat16)
-    kp = torch.randn((nb, bs, HKV, d), generator=gen, device=dev).to(
+    kp = torch.randn((nb, bs, hkv, d), generator=gen, device=dev).to(
         torch.bfloat16)
-    vp = torch.randn((nb, bs, HKV, d), generator=gen, device=dev).to(
+    vp = torch.randn((nb, bs, hkv, d), generator=gen, device=dev).to(
         torch.bfloat16)
     # each slot owns distinct random pages; the table is twice as wide as
     # the walk and sliced, as the engine's ragged bucket is
@@ -437,15 +505,15 @@ def wrapper_host_ms(torch, fn, iters: int) -> float:
     return held_span(torch, fn, iters)[1] / iters
 
 
-def bound(d: int, quant: bool, lengths=LENGTHS):
+def bound(d: int, quant: bool, lengths=LENGTHS, hkv: int = HKV, g: int = G):
     """Least time for this call's work: each input byte the function needs
     read once (q, the K/V rows below each length, their scales, the table
     entries walked, the lengths), each output byte written once, against
     4 * sum(length) * Hq * D operations (QK and PV, two per MAC) in bf16."""
-    hq = HKV * G
+    hq = hkv * g
     rows = sum(lengths)
     elem = 1 if quant else 2
-    kv = 2 * rows * HKV * d * elem + (2 * rows * HKV * 4 if quant else 0)
+    kv = 2 * rows * hkv * d * elem + (2 * rows * hkv * 4 if quant else 0)
     pages = sum(-(-n // BS) for n in lengths)
     nbytes = (B * hq * d * 2 + kv + pages * 4 + B * 4
               + B * hq * d * 4 + B * hq * 4)
@@ -515,6 +583,7 @@ def sdpa_yardstick(torch, args, d: int, nbk: int):
     import torch.nn.functional as F
 
     q, kp, vp, tables, lengths = args
+    _, hkv, g, _ = q.shape
     idx = tables.long()
 
     def dense(pages):
@@ -523,41 +592,59 @@ def sdpa_yardstick(torch, args, d: int, nbk: int):
                     * pages["s"][idx][..., None]).to(torch.bfloat16)
         else:
             rows = pages[idx]
-        return rows.reshape(B, nbk * BS, HKV, d).transpose(1, 2)
+        return rows.reshape(B, nbk * BS, hkv, d).transpose(1, 2)
 
     kd, vd = dense(kp), dense(vp)
-    qd = q.reshape(B, HKV * G, 1, d)
+    qd = q.reshape(B, hkv * g, 1, d)
     mask = (torch.arange(nbk * BS, device="cuda")[None, :]
             < lengths[:, None])[:, None, None, :]
     return lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, enable_gqa=True)
 
 
-def check_kernels(torch) -> tuple:
+def check_kernels(torch, mesh_rows=None) -> tuple:
     """K5 against its plain version at every case of :func:`paged_cases`,
-    both head dims and both page types; each case timed as device time
-    (stream held, L2 flushed before each call) beside SDPA's, its bound and
-    the wrapper's host time per call, the ragged and full cases also at
-    each split count of SPLIT_SWEEP.  Then K5 against its plain version
-    at PAGED_EDGE_SHAPES.  Returns the kernels' JSON entries (the ragged
-    case's numbers, as earlier runs reported) and every case's numbers."""
+    both head dims and both page types, and at K5_MESH_SHAPES and the
+    shapes of ``mesh_rows`` (:func:`mesh_k5_rows`: those the mesh-serving
+    phase runs here); each case of SHAPES and of ``mesh_rows`` timed as
+    device time (stream held, L2 flushed before each call) beside SDPA's,
+    its bound and the wrapper's host time per call, the ragged and full
+    cases also at each split count of SPLIT_SWEEP.  Then K5 against its
+    plain version at PAGED_EDGE_SHAPES.  Returns the kernels' JSON
+    entries (the ragged case's numbers, as earlier runs reported: every
+    page type of SHAPES, the page types ``mesh_rows`` names) and every
+    case's numbers."""
     from dstack_tpu_torch.ops import flash_attention as fa
 
     flush_buf = torch.zeros(FLUSH_BYTES // 4, device="cuda")
     flush = flush_buf.sum
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    cases = paged_cases(num_sms)
     out, timings = {}, {}
-    for shape, d in SHAPES.items():
+    mesh_rows = mesh_rows or {}
+    shapes = {shape: (d, HKV, G, {"bf16", "int8"})
+              for shape, d in SHAPES.items()}
+    shapes.update({shape: (128, hkv, g, set())
+                   for shape, (hkv, g) in K5_MESH_SHAPES.items()})
+    shapes.update({shape: (128, *row) for shape, row in mesh_rows.items()})
+    for shape, (d, hkv, g, reported) in shapes.items():
+        timed = bool(reported)
+        cases = paged_cases(num_sms, hkv)
         for quant in (False, True):
             variant = "int8" if quant else "bf16"
             name = f"paged_decode_attention[{variant},{shape}]"
             for case, (lengths, nbk) in cases.items():
-                args = make_case(torch, d, quant, seed=d + quant,
-                                 lengths=lengths, nbk=nbk)
-                label = f"{variant} D={d} {case}"
+                args = make_case(torch, d, quant, seed=d + quant + HKV - hkv + g - G,
+                                 lengths=lengths, nbk=nbk, g=g, hkv=hkv)
+                label = f"{variant} D={d} Hkv={hkv} G={g} {case}"
                 err_o, err_lse = checked_errors(torch, fa, args, label)
-                splits = fa.paged_decode_splits(nbk, B, HKV, num_sms)
+                splits = fa.paged_decode_splits(nbk, B, hkv, num_sms)
+                if not timed:
+                    timings[f"{name}[{case}]"] = {
+                        "max_abs_err": err_o, "max_abs_err_lse": err_lse,
+                        "splits": splits}
+                    log(f"kernel {name} {case} (splits {splits}): max|o "
+                        f"err| {err_o:.3e} max|lse err| {err_lse:.3e}")
+                    continue
 
                 def kernel():
                     fa.paged_decode_attention(*args)
@@ -569,7 +656,8 @@ def check_kernels(torch) -> tuple:
                                        flush_span)
                 warm_ms = device_ms(torch, kernel, PAGED_ITERS)
                 host_ms = wrapper_host_ms(torch, kernel, PAGED_ITERS)
-                bound_ms, bound_by, nbytes, flops = bound(d, quant, lengths)
+                bound_ms, bound_by, nbytes, flops = bound(d, quant, lengths,
+                                                          hkv, g)
                 row = {"max_abs_err": err_o, "max_abs_err_lse": err_lse,
                        "splits": splits, "ms": ms, "warm_l2_ms": warm_ms,
                        "library_ms": library_ms, "bound_ms": bound_ms,
@@ -591,7 +679,7 @@ def check_kernels(torch) -> tuple:
                         f"{n}{'*' if n == splits else ''} {us:.2f}"
                         for n, us in sweep.items()))
                 timings[f"{name}[{case}]"] = row
-                if case != "ragged":
+                if case != "ragged" or variant not in reported:
                     continue
                 plain_ms = time_ms(
                     torch, lambda: fa.paged_decode_attention_plain(*args), 20)
@@ -1885,14 +1973,230 @@ def sharded_1b(torch, mesh, ckpt_dir: str, device: str,
     return out
 
 
+def resync(torch, sharded, whole, cfg, mesh) -> None:
+    """Make the unsharded state rank 0's on every rank (each rank's own
+    unsharded steps differ by K2's unordered adds, and the sharded state
+    is made of every rank's blocks), then the sharded state this rank's
+    blocks of it: parameters, AdamW moments and step counts (both past a
+    step)."""
+    import torch.distributed as dist
+
+    from dstack_tpu_torch.models import llama, moe
+    from dstack_tpu_torch.parallel import mesh as mesh_lib
+
+    if dist.get_world_size() > 1:
+        for w in llama.tree_leaves(whole.params):
+            dist.broadcast(w.data, 0)
+            for key in ("exp_avg", "exp_avg_sq"):
+                dist.broadcast(whole.opt_state.state[w][key], 0)
+    specs = moe.specs_for(whole.params, cfg, llama.ShardingPolicy(), "expert")
+
+    def copy(spec, w, s):
+        mine = mesh_lib.local_tensor(s)
+        with torch.no_grad():
+            mine.copy_(mesh_lib.local_block(w.detach(), spec, mesh))
+        theirs, ours = whole.opt_state.state[w], sharded.opt_state.state[mine]
+        for key in ("exp_avg", "exp_avg_sq"):
+            ours[key].copy_(mesh_lib.local_block(theirs[key], spec, mesh))
+        ours["step"].copy_(theirs["step"])
+
+    llama.map_with_specs(copy, specs, whole.params, sharded.params)
+
+
+def leaf_diffs(torch, whole, other, cfg, mesh=None) -> dict:
+    """Per parameter leaf (by path), the L2 norms of the unsharded state
+    ``whole`` minus ``other``: its parameter and its AdamW first moment
+    (zero before a state's first step).  ``other`` on ``mesh`` gives this
+    rank's tensors, held to this rank's blocks of ``whole``."""
+    from dstack_tpu_torch.models import llama, moe
+    from dstack_tpu_torch.parallel import mesh as mesh_lib
+
+    specs = moe.specs_for(whole.params, cfg, llama.ShardingPolicy(), "expert")
+    out = {}
+
+    def norm(a, b):
+        return torch.linalg.vector_norm(a.float() - b.float()).item()
+
+    def one(path, spec, w, o):
+        mine = mesh_lib.local_tensor(o)
+
+        def block(t):
+            return t if mesh is None else mesh_lib.local_block(t, spec, mesh)
+
+        ours = other.opt_state.state[mine].get("exp_avg")
+        theirs = whole.opt_state.state[w]["exp_avg"]
+        m = block(theirs)
+        out[path] = (norm(block(w.detach()), mine),
+                     norm(m, torch.zeros_like(m) if ours is None else ours))
+
+    def walk(path, spec, w, o):
+        if isinstance(w, dict):
+            for k in w:
+                walk(f"{path}.{k}", spec[k], w[k], o[k])
+        elif isinstance(w, (list, tuple)):
+            for i, parts in enumerate(zip(spec, w, o)):
+                walk(f"{path}[{i}]", *parts)
+        else:
+            one(path, spec, w, o)
+
+    with torch.no_grad():
+        walk("params", specs, whole.params, other.params)
+    return out
+
+
+def update_rel(err: dict, base: dict) -> dict:
+    """Each leaf's difference from the unsharded state after a step over
+    the unsharded update's norm (:func:`leaf_diffs` of the two states,
+    and of the unsharded state after and before the step), the largest
+    over the leaves for the parameters and the first moments, and where
+    each is."""
+    out = {}
+    for i, key in enumerate(("param", "exp_avg")):
+        rel = {p: err[p][i] / base[p][i] if base[p][i] else (
+            0.0 if err[p][i] == 0 else math.inf) for p in err}
+        worst = max(rel, key=rel.get)
+        out[key], out[f"{key}_leaf"] = rel[worst], worst
+    return out
+
+
+def sharded_moe(torch, device: str, trained=None) -> dict:
+    """Mixtral width at MOE_TRAIN_LAYERS layers (b4 s2048, remat: each
+    layer recomputed whole): SHARDED_STEPS steps unsharded and on the mesh
+    MeshSpec(expert=world) (MeshSpec.auto of the world where it does not
+    divide the experts), both from one seed and batch, each rank its
+    stripe of the batch and its experts.  Each step runs on both from the
+    same state (the sharded state is set to its blocks of the unsharded
+    one before each step after the first): two free-running unsharded
+    runs of these steps differ by more than the limits themselves (K2's
+    unordered dq adds, amplified by the router), so only a step from a
+    shared state holds the sharded function to TRAIN_PLAIN_RTOL.  After
+    each step the sharded state's parameters and first moments are held
+    to this rank's blocks of the unsharded state's, each leaf's
+    difference over the norm of its unsharded update, within
+    MOE_UPDATE_RTOL (MOE_UPDATE_RTOL_MESH on more than one rank, where
+    the routing of near-ties differs); the first step also runs unsharded
+    a second time from the seed's state, whose difference (``repeat``)
+    is the reference's own.  Counts the flash kernels' launches on the sharded
+    steps (twice a layer a step forward, once backward)."""
+    from dstack_tpu_torch.models import moe, train
+    from dstack_tpu_torch.ops import flash_attention as fa
+    from dstack_tpu_torch.parallel import mesh as mesh_lib
+
+    if trained is None:
+        cfg = dataclasses.replace(moe.MoEConfig.mixtral_8x7b(),
+                                  num_layers=MOE_TRAIN_LAYERS)
+        batch, seq = MOE_TRAIN_BATCH, MOE_TRAIN_SEQ
+    else:
+        cfg, batch, seq = trained
+    cuda = device == "cuda"
+    world = torch.distributed.get_world_size()
+    spec = (mesh_lib.MeshSpec(expert=world) if cfg.num_experts % world == 0
+            else mesh_lib.MeshSpec.auto(world))
+    mesh = mesh_lib.build_mesh(spec, device)
+    opt = train.default_optimizer()
+    out = {"num_layers": cfg.num_layers, "batch": batch, "seq": seq,
+           "steps": SHARDED_STEPS,
+           "mesh": {k: v for k, v in spec.sizes.items() if v > 1} or
+           {"expert": 1}}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def start(**kw):
+        gen = torch.Generator(device=device).manual_seed(0)
+        state = moe.create_state(gen, cfg, opt, unstacked=True,
+                                 device=device, **kw)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                               generator=gen, device=device,
+                               dtype=torch.int32)
+        return state, tokens, moe.make_train_step(cfg, opt, **kw)
+
+    runs = {r: {"losses": [], "aux_losses": [], "grad_norms": [],
+                "step_s": [], "update_rel": []}
+            for r in ("unsharded", "sharded", "repeat")}
+
+    def step(route, fn, state, batch_):
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = fn(state, batch_)
+        sync()
+        run = runs[route]
+        run["step_s"].append(time.perf_counter() - t0)
+        run["losses"].append(metrics["loss"].item())
+        run["aux_losses"].append(metrics["aux_loss"].item())
+        run["grad_norms"].append(metrics["grad_norm"].item())
+        return state
+
+    # step 1 unsharded twice from the seed's state: the reference's spread
+    whole, tokens, whole_step = start()
+    again, _, _ = start()
+    whole = step("unsharded", whole_step, whole, {"tokens": tokens})
+    base = leaf_diffs(torch, whole, again, cfg)
+    again = step("repeat", whole_step, again, {"tokens": tokens})
+    runs["repeat"]["update_rel"].append(
+        update_rel(leaf_diffs(torch, whole, again, cfg), base))
+    del again
+    if cuda:
+        torch.cuda.empty_cache()
+    part, _, part_step = start(mesh=mesh)
+    stripe = {"tokens": stripe_of(mesh, tokens)}
+    fwd = bwd = 0
+    for i in range(SHARDED_STEPS):
+        if i:
+            resync(torch, part, whole, cfg, mesh)
+            whole = step("unsharded", whole_step, whole, {"tokens": tokens})
+            base = leaf_diffs(torch, whole, part, cfg, mesh)
+        f0, b0 = fa.flash_attention.fwd_launches, \
+            fa.flash_attention.bwd_launches
+        part = step("sharded", part_step, part, stripe)
+        fwd += fa.flash_attention.fwd_launches - f0
+        bwd += fa.flash_attention.bwd_launches - b0
+        runs["sharded"]["update_rel"].append(
+            update_rel(leaf_diffs(torch, whole, part, cfg, mesh), base))
+    del whole, part, whole_step, part_step
+    if cuda:
+        torch.cuda.empty_cache()
+    for route, run in runs.items():
+        steps = run["step_s"][1:] or run["step_s"]
+        step_s = sorted(steps)[len(steps) // 2]
+        run.update(step_median_s=step_s, tokens_per_s=batch * seq / step_s)
+        out[route] = run
+    out["fwd_launches"], out["bwd_launches"] = fwd, bwd
+    want = (2 * cfg.num_layers * SHARDED_STEPS, cfg.num_layers * SHARDED_STEPS)
+    if cuda and (fwd, bwd) != want:
+        fail(f"sharded moe: flash launches fwd {fwd} bwd {bwd}, expected "
+             f"{want[0]} and {want[1]}")
+    for key, limit in TRAIN_PLAIN_RTOL.items():
+        plural = "losses" if key == "loss" else "grad_norms"
+        out[f"{key}_rel_err"] = check_rel(
+            f"sharded moe {key}", out["sharded"][plural],
+            out["unsharded"][plural], limit)
+    limits = MOE_UPDATE_RTOL if world == 1 else MOE_UPDATE_RTOL_MESH
+    over = [(i + 1, key, rel[f"{key}_leaf"], rel[key])
+            for i, rel in enumerate(runs["sharded"]["update_rel"])
+            for key, limit in limits.items()
+            if not rel[key] <= limit]
+    if over:
+        fail(f"sharded moe: (step, state, leaf, its difference from the "
+             f"unsharded step over that step's update) past "
+             f"{limits}: {over}; every step: "
+             f"{runs['sharded']['update_rel']}; the unsharded step's own: "
+             f"{runs['repeat']['update_rel']}")
+    if torch.distributed.get_rank() == 0:
+        log("sharded moe: " + json.dumps(out))
+    return out
+
+
 def sharded_rank(torch, out_path: str, ckpt_dir: str, tensor: str = "1",
                  device: str = "cuda", trained: dict = None) -> dict:
     """One rank of phase 12: the process group from the control plane's
     variables (initialize(force=True): NCCL on the card), the mesh of
     MeshSpec.auto(world, tensor=tensor) with the default ShardingPolicy,
-    then the 8B and 1B sharded runs.  Rank 0 writes the result to ``out_path``; the group
-    is destroyed however the phase ends.  ``trained`` (name -> config,
-    batch, seq, remat) replaces the trainers for a CPU rehearsal
+    then the 8B and 1B sharded runs and the MoE one (sharded_moe).  Rank 0
+    writes the result to ``out_path``; the group is destroyed however the
+    phase ends.  ``trained`` (name -> config, batch, seq, remat; "mixtral"
+    -> config, batch, seq) replaces the trainers for a CPU rehearsal
     (``device="cpu"``: a gloo group)."""
     import torch.distributed as dist
 
@@ -1914,7 +2218,8 @@ def sharded_rank(torch, out_path: str, ckpt_dir: str, tensor: str = "1",
                "llama3-8b-fit": sharded_8b(torch, mesh, device,
                                            trained.get("llama3-8b-fit")),
                "llama3-1b": sharded_1b(torch, mesh, ckpt_dir, device,
-                                       trained.get("llama3-1b"))}
+                                       trained.get("llama3-1b")),
+               "mixtral": sharded_moe(torch, device, trained.get("mixtral"))}
         if dist.get_rank() == 0:
             Path(out_path).write_text(json.dumps(out))
         return out
@@ -2466,9 +2771,9 @@ class RouteTap:
 
         self.moe, self.route, self.calls = moe, moe._route, []
 
-        def tap(logits, k, capacity, token_mask=None):
+        def tap(logits, k, capacity, token_mask=None, layout=None):
             self.calls.append(logits.detach())
-            return self.route(logits, k, capacity, token_mask)
+            return self.route(logits, k, capacity, token_mask, layout)
 
         moe._route = tap
         return self
@@ -2533,7 +2838,7 @@ def moe_check_tokens(torch, params, cfg, runs, label: str) -> dict:
         for r, eng in zip(reqs, routes):
             layer = iter(eng)
 
-            def replay(logits, k_, capacity, token_mask=None):
+            def replay(logits, k_, capacity, token_mask=None, layout=None):
                 e = next(layer).to(logits.dtype)
                 n = e.shape[0]
                 mine, theirs = topk(logits[:n]), topk(e)
@@ -2557,7 +2862,7 @@ def moe_check_tokens(torch, params, cfg, runs, label: str) -> dict:
                          f"the forward's by {diff:.4f}")
                 stats["router_max_abs_diff"] = max(
                     stats["router_max_abs_diff"], diff)
-                return route(logits, k_, capacity, token_mask)
+                return route(logits, k_, capacity, token_mask, layout)
 
             seq = list(r.tokens) + list(r.output)
             if eng.shape[:2] != (cfg.num_layers, len(seq) - 1):
@@ -2792,6 +3097,514 @@ def moe_phase(torch, cfg=None, device: str = "cuda",
     return out
 
 
+# -- phase 13: serving under a mesh --------------------------------------------
+
+#: phase 13: two ranks share card 0 under gloo (NCCL refuses two ranks on
+#: one device; gloo takes the all-reduce, all-gather and broadcast of CUDA
+#: tensors that serving needs: PERF.md records the card run that showed
+#: it).  On four cards and more, the layers of Llama-3-70B that the
+#: one-card forward holding its tokens runs (the full depth, 141 GB, fits
+#: no card: its engine is timed beside this cut one)
+MESH_CUT_LAYERS = 4
+MESH_SERVE_TIMEOUT_S = 600
+#: the mesh engines' shape: batch 8, max_len 1024, paged, block 32
+MESH_ENGINE_KW = dict(batch_size=8, max_len=1024, paged=True)
+
+
+def mesh_cases(n: int) -> dict:
+    """Phase 13's engines on ``n`` cards: ``nccl``, the world of the cards
+    (in this process at one card); ``gloo``, two ranks on card 0;
+    ``server``, the model ``--tensor-parallel n`` serves (None at one
+    card).  A case with ``"held": False`` is timed only; a cut-depth case
+    of the same model and mesh beside it is held to a one-card forward."""
+    nccl = [{"name": f"llama3-8b-t{n}-{kv or 'bf16'}", "model": "llama3-8b",
+             "mesh": {"tensor": n}, "seed": 1, "kv": kv}
+            for kv in (None, "int8")]
+    if n >= 4 and 8 % n == 0:
+        nccl += [{"name": f"llama3-70b-t{n}", "model": "llama3-70b",
+                  "mesh": {"tensor": n}, "seed": 1, "held": False},
+                 {"name": f"llama3-70b-t{n}-cut", "model": "llama3-70b",
+                  "layers": MESH_CUT_LAYERS, "mesh": {"tensor": n},
+                  "seed": 1},
+                 {"name": f"mixtral-e{n}", "model": "mixtral",
+                  "mesh": {"expert": n}, "seed": 3, "held": False},
+                 {"name": f"mixtral-e{n}-cut", "model": "mixtral",
+                  "layers": MOE_BF16_LAYERS, "mesh": {"expert": n},
+                  "seed": 3}]
+    gloo = [{"name": "llama3-8b-t2", "model": "llama3-8b",
+             "mesh": {"tensor": 2}, "seed": 1},
+            {"name": "mixtral-e2", "model": "mixtral",
+             "layers": MOE_BF16_LAYERS, "mesh": {"expert": 2}, "seed": 3}]
+    server = None if n == 1 else "llama3-70b" if n >= 4 else "llama3-8b"
+    return {"nccl": nccl, "gloo": gloo, "server": server}
+
+
+def k5_label(model: str, tensor: int) -> str:
+    """The K5 row of a served model at a tensor degree (Mixtral's
+    attention is Llama-3-8B's: Hq 32, Hkv 8, D=128)."""
+    base = "llama3-8b" if model == "mixtral" else model
+    return base if tensor == 1 else f"{base}/tensor={tensor}"
+
+
+def mesh_k5_rows(n: int) -> dict:
+    """label -> (kv heads, query heads per kv head, page types) of every
+    K5 shape that phase 13 runs under a tensor degree above 1 on ``n``
+    cards."""
+    cases = mesh_cases(n)
+    runs = [(c["model"], c["mesh"].get("tensor", 1), c.get("kv") or "bf16")
+            for c in cases["nccl"] + cases["gloo"]]
+    if cases["server"]:
+        runs.append((cases["server"], n, "bf16"))
+    rows = {}
+    for model, t, variant in runs:
+        if t > 1:
+            cfg = mesh_cfg(model)
+            hkv, g, variants = rows.setdefault(
+                k5_label(model, t), (cfg.num_kv_heads // t,
+                                     cfg.num_heads // cfg.num_kv_heads, set()))
+            variants.add(variant)
+    return rows
+
+
+def k5_row(case: dict) -> str:
+    """The kernels line's K5 entry a phase-13 case launches."""
+    return (f"paged_decode_attention[{case.get('kv') or 'bf16'},"
+            f"{k5_label(case['model'], case['mesh'].get('tensor', 1))}]")
+
+
+def mesh_cfg(name: str, layers=None):
+    """A served config of phase 13: "llama3-8b", "llama3-70b" or
+    "mixtral" (Mixtral-8x7B, dropless at MOE_SERVE_CAPACITY_FACTOR), cut
+    to ``layers`` when given."""
+    from dstack_tpu_torch.models.llama import LlamaConfig
+    from dstack_tpu_torch.models.moe import MoEConfig
+
+    cfg = {"llama3-8b": LlamaConfig.llama3_8b,
+           "llama3-70b": LlamaConfig.llama3_70b,
+           "mixtral": lambda: MoEConfig.mixtral_8x7b(
+               capacity_factor=MOE_SERVE_CAPACITY_FACTOR)}[name]()
+    return cfg if layers is None else dataclasses.replace(
+        cfg, num_layers=layers)
+
+
+def mesh_engine(cfg, seed: int, kv, mesh=None, params=None):
+    from dstack_tpu_torch.serving.engine import InferenceEngine
+
+    return InferenceEngine(cfg, params=params, rng_seed=seed, kv_quantize=kv,
+                           mesh=mesh, device="cuda" if mesh is None else None,
+                           **MESH_ENGINE_KW)
+
+
+def counted_run(torch, engine, cfg, moe_routes: bool) -> tuple:
+    """Phase 13's requests on a paged engine (one card's or rank 0's of a
+    mesh): a warm-up; one 64-token prompt alone (TTFT); ENGINE_PROMPTS at
+    12 tokens each, submitted at once (the tokens checked; with
+    ``moe_routes`` the engine's router logits for them, engine_routes);
+    BURST_PROMPTS at 64 tokens each (the decode step at a full batch).
+    The paged-decode kernel's launches and the engine's decode steps are
+    counted over the whole run.  Returns (numbers, the checked requests,
+    their routes or None)."""
+    from dstack_tpu_torch.ops import flash_attention as fa
+    from dstack_tpu_torch.serving.engine import Request
+
+    fa.paged_decode_attention.launches = 0
+    steps0 = engine.decode_steps
+    drive(torch, engine, [Request(tokens=list(range(40)), max_new_tokens=4)])
+    single = Request(tokens=list(BURST_PROMPTS[2][:64]), max_new_tokens=16)
+    drive(torch, engine, [single])
+    checked = [Request(tokens=list(p), max_new_tokens=12)
+               for p in ENGINE_PROMPTS]
+    routes = None
+    if moe_routes:
+        with RouteTap() as tap:
+            drive(torch, engine, checked)
+        routes = engine_routes(torch, tap.calls, checked, cfg.num_layers,
+                               engine.max_len)
+    else:
+        drive(torch, engine, checked)
+    burst = [Request(tokens=list(p), max_new_tokens=64)
+             for p in BURST_PROMPTS]
+    drive(torch, engine, burst)
+    if any(len(r.output) != 64 for r in burst):
+        fail("mesh serving: a burst request ended short of 64 tokens")
+    rate = decode_rate(burst)
+    return ({"ttft_s": single.first_token_at - single.submitted_at,
+             "decode_tok_per_s": rate, "decode_step_s": 8 / rate,
+             "tokens": [r.output for r in checked],
+             "launches": fa.paged_decode_attention.launches,
+             "decode_steps": engine.decode_steps - steps0}, checked, routes)
+
+
+def check_launches(label: str, cfg, runs: list) -> None:
+    """Every rank's paged-decode launches = layers x its decode steps."""
+    for r, run in enumerate(runs):
+        if run["decode_steps"] <= 0 or (
+                run["launches"] != cfg.num_layers * run["decode_steps"]):
+            fail(f"{label}: rank {r} launched the paged-decode kernel "
+                 f"{run['launches']} times over {run['decode_steps']} "
+                 f"decode steps x {cfg.num_layers} layers")
+
+
+def as_requests(prompts, outputs) -> list:
+    from dstack_tpu_torch.serving.engine import Request
+
+    reqs = []
+    for p, out in zip(prompts, outputs):
+        reqs.append(Request(tokens=list(p), max_new_tokens=len(out)))
+        reqs[-1].output = list(out)
+    return reqs
+
+
+def mesh_serve_rank(torch, out_dir: str, spec_path: str) -> None:
+    """One rank of a phase-13 world in its own process: the process group
+    from the control plane's variables (``backend`` of the spec: NCCL, one
+    card a rank; or gloo, ranks sharing a card), then each case's engine
+    on its mesh, drawn from its seed (each rank its blocks): rank 0 runs
+    counted_run and closes the engine, the others follow it.  Each
+    rank writes its launches, decode steps and lockstep counts to
+    ``rank<r>.json``; rank 0 adds its numbers and tokens, and the MoE
+    cases' routes to ``routes_<case>.pt``."""
+    import torch.distributed as dist
+
+    from dstack_tpu_torch.ops import flash_attention as fa
+    from dstack_tpu_torch.parallel import distributed
+    from dstack_tpu_torch.parallel import mesh as mesh_lib
+
+    spec = json.loads(Path(spec_path).read_text())
+    backend = spec["backend"]
+    distributed.initialize(force=True, device="cuda", backend=backend)
+    try:
+        rank, out = dist.get_rank(), {"backend": dist.get_backend()}
+        for case in spec["cases"]:
+            cfg = mesh_cfg(case["model"], case.get("layers"))
+            mesh = mesh_lib.build_mesh(
+                mesh_lib.MeshSpec(**case["mesh"]), "cuda",
+                backend="gloo" if backend == "gloo" else None)
+            engine = mesh_engine(cfg, case["seed"], case.get("kv"),
+                                 mesh=mesh)
+            if rank == 0:
+                run, _, routes = counted_run(torch, engine, cfg,
+                                             case["model"] == "mixtral")
+                leader = engine._leader
+                engine.close()
+                run["checks_sent"] = leader.checks_sent if leader else 0
+                if routes is not None:
+                    torch.save([r.cpu() for r in routes],
+                               Path(out_dir) / f"routes_{case['name']}.pt")
+            else:
+                fa.paged_decode_attention.launches = 0
+                steps0 = engine.decode_steps
+                run = engine.follow()
+                run.update(launches=fa.paged_decode_attention.launches,
+                           decode_steps=engine.decode_steps - steps0)
+            torch.cuda.synchronize()
+            run["max_memory_allocated_gb"] = (
+                torch.cuda.max_memory_allocated() / 1e9)
+            out[case["name"]] = run
+            del engine
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_world(torch, backend: str, ranks: int, cases: list) -> tuple:
+    """Run ``cases`` in a fresh world of ``ranks`` processes
+    (mesh_serve_rank): under NCCL one card a rank (one node of ``ranks``
+    cards), under gloo every rank on card 0 (``ranks`` nodes of one card
+    on this host).  Fails unless every rank exits 0 within
+    MESH_SERVE_TIMEOUT_S; returns (each rank's results, the MoE cases'
+    routes)."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-mesh-"))
+    spec_path = tmp / "spec.json"
+    spec_path.write_text(json.dumps({"backend": backend, "cases": cases}))
+    port = free_port()
+
+    def env(r):
+        one_node = backend == "nccl"
+        e = dict(os.environ, DSTACK_MASTER_NODE_IP="127.0.0.1",
+                 DSTACK_NODES_NUM="1" if one_node else str(ranks),
+                 DSTACK_NODE_RANK="0" if one_node else str(r),
+                 DSTACK_GPUS_PER_NODE=str(ranks) if one_node else "1",
+                 LOCAL_RANK=str(r) if one_node else "0",
+                 DSTACK_COORDINATOR_PORT=str(port))
+        e.pop("DSTACK_GPUS_NUM", None)
+        return e
+
+    procs = []
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-serve-rank",
+             str(tmp), str(spec_path)], env=env(r)) for r in range(ranks)]
+        deadline = time.time() + MESH_SERVE_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            fail(f"mesh serving ({backend}, {ranks} ranks): ranks exited "
+                 f"{codes}")
+        results = [json.loads((tmp / f"rank{r}.json").read_text())
+                   for r in range(ranks)]
+        routes = {c["name"]: torch.load(tmp / f"routes_{c['name']}.pt")
+                  for c in cases if c["model"] == "mixtral"}
+    except subprocess.TimeoutExpired:
+        fail(f"mesh serving: ranks still running after "
+             f"{MESH_SERVE_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return results, routes
+
+
+def check_world(label: str, cfg, case: dict, results: list) -> dict:
+    """A world's case: launches exact on every rank, every follower in
+    lockstep with rank 0 (it checked every token array rank 0 sent)."""
+    runs = [r[case["name"]] for r in results]
+    check_launches(label, cfg, runs)
+    sent = runs[0]["checks_sent"]
+    checked = [run["checked"] for run in runs[1:]]
+    if sent <= 0 or any(c != sent for c in checked):
+        fail(f"{label}: followers checked {checked} of rank 0's {sent} "
+             f"token arrays")
+    out = dict(runs[0])
+    out.update(ranks=len(runs), followers_checked=checked,
+               rank_launches=[run["launches"] for run in runs],
+               rank_decode_steps=[run["decode_steps"] for run in runs],
+               rank_max_memory_gb=[run["max_memory_allocated_gb"]
+                                   for run in runs])
+    return out
+
+
+def hold_tokens(torch, params, cfg, outputs, label: str) -> float:
+    """The checked requests' tokens, each the plain forward's argmax
+    within phase 5's margin (0.1 std) on the one-card weights."""
+    return greedy_gaps(torch, params, cfg,
+                       as_requests(ENGINE_PROMPTS, outputs), 0.1, label, 12)
+
+
+def drive_tp_server(n: int, config: str, layers: int) -> dict:
+    """``--tensor-parallel n`` over HTTP (``config``, paged, seed 1): up,
+    one-token completions (TTFT), five concurrent 64-token ones; rank 0's
+    paged-decode launches (``/stats``) exactly layers x decode steps."""
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    log_path = ROOT / "dstack_tpu_torch" / "build" / "chip_smoke_tp.log"
+    cmd = [sys.executable, "-m", "dstack_tpu_torch.serving.server",
+           "--config", config, "--paged", "--batch-size", "8",
+           "--max-len", "1024", "--seed", "1", "--port", str(port),
+           "--tensor-parallel", str(n)]
+    log("tp server: " + " ".join(cmd[1:]))
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(
+            os.environ, PYTHONPATH=str(ROOT)), stdout=f,
+            stderr=subprocess.STDOUT)
+    try:
+        t0 = time.time()
+        while http_ok(base + "/health") is False:
+            if proc.poll() is not None or time.time() - t0 > 600:
+                fail(f"tp server not up: {proc.poll()}")
+            time.sleep(1.0)
+        ttfts = []
+        for i in range(4):
+            t = time.time()
+            status, body, _ = http(base + "/v1/completions", {
+                "prompt": PROMPT.format(i=i), "max_tokens": 1})
+            ttfts.append(time.time() - t)
+            if status != 200:
+                fail(f"tp server: one-token completion {status}")
+        before = json.loads(http(base + "/stats")[1])
+        results = [None] * 5
+
+        def complete(i):
+            status, body, _ = http(base + "/v1/completions", {
+                "prompt": PROMPT.format(i=i), "max_tokens": 64})
+            results[i] = (status, json.loads(body)["usage"][
+                "completion_tokens"])
+
+        threads = [threading.Thread(target=complete, args=(i,))
+                   for i in range(5)]
+        t_run = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.time() - t_run
+        if any(r != (200, 64) for r in results):
+            fail(f"tp server: completions {results}")
+        after = json.loads(http(base + "/stats")[1])
+        launches = (after["kernels"]["paged_decode_attention"]["launches"]
+                    - before["kernels"]["paged_decode_attention"]["launches"])
+        steps = after["decode_steps"] - before["decode_steps"]
+        if steps <= 0 or launches != layers * steps:
+            fail(f"tp server: {launches} launches over {steps} steps x "
+                 f"{layers} layers")
+        return {"ttft_s": sorted(ttfts[1:])[1], "launches": launches,
+                "decode_steps": steps, "burst_wall_s": wall}
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def http_ok(url: str) -> bool:
+    try:
+        return http(url, timeout=5)[0] == 200
+    except OSError:
+        return False
+
+
+def mesh_serving_phase(torch) -> dict:
+    """Phase 13: the engine under a mesh, against the one-card engine on
+    the same weights (Llama-3-8B, seed 1: bf16 and int8 pages).
+
+    (a) The world of the visible cards under NCCL (:func:`mesh_cases`): at
+    one card in this process (a group of one, mesh MeshSpec(tensor=1));
+    at N cards a world of N rank processes and the server's
+    ``--tensor-parallel N`` over HTTP.  (b) Two rank processes on card 0
+    under gloo: Llama-3-8B at tensor=2, then Mixtral-8x7B at
+    MOE_BF16_LAYERS layers in bf16 at expert=2 (seed 3).  Each held
+    engine's checked tokens are held to the plain forward of the same
+    seed's weights on one card within 0.1 std (Mixtral: moe_check_tokens
+    with rank 0's routing replayed); K5 launches layers x decode steps on
+    every rank, every follower checks rank 0's tokens equal to its own.
+    Prints the decode step and TTFT of each beside the one-card
+    engine's; each run names its K5 row (``k5_row``)."""
+    from dstack_tpu_torch.models import moe
+    from dstack_tpu_torch.models.llama import init_params
+    from dstack_tpu_torch.parallel import distributed
+    from dstack_tpu_torch.parallel import mesh as mesh_lib
+
+    n = torch.cuda.device_count()
+    cases = mesh_cases(n)
+    cfg = mesh_cfg("llama3-8b")
+    params = init_params(cfg, "cuda",
+                         torch.Generator(device="cuda").manual_seed(1))
+    out = {"cards": n}
+    moe_held, moe_routes = [], {}
+    for kv in (None, "int8"):
+        label = f"mesh one-card {kv or 'bf16'}"
+        engine = mesh_engine(cfg, 1, kv, params=params)
+        run, reqs, _ = counted_run(torch, engine, cfg, False)
+        check_launches(label, cfg, [run])
+        run["worst_gap_std"] = greedy_gaps(torch, params, cfg, reqs, 0.1,
+                                           label, 12)
+        run["k5_row"] = k5_row({"model": "llama3-8b", "mesh": {}, "kv": kv})
+        out[f"one_card_{kv or 'bf16'}"] = run
+        log(f"{label}: " + json.dumps(run))
+        del engine
+        torch.cuda.empty_cache()
+
+    if n == 1:
+        env0 = dict(os.environ)
+        os.environ.update(DSTACK_MASTER_NODE_IP="127.0.0.1",
+                          DSTACK_NODES_NUM="1", DSTACK_NODE_RANK="0",
+                          DSTACK_GPUS_PER_NODE="1", LOCAL_RANK="0",
+                          DSTACK_COORDINATOR_PORT=str(free_port()))
+        distributed.initialize(force=True)
+        try:
+            backend = torch.distributed.get_backend()
+            if backend != "nccl":
+                fail(f"mesh serving: the world's backend is {backend}")
+            mesh = mesh_lib.build_mesh(mesh_lib.MeshSpec(tensor=1))
+            for case in cases["nccl"]:
+                kv = case["kv"]
+                label = f"mesh nccl world 1 {kv or 'bf16'}"
+                engine = mesh_engine(cfg, 1, kv, mesh=mesh)
+                run, reqs, _ = counted_run(torch, engine, cfg, False)
+                check_launches(label, cfg, [run])
+                run["worst_gap_std"] = greedy_gaps(torch, params, cfg, reqs,
+                                                   0.1, label, 12)
+                run["k5_row"] = k5_row(case)
+                out[f"nccl_world1_{kv or 'bf16'}"] = run
+                log(f"{label}: " + json.dumps(run))
+                del engine
+                torch.cuda.empty_cache()
+        finally:
+            torch.distributed.destroy_process_group()
+            os.environ.clear()
+            os.environ.update(env0)
+    else:
+        results, moe_routes = mesh_world(torch, "nccl", n, cases["nccl"])
+        for case in cases["nccl"]:
+            label = f"mesh nccl world {n} {case['name']}"
+            case_cfg = mesh_cfg(case["model"], case.get("layers"))
+            run = check_world(label, case_cfg, case, results)
+            run["k5_row"] = k5_row(case)
+            out[f"nccl_world{n}_{case['name']}"] = run
+            if not case.get("held", True):
+                if any(len(t) != 12 for t in run["tokens"]):
+                    fail(f"{label}: tokens {run['tokens']}")
+            elif case["model"] == "mixtral":
+                moe_held.append((label, case, run))
+                continue
+            elif case["model"] == "llama3-8b":
+                run["worst_gap_std"] = hold_tokens(torch, params, cfg,
+                                                   run["tokens"], label)
+            else:
+                cut = init_params(case_cfg, "cuda", torch.Generator(
+                    device="cuda").manual_seed(case["seed"]))
+                run["worst_gap_std"] = hold_tokens(torch, cut, case_cfg,
+                                                   run["tokens"], label)
+                del cut
+                torch.cuda.empty_cache()
+            log(f"{label}: " + json.dumps(run))
+        server = cases["server"]
+        out[f"tp_server_{n}"] = drive_tp_server(
+            n, server, mesh_cfg(server).num_layers)
+        out[f"tp_server_{n}"]["k5_row"] = k5_row(
+            {"model": server, "mesh": {"tensor": n}})
+        log(f"mesh tp server ({server}): "
+            + json.dumps(out[f"tp_server_{n}"]))
+
+    gloo = cases["gloo"]
+    results, routes = mesh_world(torch, "gloo", 2, gloo)
+    moe_routes.update(routes)
+    if any(r["backend"] != "gloo" for r in results):
+        fail(f"mesh serving: gloo world backends {results}")
+    run = check_world("mesh gloo llama3-8b t2", cfg, gloo[0], results)
+    run["worst_gap_std"] = hold_tokens(torch, params, cfg, run["tokens"],
+                                       "mesh gloo llama3-8b t2")
+    run["k5_row"] = k5_row(gloo[0])
+    out["gloo_llama3-8b-t2"] = run
+    log("mesh gloo llama3-8b t2: " + json.dumps(run))
+    del params
+    torch.cuda.empty_cache()
+    moe_cfg = mesh_cfg("mixtral", MOE_BF16_LAYERS)
+    mparams = moe.init_params(
+        moe_cfg, "cuda", torch.Generator(device="cuda").manual_seed(3))
+    engine = mesh_engine(moe_cfg, 3, None, params=mparams)
+    one, _, _ = counted_run(torch, engine, moe_cfg, False)
+    check_launches("mesh one-card mixtral", moe_cfg, [one])
+    one["k5_row"] = k5_row({"model": "mixtral", "mesh": {}})
+    out["one_card_mixtral"] = one
+    del engine
+    torch.cuda.empty_cache()
+    run = check_world("mesh gloo mixtral e2", moe_cfg, gloo[1], results)
+    run["k5_row"] = k5_row(gloo[1])
+    out["gloo_mixtral-e2"] = run
+    # the Mixtral cases of every world, each with its rank 0's routing
+    for label, case, run in moe_held + [("mesh gloo mixtral e2", gloo[1],
+                                         run)]:
+        run.update(moe_check_tokens(
+            torch, mparams, moe_cfg,
+            [(as_requests(ENGINE_PROMPTS, run["tokens"]),
+              [r.to("cuda") for r in moe_routes[case["name"]]])], label))
+        log(f"{label}: " + json.dumps(run))
+    del mparams
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2805,6 +3618,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:2] == ["--sharded-rank"]:
         sharded_rank(torch, *sys.argv[2:5])
+        return 0
+    if sys.argv[1:2] == ["--mesh-serve-rank"]:
+        mesh_serve_rank(torch, *sys.argv[2:4])
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2828,7 +3644,8 @@ def main() -> int:
     for name, text in logs.items():
         log(f"nvcc {name}:\n{text.strip()}")
 
-    kernels, paged = check_kernels(torch)
+    kernels, paged = check_kernels(torch,
+                                   mesh_k5_rows(torch.cuda.device_count()))
     kernels.update(check_flash_kernels(torch))
     check_f32_logits(torch)
     served = serve_8b()
@@ -2860,8 +3677,10 @@ def main() -> int:
             resumed[f"{way}_launches"]
     sharded = sharded_phase(torch)
     for way in ("fwd", "bwd"):
+        # Mixtral's attention has the 8B geometry's shapes
         for name, row in (("llama3-8b-fit", "llama3-8b-fit,D=128"),
-                          ("llama3-1b", "llama3-1b,D=64")):
+                          ("llama3-1b", "llama3-1b,D=64"),
+                          ("mixtral", "llama3-8b-fit,D=128")):
             kernels[f"flash_attention_{way}[{row}]"]["launches"] += \
                 sharded[name][f"{way}_launches"]
     imported = hf_import_phase(torch)
@@ -2878,6 +3697,13 @@ def main() -> int:
     for way in ("fwd", "bwd"):
         kernels[f"flash_attention_{way}[llama3-8b-fit,D=128]"][
             "launches"] += mixtral["train"][f"{way}_launches"]
+    meshed = mesh_serving_phase(torch)
+    for run in meshed.values():
+        # every rank's launches, each on its Hkv / tensor kv heads (its
+        # row's shape); the server's count rank 0's
+        if isinstance(run, dict) and "k5_row" in run:
+            kernels[run["k5_row"]]["launches"] += sum(
+                run.get("rank_launches", [run["launches"]]))
     for k in kernels.values():
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on its path")
@@ -2901,7 +3727,8 @@ def main() -> int:
         **{name: {k: sharded[name][k] for k in (
             "unsharded", "sharded", "loss_rel_err", "grad_norm_rel_err",
             "fwd_launches", "bwd_launches")} for name in (
-                "llama3-8b-fit", "llama3-1b")},
+                "llama3-8b-fit", "llama3-1b", "mixtral")},
+        "mixtral_mesh": sharded["mixtral"]["mesh"],
         "snapshot": {k: sharded["llama3-1b"][k] for k in (
             "snapshot_bytes", "copy_s", "write_s", "restore_s",
             "resumed_loss_rel_err")}}))
@@ -2923,6 +3750,13 @@ def main() -> int:
              "losses", "aux_losses")},
          "train_plain": {n: mixtral["train"]["plain"][n] for n in (
              "loss_rel_err", "grad_norm_rel_err")}}))
+    log("mesh-serving summary: " + json.dumps({
+        "card": card, **{name: ({k: run[k] for k in (
+            "ttft_s", "decode_step_s", "decode_tok_per_s", "launches",
+            "decode_steps", "rank_launches", "followers_checked",
+            "worst_gap_std", "flips", "rank_max_memory_gb") if k in run}
+            if isinstance(run, dict) else run)
+            for name, run in meshed.items()}}))
     # again here, so that the end of a long log still says which card
     log(f"card: {card}")
     log(json.dumps({"kernels": list(kernels.values())}))

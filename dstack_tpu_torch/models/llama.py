@@ -412,7 +412,8 @@ class Layout:
     (identity; backward sums over ``tensor``: a column-parallel product
     reads a replicated input) and :meth:`leave` (sum of a row-parallel
     product).  Activations are the rank's batch rows, replicated over
-    ``tensor``."""
+    ``tensor``.  :attr:`kept` lists the axes a weight may stay sharded
+    on (a subclass adds its own)."""
 
     def __init__(self, mesh: Any, policy: ShardingPolicy, cfg: LlamaConfig):
         self.mesh, self.policy = mesh, policy
@@ -438,6 +439,7 @@ class Layout:
         self.batch_count = math.prod(sizes.get(a, 1)
                                      for a in policy.batch_axes)
         self.tsize = tsize
+        self.kept = (self.tensor,)
 
     def weight(self, w: torch.Tensor, spec, whole: bool = False):
         """The weight a rank computes with: gathered over the batch axes
@@ -453,7 +455,7 @@ class Layout:
             if axes[:len(kept)] != kept:
                 raise NotImplementedError(
                     f"spec {spec}: a gathered axis is major to a kept one")
-            if any(a != self.tensor for a in kept):
+            if any(a not in self.kept for a in kept):
                 raise NotImplementedError(
                     f"spec {spec}: weights sharded over {kept} are not yet "
                     "ported")

@@ -216,8 +216,8 @@ def create_state(generator: Union[int, torch.Generator], cfg: LlamaConfig,
                      mesh_lib.shard_index(spec, shape, sizes, coord))
 
     params = llama.init_params(cfg, gen.device, gen, block=block)
-    return _fresh_state(params, optimizer, unstacked,
-                        sharded=(cfg, policy, mesh))
+    return _fresh_state(params, optimizer, unstacked, sharded=(
+        specs, llama.init_params(cfg, "meta", None), mesh))
 
 
 def state_from_params(params: Params, cfg: LlamaConfig, optimizer: AdamW,
@@ -236,15 +236,17 @@ def state_from_params(params: Params, cfg: LlamaConfig, optimizer: AdamW,
         lambda sp, p: mesh_lib.copy_to(
             mesh_lib.local_block(p.detach(), sp, mesh), dev),
         llama.specs_for(params, cfg, policy), params)
-    return _fresh_state(local, optimizer, unstacked=False,
-                        sharded=(cfg, policy, mesh))
+    return _fresh_state(local, optimizer, unstacked=False, sharded=(
+        llama.param_specs(cfg, policy), llama.init_params(cfg, "meta", None),
+        mesh))
 
 
 def _fresh_state(params: Params, optimizer: AdamW, unstacked: bool,
                  sharded: Optional[tuple] = None) -> TrainState:
     """Step 0 of training ``params`` (unstacked first when asked).
-    ``sharded`` = (cfg, policy, mesh) wraps each leaf, this rank's block,
-    as a DTensor of the model's global shape."""
+    ``sharded`` = (the model's stacked specs, its whole tree as meta
+    tensors, mesh) wraps each leaf, this rank's block, as a DTensor of the
+    model's global shape."""
     if unstacked:
         params = llama.unstack_params(params)
     if sharded is not None:
@@ -254,16 +256,16 @@ def _fresh_state(params: Params, optimizer: AdamW, unstacked: bool,
     return TrainState(params=params, opt_state=optimizer.init(params), step=0)
 
 
-def _distributed(local: Params, cfg: LlamaConfig, policy: ShardingPolicy,
+def _distributed(local: Params, specs: Params, shapes: Params,
                  mesh: Any) -> Params:
-    """DTensors of the global shapes (those of the unsharded init, stacked
-    or unstacked as ``local``) from this rank's blocks."""
-    shapes = llama.init_params(cfg, "meta", None)
+    """DTensors of the global shapes (``shapes``' leaves, stacked or
+    unstacked as ``local``) from this rank's blocks."""
     if isinstance(local["layers"], (list, tuple)):
         shapes = llama.unstack_params(shapes)
+        specs = llama.unstack_specs(specs, len(local["layers"]))
     return llama.map_with_specs(
         lambda sp, x, shape: mesh_lib.distribute(x, sp, mesh, shape.shape),
-        llama.specs_for(local, cfg, policy), local, shapes)
+        specs, local, shapes)
 
 
 def state_specs_from(pspecs: Params) -> TrainState:

@@ -131,3 +131,19 @@ def all_reduce_sum(x: torch.Tensor, mesh: Any, axes: Sequence[str]
         if mesh.size(mesh.mesh_dim_names.index(axis)) > 1:
             dist.all_reduce(out, group=mesh.get_group(axis))
     return out
+
+
+def all_gather_list(x: torch.Tensor, dim: int, mesh: Any,
+                    axis: str) -> torch.Tensor:
+    """``x`` (no gradient) all-gathered along ``dim`` over ``axis`` of
+    ``mesh``, in rank order, through the list form of all-gather: with
+    all-reduce and broadcast, the collectives whose CUDA tensors gloo
+    takes as well as NCCL (the serving path's, which may run under
+    either)."""
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    if n == 1:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=mesh.get_group(axis))
+    return torch.cat(parts, dim=dim)

@@ -119,7 +119,8 @@ def cluster_env() -> Optional[dict]:
 
 
 def initialize(force: bool = False,
-               device: Optional[Union[str, torch.device]] = None) -> bool:
+               device: Optional[Union[str, torch.device]] = None,
+               backend: Optional[str] = None) -> bool:
     """Form the ``torch.distributed`` process group from the injected
     variables.
 
@@ -129,7 +130,8 @@ def initialize(force: bool = False,
     single card drives the whole sharded path.  On the card (the default;
     raises without one) the backend is NCCL and the process takes card
     ``LOCAL_RANK`` as its current device; ``device="cpu"`` forms a gloo
-    group."""
+    group.  ``backend`` names another (gloo on the card: ranks that share
+    one card, which NCCL refuses)."""
     import torch.distributed as dist
 
     from dstack_tpu_torch.utils.device import resolve_device
@@ -143,7 +145,7 @@ def initialize(force: bool = False,
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(env["local_rank"])
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     init_method = f"tcp://{env['coordinator_ip']}:{env['coordinator_port']}"
     dist.init_process_group(backend, init_method=init_method,
                             world_size=env["num_processes"],

@@ -11,7 +11,7 @@ the same order:
 - ``data``   — pure data parallelism;
 - ``fsdp``   — fully-sharded data parallelism (params and moments sharded,
                gathered per layer);
-- ``expert`` — expert parallelism (not ported for MoE yet);
+- ``expert`` — expert parallelism (MoE experts; activations replicated);
 - ``seq``    — sequence parallelism (not ported: a size above 1 raises);
 - ``tensor`` — tensor parallelism over heads and the ffn (fastest-varying,
                so it sits on adjacent ranks).
@@ -141,13 +141,16 @@ def multislice_spec(n_devices: int, **kw) -> MeshSpec:
     return MeshSpec.auto(n_devices, dcn=dcn, **kw)
 
 
-def build_mesh(spec: MeshSpec, device_type: Optional[str] = None):
+def build_mesh(spec: MeshSpec, device_type: Optional[str] = None,
+               backend: Optional[str] = None):
     """A DeviceMesh over the whole process group with ``spec``'s sizes in
     :data:`AXIS_ORDER` as its dims and the axis names as its dim names.
 
     Ranks are laid out row-major, so ``tensor`` (the last axis) varies
     fastest: tensor-parallel peers are adjacent ranks, on one host first.
-    ``device_type`` is "cuda" unless the caller names "cpu"."""
+    ``device_type`` is "cuda" unless the caller names "cpu".  ``backend``
+    ("gloo") makes every axis's group that backend's, whatever the device
+    (ranks sharing one card)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -159,7 +162,10 @@ def build_mesh(spec: MeshSpec, device_type: Optional[str] = None):
         raise ValueError(
             f"MeshSpec wants {spec.num_devices} devices, have {world}: {spec}")
     shape = tuple(spec.sizes[a] for a in AXIS_ORDER)
-    return init_device_mesh(device_type, shape, mesh_dim_names=AXIS_ORDER)
+    kw = {} if backend is None else {
+        "backend_override": {a: backend for a in AXIS_ORDER}}
+    return init_device_mesh(device_type, shape, mesh_dim_names=AXIS_ORDER,
+                            **kw)
 
 
 def local_mesh(spec: Optional[MeshSpec] = None,

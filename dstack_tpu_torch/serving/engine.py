@@ -41,15 +41,21 @@ import torch
 import torch.nn.functional as F
 
 from dstack_tpu_torch.models import moe
+from dstack_tpu_torch.models import llama
 from dstack_tpu_torch.models.llama import (
+    Layout,
     LlamaConfig,
     Params,
+    ShardingPolicy,
     init_params,
     output_head,
 )
 from dstack_tpu_torch.ops.flash_attention import paged_decode_attention
 from dstack_tpu_torch.ops.rmsnorm import rms_norm
 from dstack_tpu_torch.ops.rotary import apply_rope, rope_frequencies
+from dstack_tpu_torch.parallel import collectives
+from dstack_tpu_torch.parallel import mesh as mesh_lib
+from dstack_tpu_torch.serving import lockstep
 from dstack_tpu_torch.serving.paging import (
     BlockAllocator,
     PrefixBlockAllocator,
@@ -142,7 +148,28 @@ def _embed(params: Params, cfg: LlamaConfig, tokens: torch.Tensor):
     return params["embed"][tokens].to(cfg.dtype)
 
 
-def _mlp_block(h, lp, cfg: LlamaConfig, token_mask=None):
+def _leave(y, layout: Optional[Layout]):
+    """The sum of a row-parallel product over ``tensor`` (identity off a
+    mesh)."""
+    return y if layout is None else layout.leave(y)
+
+
+def _logits(rows, params: Params, cfg: LlamaConfig,
+            layout: Optional[Layout] = None):
+    """f32 logits of normed hiddens.  Under a mesh a head of its own
+    ("lm_head": untied, or a tied model's int8 copy) holds this rank's
+    vocab columns, and the logits are gathered whole on every rank; a
+    tied head reads the replicated embedding whole."""
+    y = qmatmul(rows, output_head(params, cfg), cfg.dtype,
+                preferred=torch.float32)
+    if layout is None or layout.tensor is None or "lm_head" not in params:
+        return y
+    return collectives.all_gather_list(y, y.dim() - 1, layout.mesh,
+                                       layout.tensor)
+
+
+def _mlp_block(h, lp, cfg: LlamaConfig, token_mask=None,
+               layout: Optional[Layout] = None):
     """Dense SwiGLU or routed-expert MLP on [B, S, D] normed hiddens: the
     one point where the engine tells Llama-family from Mixtral-style MoE
     weights (a layer with a "router").
@@ -151,14 +178,16 @@ def _mlp_block(h, lp, cfg: LlamaConfig, token_mask=None):
     no generated token loses an expert to its batch neighbours.  Wider
     forwards (prefill, the speculative verify) take the config's capacity,
     and ``token_mask`` [B, S] keeps bucket padding out of routing, so pads
-    never take a real token's slot."""
+    never take a real token's slot.  Under a mesh the ffn columns (and
+    the experts) are this rank's, and the output is summed over the
+    ranks."""
     if "router" not in lp:
         gated = F.silu(qmatmul(h, lp["w_gate"], cfg.dtype))
         up = qmatmul(h, lp["w_up"], cfg.dtype)
-        return qmatmul(gated * up, lp["w_down"], cfg.dtype)
+        return _leave(qmatmul(gated * up, lp["w_down"], cfg.dtype), layout)
     b, s, _ = h.shape
     out, _aux = moe._moe_mlp(h, lp, cfg, capacity=b * s if s == 1 else None,
-                             token_mask=token_mask)
+                             token_mask=token_mask, layout=layout)
     return out
 
 
@@ -179,57 +208,57 @@ def _masked_attention(q, k, v, q_pos, kv_pos):
 
 def _qkv(x, lp, cfg: LlamaConfig, positions, inv_freqs):
     """Projections + RoPE for [B, S, D] hiddens (prefill and decode share
-    it, so the two can never diverge numerically)."""
+    it, so the two can never diverge numerically).  The heads are the
+    weights' (a rank's heads under a mesh)."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-    q = qmatmul(h, lp["wq"], cfg.dtype).reshape(
-        b, s, cfg.num_heads, cfg.head_dim)
-    k = qmatmul(h, lp["wk"], cfg.dtype).reshape(
-        b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = qmatmul(h, lp["wv"], cfg.dtype).reshape(
-        b, s, cfg.num_kv_heads, cfg.head_dim)
+    q, k, v = (qmatmul(h, lp[name], cfg.dtype).reshape(b, s, -1, cfg.head_dim)
+               for name in ("wq", "wk", "wv"))
     return (apply_rope(q, positions, inv_freqs),
             apply_rope(k, positions, inv_freqs), v)
 
 
-def _layer_tail(x, attn, lp, cfg: LlamaConfig, token_mask=None):
+def _layer_tail(x, attn, lp, cfg: LlamaConfig, token_mask=None,
+                layout: Optional[Layout] = None):
     """Post-attention half of a layer (wo + MLP), shared by every path;
     ``token_mask`` [B, S] marks the real tokens of a padded prefill."""
     b, s = x.shape[:2]
-    x = x + qmatmul(attn.reshape(b, s, cfg.q_dim), lp["wo"], cfg.dtype)
+    x = x + _leave(qmatmul(attn.reshape(b, s, -1), lp["wo"], cfg.dtype),
+                   layout)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    return x + _mlp_block(h, lp, cfg, token_mask)
+    return x + _mlp_block(h, lp, cfg, token_mask, layout)
 
 
 def _layer_kv(layers, cfg: LlamaConfig, x, positions, inv_freqs,
-              token_mask=None):
+              token_mask=None, layout: Optional[Layout] = None):
     """Full-sequence forward through every layer, keeping each layer's K/V
     (prefill).  Returns (x, ks, vs) with ks/vs [L, B, S, Hkv, D]."""
     ks, vs = [], []
     for lp in layers:
         q, k, v = _qkv(x, lp, cfg, positions, inv_freqs)
         attn = _masked_attention(q, k, v, positions, positions)
-        x = _layer_tail(x, attn, lp, cfg, token_mask)
+        x = _layer_tail(x, attn, lp, cfg, token_mask, layout)
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)
 
 
 def _prompt_forward(params: Params, cfg: LlamaConfig, padded: torch.Tensor,
-                    length: int, bucket: int, every_position: bool = False):
+                    length: int, bucket: int, every_position: bool = False,
+                    layout: Optional[Layout] = None):
     """Forward over a padded prompt: (last-position f32 logits, ks, vs) —
     the one source of prefill math.  ``every_position``: logits [length,
-    V] of each prompt position instead."""
+    V] of each prompt position instead.  Under a mesh (``layout``) the
+    weights are this rank's, the K/V its heads', the logits whole."""
     device = padded.device
     positions = torch.arange(bucket, device=device)[None, :]
     x = _embed(params, cfg, padded)[None, :, :]
     x, ks, vs = _layer_kv(_all_layers(params, cfg), cfg, x, positions,
-                          _inv_freqs(cfg, device), positions < length)
+                          _inv_freqs(cfg, device), positions < length,
+                          layout)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     rows = x[0, :length] if every_position else x[0, length - 1, :]
-    logits = qmatmul(rows, output_head(params, cfg), cfg.dtype,
-                     preferred=torch.float32)
-    return logits, ks, vs
+    return _logits(rows, params, cfg, layout), ks, vs
 
 
 # -- KV cache forms -----------------------------------------------------------
@@ -284,7 +313,8 @@ def _dense_window_insert(cache, win, widx, sel) -> None:
 
 
 def _suffix_layer(x, lp, cfg: LlamaConfig, positions, inv_freqs, kv_pos,
-                  token_mask, layer_k, layer_v, insert, gather):
+                  token_mask, layer_k, layer_v, insert, gather,
+                  layout: Optional[Layout] = None):
     """One layer of a chunk prefill: project the new tokens' K/V,
     ``insert`` them into the slot's cache (in place), then attend the new
     queries over the ``gather``-ed slot span (earlier rows + causal within
@@ -298,7 +328,7 @@ def _suffix_layer(x, lp, cfg: LlamaConfig, positions, inv_freqs, kv_pos,
     kv_k = _kv_mat(gather(layer_k), cfg.dtype)
     kv_v = _kv_mat(gather(layer_v), cfg.dtype)
     attn = _masked_attention(q, kv_k, kv_v, positions, kv_pos)
-    return _layer_tail(x, attn, lp, cfg, token_mask)
+    return _layer_tail(x, attn, lp, cfg, token_mask, layout)
 
 
 def _tree_map(fn, cache):
@@ -331,6 +361,10 @@ class InferenceEngine:
     #: _pick_window weighs overshoot against it when splitting tails
     WINDOW_DISPATCH_COST_STEPS = 8
 
+    #: a sharded engine's rank 0, idle, tells its followers it lives this
+    #: often (their broadcasts must not wait past the group's timeout)
+    KEEPALIVE_S = 10.0
+
     def __init__(
         self,
         cfg: LlamaConfig,
@@ -349,9 +383,27 @@ class InferenceEngine:
         speculation_k: Optional[int] = None,
         telemetry: Optional[Any] = None,
         device: Optional[Union[str, torch.device]] = None,
+        mesh: Optional[Any] = None,
+        sharding_policy: Optional[ShardingPolicy] = None,
     ) -> None:
         """``device``: None means CUDA, and raises when no card is visible;
         the CPU runs only when asked for (``device="cpu"``).
+
+        ``mesh`` (a DeviceMesh over the process group, one rank a card:
+        :func:`dstack_tpu_torch.parallel.mesh.build_mesh`) serves the model
+        sharded as the JAX engine's mesh does: heads and ffn over the
+        policy's ``tensor`` axis (Megatron-style; the KV cache holds this
+        rank's Hkv / tensor heads in every format), MoE experts over
+        ``expert``, the embedding replicated and a head of its own
+        vocab-sharded.  ``sharding_policy`` defaults to
+        ``ShardingPolicy(batch_axes=(), fsdp_axis=None,
+        tensor_axis="tensor")``.  Given ``params`` are whole trees, of
+        which each rank keeps its blocks; without them each rank draws
+        every matrix from ``rng_seed`` and keeps its blocks (the one-card
+        engine's weights, never whole on one card).  Every rank builds
+        the engine; rank 0 drives it and :meth:`close` ends it, and every
+        other rank calls :meth:`follow` (serving/lockstep.py).
+        Prefill/decode export and install are not ported under a mesh.
 
         ``paged=True`` switches the KV cache from a dense [B, max_len] row
         per slot to block paging: each request reserves only
@@ -390,7 +442,15 @@ class InferenceEngine:
         ``telemetry``: a `telemetry.serving.EngineTelemetry`, or None (the
         hot paths then pay one ``is None`` check).
         """
-        self.device = resolve_device(device)
+        # under a mesh, the card of this rank (or the mesh's CPU)
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh_lib.mesh_device(mesh))
+        self.mesh = mesh
+        self._layout: Optional[Layout] = None
+        self._leader = self._follower = None
+        #: why a sharded engine stopped serving (a step failed on rank 0),
+        #: or None
+        self.failed: Optional[str] = None
         self.cfg = cfg
         self.telemetry = telemetry
         self.batch_size = batch_size
@@ -457,17 +517,26 @@ class InferenceEngine:
                 "these params route their MLP through experts (a layer has "
                 "a 'router'): pass a models.moe.MoEConfig, which says how "
                 "many experts a token takes")
+        if mesh is not None:
+            self._shard_over(mesh, sharding_policy, device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(rng_seed)
             params = (moe.init_params if self._is_moe else init_params)(
-                cfg, self.device, gen)
+                cfg, self.device, gen, block=self._block)
+        elif mesh is not None:
+            params = self._local_blocks(params)
         if quantize is not None:
             if quantize != "int8":
                 raise ValueError(f"unsupported quantize={quantize!r} "
                                  "(only 'int8')")
             # tied models get an int8 copy of the head so the logits matmul
             # (the largest single weight read) reads int8 too
-            params = quantize_params(params, tied_head_copy=cfg.tie_embeddings)
+            params = quantize_params(params, tied_head_copy=cfg.tie_embeddings,
+                                     reduce=self._absmax_reduce)
+            if mesh is not None and cfg.tie_embeddings:
+                # the tied head's copy, quantized whole: its vocab block
+                params["lm_head"] = self._local_blocks(
+                    {"lm_head": params["lm_head"]})["lm_head"]
         self.params = params
         self._layers = _all_layers(params, cfg)
         self._inv_freqs = _inv_freqs(cfg, self.device)
@@ -487,8 +556,9 @@ class InferenceEngine:
         #: bumped on any slot-assignment change; keys the cached per-window
         #: device constants in _dispatch_window
         self._slots_gen = 0
-        #: decode steps dispatched (window widths summed): with a paged
-        #: cache every step launches the paged-decode kernel once per layer
+        #: decode steps dispatched (window widths summed; on every rank of
+        #: a sharded engine): with a paged cache every step launches the
+        #: paged-decode kernel once per layer
         self.decode_steps = 0
         #: engine watchdog: a scheduling step stuck past this window means
         #: the device runtime is wedged (the server fails /health and /load)
@@ -499,17 +569,165 @@ class InferenceEngine:
         #: slots and the draft tokens they accepted (end-of-request
         #: overshoot included)
         self.spec_stats = {"steps": 0, "accepted": 0}
+        if mesh is not None:
+            self._leader, self._follower = lockstep.role(self)
+
+    # -- the mesh ----------------------------------------------------------
+
+    def _shard_over(self, mesh, policy: Optional[ShardingPolicy],
+                    device) -> None:
+        """Check ``mesh`` and ``policy`` as the JAX engine does (its
+        messages) and set the layout and the serving specs."""
+        cfg = self.cfg
+        policy = policy or ShardingPolicy(batch_axes=(), fsdp_axis=None,
+                                          tensor_axis="tensor")
+        names = tuple(mesh.mesh_dim_names)
+        if policy.tensor_axis and policy.tensor_axis not in names:
+            raise ValueError(
+                f"mesh axes {names} lack the policy's tensor axis "
+                f"{policy.tensor_axis!r}; name the mesh axis to match (or "
+                f"pass a sharding_policy)")
+        sizes = mesh_lib.mesh_sizes(mesh)
+        t = sizes.get(policy.tensor_axis, 1) if policy.tensor_axis else 1
+        if cfg.num_kv_heads % t or cfg.num_heads % t:
+            raise ValueError(
+                f"tensor-parallel serving needs head counts divisible by the "
+                f"tensor degree: heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+                f"tensor={t}")
+        e = sizes.get("expert", 1)
+        if self._is_moe and e > 1 and cfg.num_experts % e:
+            raise ValueError(
+                f"expert-parallel serving needs num_experts "
+                f"({cfg.num_experts}) divisible by the expert mesh degree "
+                f"({e})")
+        over = [a for a in (*policy.batch_axes, policy.fsdp_axis)
+                if a and sizes.get(a, 1) > 1]
+        if over:
+            raise NotImplementedError(
+                f"serving with the batch or the weights sharded over {over} "
+                "is not yet ported to dstack_tpu_torch")
+        if device is not None and torch.device(device).type != mesh.device_type:
+            raise ValueError(f"device={device} but the mesh is on "
+                             f"{mesh.device_type}")
+        self._layout = (moe.ExpertLayout(mesh, policy, cfg, "expert")
+                        if self._is_moe else Layout(mesh, policy, cfg))
+        specs = (moe.param_specs(cfg, policy) if self._is_moe
+                 else llama.param_specs(cfg, policy))
+        # the embedding replicated: decode reads one row a token, and a
+        # vocab-sharded table would need a collective for it; a head of
+        # its own (untied, or a tied model's int8 copy) is vocab-sharded
+        specs["embed"] = (None, None)
+        specs.setdefault("lm_head", (policy.fsdp_axis, policy.tensor_axis))
+        self._specs = specs
+        self._sizes = sizes
+
+    def _leaf_spec(self, name: str) -> tuple:
+        """A leaf's serving spec; a layer weight's without its [L] dim."""
+        if name in self._specs:
+            return tuple(self._specs[name])
+        return tuple(self._specs["layers"][name][1:])
+
+    @property
+    def _block(self):
+        """``init_params``' block: this rank's slices of each matrix."""
+        if self.mesh is None:
+            return None
+        coord = mesh_lib.mesh_coordinate(self.mesh)
+
+        def block(name, shape):
+            return tuple(slice(a, b) for a, b in mesh_lib.shard_index(
+                self._leaf_spec(name), shape, self._sizes, coord))
+        return block
+
+    def _local_blocks(self, params: Params) -> Params:
+        """This rank's blocks of a whole tree (on any device), on the
+        engine's device; an int8 ``{"q", "s"}`` leaf's scales follow its
+        output channels."""
+        def leaf(spec, x):
+            if isinstance(x, dict):
+                return {"q": leaf(spec, x["q"]),
+                        "s": leaf(spec[:-2] + spec[-1:], x["s"])}
+            return mesh_lib.copy_to(
+                mesh_lib.local_block(x, spec, self.mesh), self.device)
+
+        return {k: ({n: leaf(tuple(self._specs["layers"][n]), w)
+                     for n, w in v.items()} if k == "layers"
+                    else leaf(tuple(self._specs[k]), v))
+                for k, v in params.items()}
+
+    def _absmax_reduce(self, name: str):
+        """For int8 weights under a mesh: a weight whose contraction dim is
+        sharded (row-parallel ``wo``, ``w_down``) takes its channel scales
+        from the whole matrix, as the JAX engine (quantizing sharded
+        arrays) does: the absmax's max over the ranks holding its rows."""
+        if self.mesh is None:
+            return None
+        axes = [a for a in mesh_lib.entry_axes(self._leaf_spec(name)[-2])
+                if self._sizes[a] > 1]
+        if not axes:
+            return None
+
+        def reduce(amax):
+            import torch.distributed as dist
+
+            for a in axes:
+                dist.all_reduce(amax, op=dist.ReduceOp.MAX,
+                                group=self.mesh.get_group(a))
+            return amax
+        return reduce
+
+    def follow(self) -> dict:
+        """A follower rank's serving loop: runs rank 0's device operations
+        until rank 0 closes (``{"ops", "checked"}``: operations run, rank
+        0's token arrays checked equal to this rank's)."""
+        if self._follower is None:
+            raise RuntimeError("follow() is for the ranks other than 0 of a "
+                               "sharded engine")
+        # once: the follower holds the engine, so the pair is let go
+        follower, self._follower = self._follower, None
+        return follower.run()
+
+    def close(self) -> None:
+        """Rank 0: end the followers' loops (after the engine's last
+        step, from the thread that drives it).  Idempotent."""
+        if self._leader is not None:
+            self._leader.stop()
+            self._leader = None
+
+    def _op(self, name: str, **args):
+        """Run device operation ``name`` (``_do_<name>``) with host
+        ``args``, on every rank of a sharded engine: rank 0 broadcasts it
+        first."""
+        if self._leader is not None:
+            self._leader.send(name, args)
+        return getattr(self, "_do_" + name)(**args)
+
+    def _produced(self, kind: str, *arrays) -> None:
+        if self._leader is not None:
+            self._leader.produced(kind, *arrays)
 
     def _reset_device_state(self) -> None:
         """(Re-)allocate the KV cache and slot state.  Called at init and
         after a failed step."""
+        if self.paged and isinstance(self._alloc, PrefixBlockAllocator):
+            # the KV behind every cached key is about to go
+            self._alloc.clear_cache()
+        self._pending = None
+        self._chunking = {}
+        #: the slot generation whose per-window constants are on the device
+        self._consts_gen = -1
+        self._op("reset")
+
+    def _do_reset(self) -> None:
         cfg, b = self.cfg, self.batch_size
+        #: the KV heads this rank holds (all of them off a mesh)
+        self._hkv = hkv = cfg.num_kv_heads // (
+            self._layout.tsize if self._layout else 1)
         if self.paged:
             shape = (cfg.num_layers, self._alloc.num_blocks,
-                     self._block_size, cfg.num_kv_heads, cfg.head_dim)
+                     self._block_size, hkv, cfg.head_dim)
         else:
-            shape = (cfg.num_layers, b, self.max_len, cfg.num_kv_heads,
-                     cfg.head_dim)
+            shape = (cfg.num_layers, b, self.max_len, hkv, cfg.head_dim)
 
         def zeros():
             if self.kv_quantize == "int4":
@@ -529,12 +747,9 @@ class InferenceEngine:
         self._cache_v = None
         self._cache_k = zeros()
         self._cache_v = zeros()
-        if self.paged and isinstance(self._alloc, PrefixBlockAllocator):
-            # the KV behind every cached key was just reallocated
-            self._alloc.clear_cache()
         self._decode_consts = None
-        self._pending = None
-        self._chunking = {}
+        #: each slot's last prefill logits, until its first token is drawn
+        self._logits: Dict[int, torch.Tensor] = {}
         #: tokens in cache per slot (int32: the kernel's lengths type)
         self._lengths = torch.zeros((b,), dtype=torch.int32,
                                     device=self.device)
@@ -554,6 +769,10 @@ class InferenceEngine:
     def submit(self, request: Request) -> Request:
         if self.draining:
             raise EngineDraining("engine is draining; not admitting")
+        if request.prefill is not None and self.mesh is not None:
+            raise NotImplementedError(
+                "installing a prefill replica's KV under a mesh is not yet "
+                "ported to dstack_tpu_torch")
         # clamp so prompt + generation always fit the cache
         request.max_new_tokens = max(min(request.max_new_tokens,
                                          self.max_len - 2), 1)
@@ -574,9 +793,14 @@ class InferenceEngine:
     def run_forever(self) -> None:
         """Serving loop: step when there is work, block when idle.  A bad
         request must not kill the engine thread — fail the in-flight
-        requests and keep serving."""
+        requests and keep serving.  Under a mesh a failed step ends the
+        loop instead, with :attr:`failed` set: the other ranks may be
+        waiting in a collective of the failed operation, so the replica
+        cannot recover in place (the server then exits non-zero)."""
         while not self._stop:
             if not self.has_work():
+                if self._leader is not None:
+                    self._leader.keepalive(self.KEEPALIVE_S)
                 try:
                     req = self._queue.get(timeout=0.05)
                     self._queue.put(req)
@@ -584,7 +808,7 @@ class InferenceEngine:
                     continue
             try:
                 self.step()
-            except Exception:  # noqa: BLE001 — the engine thread must live
+            except Exception as exc:  # noqa: BLE001 — the thread must live
                 traceback.print_exc()
                 # fail only the requests that were in flight, from HOST
                 # state (a device update could itself raise)
@@ -597,11 +821,16 @@ class InferenceEngine:
                         if self.telemetry is not None:
                             self.telemetry.record_preemption("engine_error")
                             self.telemetry.record_finished(req)
+                if self.mesh is not None:
+                    self.failed = f"engine step failed on rank 0: {exc!r}"
+                    logger.error("%s: this replica stops", self.failed)
+                    return
                 try:
                     self._reset_device_state()
                 except Exception:  # noqa: BLE001 — runtime truly dead
                     traceback.print_exc()
                     time.sleep(0.5)  # don't spin hot; retry on next step
+        self.close()
 
     def stop(self) -> None:
         self._stop = True
@@ -704,19 +933,16 @@ class InferenceEngine:
             cbucket = self._bucket(len(chunk))
             padded = np.zeros((cbucket,), np.int64)
             padded[:len(chunk)] = chunk
-            padded_t = torch.from_numpy(padded).to(self.device)
-            if self.paged:
-                logits = self._prefill_paged_chunk(
-                    padded_t, len(chunk), done, self._tables_host[slot_id])
-            else:
-                logits = self._prefill_dense_chunk(
-                    padded_t, len(chunk), done, slot_id)
+            self._op("chunk", slot=slot_id, padded=padded,
+                     length=len(chunk), prefix_len=done,
+                     table_row=(self._tables_host[slot_id].copy()
+                                if self.paged else None))
             st["done"] = done + len(chunk)
             if self.telemetry is not None:
                 self.telemetry.record_prefill(len(chunk), cbucket)
                 self.telemetry.record_prefill_backlog(self._chunk_backlog())
             if st["done"] >= len(tokens):
-                st["logits"] = logits
+                st["logits"] = True  # the slot's logits wait on the device
                 st["n"] = len(tokens)
             return
 
@@ -732,22 +958,37 @@ class InferenceEngine:
             if req is None:
                 continue
             self._publish_prefix(slot_id, st["n"])
-            self._activate(slot_id, req, st["n"],
-                           self._sample_first(st["logits"], req),
-                           st["tokens"])
+            self._activate(slot_id, req, st["n"], st["tokens"])
 
-    def _activate(self, slot_id: int, req: Request, n: int, first: int,
-                  history: List[int]) -> None:
-        """Open a prefilled slot for decode, seed its token history with
-        ``history`` (the prompt) and emit its first token."""
+    def _activate(self, slot_id: int, req: Request, n: int,
+                  history: List[int], first: Optional[int] = None) -> None:
+        """Open a prefilled slot for decode: its first token (sampled from
+        the slot's prefill logits with the request's sampling, unless
+        ``first`` is given), its token history seeded with ``history`` (the
+        prompt); then emit the first token."""
+        first = self._op("activate", slot=slot_id, n=n,
+                         history=(list(history[:self.max_len - 2])
+                                  if self.speculation else None),
+                         temperature=req.temperature, top_p=req.top_p,
+                         top_k=req.top_k or 0, first=first)
+        self._produced("first", first)
         self._slots[slot_id] = req
         self._slots_gen += 1
-        self._lengths[slot_id] = n
         self._host_lengths[slot_id] = n
-        self._last_token[slot_id] = first
-        self._active[slot_id] = True
-        self._record_history(slot_id, history, first)
         self._emit(slot_id, req, first)
+
+    def _do_activate(self, slot: int, n: int, history: Optional[List[int]],
+                     temperature: float, top_p: float, top_k: int,
+                     first: Optional[int]) -> int:
+        if first is None:
+            first = self._sample_first(self._logits.pop(slot), temperature,
+                                       top_p, top_k)
+        self._lengths[slot] = n
+        self._last_token[slot] = first
+        self._active[slot] = True
+        if history is not None:
+            self._record_history(slot, history, first)
+        return first
 
     def _publish_prefix(self, slot_id: int, n: int) -> None:
         """Prefix-cache mode: publish the full blocks of a slot's finished
@@ -765,8 +1006,6 @@ class InferenceEngine:
         corpus): the prompt at positions [0, n), the first generated token
         at n.  The whole row is written, so a reused slot cannot leak its
         previous request's tokens into drafts."""
-        if not self.speculation:
-            return
         n = min(len(tokens), self.max_len - 2)
         row = np.zeros((self.max_len + 1,), np.int64)
         row[:n] = tokens[:n]
@@ -913,29 +1152,54 @@ class InferenceEngine:
         bucket = self._bucket(n - prefix_len)
         padded = np.zeros((bucket,), np.int64)
         padded[:n - prefix_len] = tokens[prefix_len:prefix_len + bucket]
-        padded_t = torch.from_numpy(padded).to(self.device)
         if prefix_len > 0:
-            logits = self._prefill_paged_chunk(
-                padded_t, n - prefix_len, prefix_len, self._tables_host[slot_id])
+            self._op("chunk", slot=slot_id, padded=padded,
+                     length=n - prefix_len, prefix_len=prefix_len,
+                     table_row=self._tables_host[slot_id].copy())
         else:
-            logits, ks, vs = _prompt_forward(self.params, self.cfg, padded_t,
-                                             n, bucket)
-            self._install_rows(slot_id, ks[:, 0], vs[:, 0])
+            self._op("prefill", slot=slot_id, padded=padded, length=n,
+                     blocks=(list(self._slot_blocks[slot_id])
+                             if self.paged else None))
         self._publish_prefix(slot_id, n)
         if self.telemetry is not None:
             # the suffix is what was computed
             self.telemetry.record_prefill(n - prefix_len, bucket)
-        self._activate(slot_id, req, n, self._sample_first(logits, req),
-                       tokens)
+        self._activate(slot_id, req, n, tokens)
 
-    def _install_rows(self, slot_id: int, ks, vs) -> None:
+    def _do_prefill(self, slot: int, padded: np.ndarray, length: int,
+                    blocks: Optional[List[int]]) -> None:
+        """Whole-prompt forward into ``slot``'s cache rows (paged: its
+        ``blocks``); the logits wait for the slot's first token."""
+        logits, ks, vs = _prompt_forward(
+            self.params, self.cfg, torch.from_numpy(padded).to(self.device),
+            length, padded.shape[0], layout=self._layout)
+        self._install_rows(slot, ks[:, 0], vs[:, 0], blocks)
+        self._logits[slot] = logits
+
+    def _do_chunk(self, slot: int, padded: np.ndarray, length: int,
+                  prefix_len: int, table_row: Optional[np.ndarray]) -> None:
+        """One prefill chunk of ``slot`` against the cache (paged through
+        ``table_row``); the logits wait for the slot's first token."""
+        padded_t = torch.from_numpy(padded).to(self.device)
+        if self.paged:
+            logits = self._prefill_paged_chunk(padded_t, length, prefix_len,
+                                               table_row)
+        else:
+            logits = self._prefill_dense_chunk(padded_t, length, prefix_len,
+                                               slot)
+        self._logits[slot] = logits
+
+    def _install_rows(self, slot_id: int, ks, vs,
+                      blocks: Optional[List[int]] = None) -> None:
         """Write K/V rows [L, rows, Hkv, D] at the start of a slot: dense,
-        its first rows; paged, its first blocks (``rows`` a whole number of
-        blocks)."""
+        its first rows; paged, its first blocks (``blocks``, by default the
+        slot's; ``rows`` a whole number of blocks)."""
         if self.paged:
             nblk = ks.shape[1] // self._block_size
-            bids = torch.tensor(self._slot_blocks[slot_id][:nblk],
-                                dtype=torch.int64, device=self.device)
+            if blocks is None:
+                blocks = self._slot_blocks[slot_id]
+            bids = torch.tensor(blocks[:nblk], dtype=torch.int64,
+                                device=self.device)
 
             def insert(leaf, rows):  # rows [L, nblk * BS, ...]
                 leaf[:, bids] = rows.reshape(
@@ -952,7 +1216,12 @@ class InferenceEngine:
         """Prefill/decode disaggregation, the prefill side: the prompt's
         K/V ([L, n, Hkv, D] on the host) and last-position f32 logits,
         with no slot taken.  The prompt budget is :meth:`_prefill`'s, so
-        a disaggregated prompt is cut exactly as a colocated one."""
+        a disaggregated prompt is cut exactly as a colocated one.  Not
+        ported under a mesh."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "prefill_export under a mesh is not yet ported to "
+                "dstack_tpu_torch")
         max_new_tokens = max(min(max_new_tokens, self.max_len - 2), 1)
         toks = self._prompt_tokens(tokens, max_new_tokens)
         n = len(toks)
@@ -992,16 +1261,16 @@ class InferenceEngine:
             ks = F.pad(ks, (0, 0, 0, 0, 0, pad))
             vs = F.pad(vs, (0, 0, 0, 0, 0, pad))
         self._install_rows(slot_id, ks, vs)
+        first = None
         if p.get("logits") is not None:
             # the request's own temperature/top_p/top_k
-            first = self._sample_first(
-                torch.as_tensor(p["logits"]).to(self.device, torch.float32),
-                req)
+            self._logits[slot_id] = torch.as_tensor(p["logits"]).to(
+                self.device, torch.float32)
         else:
             first = int(p["first_token"])
         self._activate(
-            slot_id, req, n, first,
-            self._prompt_tokens(req.tokens, req.max_new_tokens)[:n])
+            slot_id, req, n,
+            self._prompt_tokens(req.tokens, req.max_new_tokens)[:n], first)
 
     def _chunk_forward(self, padded, length: int, positions, kv_pos,
                        insert, gather):
@@ -1015,10 +1284,10 @@ class InferenceEngine:
         for l, lp in enumerate(self._layers):
             x = _suffix_layer(x, lp, cfg, positions, self._inv_freqs, kv_pos,
                               token_mask, _kv_layer(self._cache_k, l),
-                              _kv_layer(self._cache_v, l), insert, gather)
+                              _kv_layer(self._cache_v, l), insert, gather,
+                              self._layout)
         x = rms_norm(x, self.params["final_norm"], cfg.rms_eps)
-        return qmatmul(x[0, length - 1, :], output_head(self.params, cfg),
-                       cfg.dtype, preferred=torch.float32)
+        return _logits(x[0, length - 1, :], self.params, cfg, self._layout)
 
     def _prefill_dense_chunk(self, padded, chunk_len: int, prefix_len: int,
                              slot: int):
@@ -1124,7 +1393,7 @@ class InferenceEngine:
         """
         cfg = self.cfg
         b, w, dev = self.batch_size, window, self.device
-        hkv, group = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+        hkv, group = self._hkv, cfg.num_heads // cfg.num_kv_heads
         scale = cfg.head_dim ** -0.5
         lengths, active = self._lengths, self._active
         base_len = torch.clamp(lengths, max=self.max_len - 1)
@@ -1139,7 +1408,6 @@ class InferenceEngine:
             view_k, view_v = (_tree_map(lambda t: t[:, idx].reshape(
                 (cfg.num_layers, b, kv_span) + t.shape[3:]), c)
                 for c in (self._cache_k, self._cache_v))
-        head = output_head(self.params, cfg)
         win_k = torch.zeros((cfg.num_layers, w, b, hkv, cfg.head_dim),
                             dtype=cfg.dtype, device=dev)
         win_v = torch.zeros_like(win_k)
@@ -1187,10 +1455,9 @@ class InferenceEngine:
                                          probs[..., :kv_span], lv)
                             + torch.einsum("bhgj,jbhd->bhgd",
                                            probs[..., kv_span:], wv))
-                x = _layer_tail(x, attn, lp, cfg)
+                x = _layer_tail(x, attn, lp, cfg, layout=self._layout)
             x = rms_norm(x, self.params["final_norm"], cfg.rms_eps)
-            logits = qmatmul(x, head, cfg.dtype,
-                             preferred=torch.float32)[:, 0]
+            logits = _logits(x, self.params, cfg, self._layout)[:, 0]
             if sampling:
                 last = self._sample_on_device(logits, temps, top_ps, top_ks,
                                               uniform[i])
@@ -1252,14 +1519,13 @@ class InferenceEngine:
         """
         cfg = self.cfg
         b, dev, span = self.batch_size, self.device, self.max_len
-        hkv, group = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+        hkv, group = self._hkv, cfg.num_heads // cfg.num_kv_heads
         scale = cfg.head_dim ** -0.5
         active = self._active
         cur_len = self._lengths.long()
         base_len = torch.clamp(cur_len, max=span - 1)
         kv_index = torch.arange(span, device=dev)[None, :]
         cache_mask = (kv_index < base_len[:, None])[:, None, None, None, :]
-        head = output_head(self.params, cfg)
         wc = window * (k + 1)
         win_k = torch.zeros((cfg.num_layers, wc, b, hkv, cfg.head_dim),
                             dtype=cfg.dtype, device=dev)
@@ -1313,9 +1579,9 @@ class InferenceEngine:
                                      probs[..., :span], lv)
                         + torch.einsum("bhgqw,wbhd->bqhgd",
                                        probs[..., span:], wv))
-                x = _layer_tail(x, attn, lp, cfg)
+                x = _layer_tail(x, attn, lp, cfg, layout=self._layout)
             x = rms_norm(x, self.params["final_norm"], cfg.rms_eps)
-            logits = qmatmul(x, head, cfg.dtype, preferred=torch.float32)
+            logits = _logits(x, self.params, cfg, self._layout)
             greedy = torch.argmax(logits, dim=-1)             # [B, k+1]
             match = (drafts == greedy[:, :k]).long()
             n_acc = torch.where(active, torch.cumprod(match, 1).sum(1), 0)
@@ -1400,31 +1666,19 @@ class InferenceEngine:
             return self._dispatch_window_spec(remaining, window)
         nbk = self._ragged_blocks(window) if self.paged else 0
         # per-slot constants, copied to the device once per slot assignment
-        gen = self._slots_gen
-        if self._decode_consts is None or self._decode_consts[0] != gen:
-            def dev(values, dtype):
-                return torch.tensor(values, dtype=dtype, device=self.device)
-
+        consts = None
+        if self._consts_gen != self._slots_gen:
+            self._consts_gen = self._slots_gen
             slots = self._slots
-            self._decode_consts = (
-                gen,
-                dev([r.temperature if r else 0.0 for r in slots], torch.float32),
-                dev([r.top_p if r else 1.0 for r in slots], torch.float32),
-                dev([r.top_k if r else 0 for r in slots], torch.int64),
-                (torch.tensor(self._tables_host, device=self.device)
-                 if self.paged else None))
-        _, temps, top_ps, top_ks, tables_full = self._decode_consts
-        # the ragged bucket is a column slice: row stride stays the full
-        # table's, which the kernel takes as an argument
-        tables = tables_full[:, :nbk] if self.paged else None
-        uniform = self._noise((window, self.batch_size)) if sampling else None
+            consts = ([r.temperature if r else 0.0 for r in slots],
+                      [r.top_p if r else 1.0 for r in slots],
+                      [r.top_k if r else 0 for r in slots],
+                      self._tables_host.copy() if self.paged else None)
         # queuing a window is host work of the same order as running it, so
         # the inter-token clock starts before it, not after
         t0 = time.time()
-        tokens_all, self._last_token, self._lengths = self._decode_window(
-            temps, top_ps, top_ks, tables, uniform, window=window,
-            sampling=sampling, kv_blocks=nbk)
-        self.decode_steps += window
+        tokens_all = self._op("window", window=window, sampling=sampling,
+                              nbk=nbk, consts=consts)
         # which slots this window decodes for: by drain time a mid-chunking
         # slot may have finished its prefill, but its rows here are junk
         decoding = frozenset(
@@ -1437,6 +1691,40 @@ class InferenceEngine:
             self._record_dispatch(len(decoding), pending, t0)
         return pending
 
+    def _do_window(self, window: int, sampling: bool, nbk: int,
+                   consts: Optional[tuple]) -> torch.Tensor:
+        """Queue one decode window (:meth:`_decode_window`); ``consts``
+        (temperatures, top-p, top-k, the block tables) when the slots
+        changed since the last window."""
+        if consts is not None:
+            temps, top_ps, top_ks, tables = consts
+
+            def dev(values, dtype):
+                return torch.tensor(values, dtype=dtype, device=self.device)
+
+            self._decode_consts = (
+                dev(temps, torch.float32), dev(top_ps, torch.float32),
+                dev(top_ks, torch.int64),
+                torch.tensor(tables, device=self.device)
+                if tables is not None else None)
+        temps, top_ps, top_ks, tables_full = self._decode_consts
+        # the ragged bucket is a column slice: row stride stays the full
+        # table's, which the kernel takes as an argument
+        tables = tables_full[:, :nbk] if self.paged else None
+        uniform = self._noise((window, self.batch_size)) if sampling else None
+        tokens_all, self._last_token, self._lengths = self._decode_window(
+            temps, top_ps, top_ks, tables, uniform, window=window,
+            sampling=sampling, kv_blocks=nbk)
+        self.decode_steps += window
+        return tokens_all
+
+    def _do_window_spec(self, window: int, k: int) -> tuple:
+        """Queue one speculative window (:meth:`_decode_window_spec`)."""
+        toks, accs, self._last_token, self._lengths = \
+            self._decode_window_spec(window=window, k=k)
+        self.decode_steps += window
+        return toks, accs
+
     def _dispatch_window_spec(self, remaining: int, window: int):
         """Queue a speculative greedy window (:meth:`_decode_window_spec`).
         A step emits 1..k+1 tokens per slot, so the drain walks the
@@ -1444,9 +1732,8 @@ class InferenceEngine:
         always gives (tokens past a request's end are dropped, as the plain
         window's overshoot is)."""
         t0 = time.time()
-        toks, accs, self._last_token, self._lengths = \
-            self._decode_window_spec(window=window, k=self.speculation_k)
-        self.decode_steps += window
+        toks, accs = self._op("window_spec", window=window,
+                              k=self.speculation_k)
         decoding = frozenset(
             slot_id for slot_id, req in enumerate(self._slots)
             if req is not None and slot_id not in self._chunking)
@@ -1493,8 +1780,10 @@ class InferenceEngine:
         tokens_np = p["tokens"].cpu().numpy()
         if p.get("spec"):
             accs_np = p["accepted"].cpu().numpy()             # [W, B]
+            self._produced("window", tokens_np, accs_np)
             self._count_spec(p, accs_np)
         else:
+            self._produced("window", tokens_np)
             tokens_np = tokens_np[..., None]
             accs_np = np.zeros(tokens_np.shape[:2], np.int64)
         emitted = 0
@@ -1527,16 +1816,17 @@ class InferenceEngine:
         if self.telemetry is not None:
             self.telemetry.record_spec(steps_n, accepted_n)
 
-    def _sample_first(self, logits, req: Request) -> int:
+    def _sample_first(self, logits, temperature: float, top_p: float,
+                      top_k: int) -> int:
         """A request's FIRST token, from the same sampler as the decode
         windows; one int crosses to the host."""
-        temps = torch.tensor([req.temperature], dtype=torch.float32,
+        temps = torch.tensor([temperature], dtype=torch.float32,
                              device=self.device)
-        top_ps = torch.tensor([req.top_p], dtype=torch.float32,
+        top_ps = torch.tensor([top_p], dtype=torch.float32,
                               device=self.device)
-        top_ks = torch.tensor([req.top_k or 0], dtype=torch.int64,
+        top_ks = torch.tensor([top_k], dtype=torch.int64,
                               device=self.device)
-        uniform = (self._noise((1,)) if req.temperature > 0.0
+        uniform = (self._noise((1,)) if temperature > 0.0
                    else torch.zeros((1, min(1024, self.cfg.vocab_size)),
                                     device=self.device))
         return int(self._sample_on_device(logits[None, :], temps, top_ps,
@@ -1578,8 +1868,11 @@ class InferenceEngine:
 
     def _release(self, slot_id: int) -> None:
         self._release_host(slot_id)
-        self._active[slot_id] = False
-        self._lengths[slot_id] = 0
+        self._op("release", slot=slot_id)
+
+    def _do_release(self, slot: int) -> None:
+        self._active[slot] = False
+        self._lengths[slot] = 0
 
     def _release_host(self, slot_id: int) -> None:
         """Host-side half of release (safe when the device is wedged)."""

@@ -14,7 +14,7 @@ converted copy once more — a fused dequant-matmul kernel is later work.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -22,10 +22,20 @@ import torch
 _LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
-def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """[..., in, out] -> {"q": int8, "s": f32 [..., out] channel scales}."""
+def quantize_weight(w: torch.Tensor,
+                    reduce: Optional[Callable] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """[..., in, out] -> {"q": int8, "s": f32 [..., out] channel scales}.
+
+    ``reduce``, given a rank's rows of a matrix whose other rows other
+    ranks hold, takes the channels' absmax ([..., 1, out]) to the whole
+    matrix's (a max over those ranks), so the shards quantize as the
+    whole matrix does."""
     w32 = w.float()
-    scale = (w32.abs().amax(dim=-2, keepdim=True) / 127.0).clamp_min(1e-12)
+    amax = w32.abs().amax(dim=-2, keepdim=True)
+    if reduce is not None:
+        amax = reduce(amax)
+    scale = (amax / 127.0).clamp_min(1e-12)
     q = torch.clamp(torch.round(w32 / scale), -127, 127)
     return {"q": q.to(torch.int8), "s": scale[..., 0, :].float()}
 
@@ -43,16 +53,21 @@ def qmatmul(x: torch.Tensor, w: Any, compute_dtype: torch.dtype,
     return y if preferred is None else y.to(preferred)
 
 
-def quantize_params(params: Any, tied_head_copy: bool = False) -> Any:
+def quantize_params(params: Any, tied_head_copy: bool = False,
+                    reduce: Optional[Callable[[str], Optional[Callable]]]
+                    = None) -> Any:
     """Quantize every stacked layer matmul weight (and the lm_head);
     everything else passes through.  ``tied_head_copy``: for tied models,
     add an int8 copy of ``embed.T`` as "lm_head" (the embedding gather keeps
-    the original precision)."""
+    the original precision).  ``reduce(name)``: the absmax reduction of
+    layer weight ``name`` under a mesh (see :func:`quantize_weight`), or
+    None."""
     out = dict(params)
     layers = dict(params["layers"])
     for name in _LAYER_WEIGHTS:
         if name in layers:
-            layers[name] = quantize_weight(layers[name])
+            layers[name] = quantize_weight(
+                layers[name], None if reduce is None else reduce(name))
     out["layers"] = layers
     if "lm_head" in params:
         out["lm_head"] = quantize_weight(params["lm_head"])

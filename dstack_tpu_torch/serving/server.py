@@ -8,6 +8,14 @@ OpenMetrics on request), /stats, /load, /drain, /traces, /traces/{id}.
 
 Run: python -m dstack_tpu_torch.serving.server --config llama3-8b --paged
 (CUDA by default; ``--device cpu`` runs on the CPU).
+
+``--tensor-parallel N`` serves the model sharded over N cards of this
+host, one process a card: the command's process is rank 0 (the HTTP
+server and the scheduler) and starts the N - 1 others itself, each a
+follower of rank 0's engine (serving/lockstep.py) on card ``LOCAL_RANK``
+of one NCCL world.  A follower that exits, or a step that fails on rank
+0, fails the replica: /health and /load answer 503, the followers are
+killed and rank 0 exits non-zero.
 """
 
 from __future__ import annotations
@@ -16,7 +24,11 @@ import argparse
 import base64
 import json
 import logging
+import os
 import queue
+import socket
+import subprocess
+import sys
 import threading
 import time
 import uuid
@@ -97,6 +109,9 @@ class ServingApp:
     def __init__(self, engine: InferenceEngine, tokenizer,
                  model_name: str = "dstack-tpu-model") -> None:
         self.engine = engine
+        #: why the replica can no longer serve (a tensor-parallel rank
+        #: exited), or None
+        self.failed: Optional[str] = None
         self.tokenizer = tokenizer
         self.model_name = model_name
         #: request tracer — rides the engine's telemetry so scheduler spans
@@ -109,6 +124,12 @@ class ServingApp:
 
     def start_engine(self) -> None:
         self._thread.start()
+
+    def join_engine(self, timeout: float) -> None:
+        """Wait for the engine thread to end after ``engine.stop()`` (a
+        sharded engine's rank 0 then releases its followers)."""
+        if self._thread.is_alive():
+            self._thread.join(timeout)
 
     # -- request plumbing -------------------------------------------------
 
@@ -197,6 +218,9 @@ class ServingApp:
         return json_response({"detail": "deadline exceeded"}, status=504)
 
     def _wedged_response(self) -> Optional[Response]:
+        failed = self.failed or getattr(self.engine, "failed", None)
+        if failed is not None:
+            return json_response({"detail": failed}, status=503)
         if self.engine.wedged:
             return json_response(
                 {"detail": "engine wedged: decode step stuck past the "
@@ -358,6 +382,9 @@ class ServingApp:
         None), or (None, the engine request: a decode leg installs its
         ``prefill_result``, any other request prefills here)."""
         phase = handler.headers.get(PD_PHASE_HEADER, "")
+        if phase and getattr(self.engine, "mesh", None) is not None:
+            raise BadRequest("prefill/decode legs under --tensor-parallel "
+                             "are not yet ported")
         if phase == "prefill":
             return "prefill", None
         if phase == "decode" and payload.get("prefill_result"):
@@ -665,7 +692,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the random weights")
     parser.add_argument("--tensor-parallel", type=int, default=1, metavar="N",
-                        help="tensor-parallel degree (only 1 is ported)")
+                        help="shard the model over the first N cards of "
+                             "this host, one process a card (Megatron-style "
+                             "TP; for models too big for one card)")
+    parser.add_argument("--follower", action="store_true",
+                        help=argparse.SUPPRESS)
     parser.add_argument(
         "--paged", action="store_true",
         help="block-paged KV cache (serving/paging.py), decoded through the "
@@ -716,7 +747,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args) -> List[str]:
     """Flags set on the command line whose feature the port lacks."""
     checks = [
-        ("--tensor-parallel", args.tensor_parallel > 1),
         ("--compile-cache", args.compile_cache is not None),
         ("--compile-cache-peers", args.compile_cache_peers is not None),
         ("--snapshot-dir", args.snapshot_dir is not None),
@@ -741,13 +771,18 @@ def load_model(args) -> tuple:
         # loudly instead
         raise SystemExit(f"could not load a tokenizer for {args.checkpoint} "
                          "(pass --tokenizer explicitly)")
-    cfg, params = load_hf_llama(args.checkpoint, device=args.device)
+    # under --tensor-parallel each rank keeps its blocks of the host's tree
+    cfg, params = load_hf_llama(
+        args.checkpoint,
+        device="cpu" if args.tensor_parallel > 1 else args.device)
     return (cfg, params, tokenizer,
             args.model_name or Path(args.checkpoint).name)
 
 
-def build_engine(args, cfg: LlamaConfig, params) -> InferenceEngine:
-    """The engine of the command line."""
+def build_engine(args, cfg: LlamaConfig, params,
+                 mesh=None) -> InferenceEngine:
+    """The engine of the command line (sharded over ``mesh`` when given;
+    a follower rank's has no telemetry)."""
     return InferenceEngine(
         cfg, params=params, batch_size=args.batch_size, max_len=args.max_len,
         rng_seed=args.seed, quantize=args.quantize,
@@ -763,33 +798,145 @@ def build_engine(args, cfg: LlamaConfig, params) -> InferenceEngine:
                        else (args.prefill_chunk or None)),
         speculation=args.speculation,
         speculation_k=args.speculation_k,
-        telemetry=None if args.no_telemetry else make_engine_telemetry(),
+        telemetry=(None if args.no_telemetry or args.follower
+                   else make_engine_telemetry()),
         device=args.device,
+        mesh=mesh,
     )
 
 
+def visible_devices(device: str) -> Optional[int]:
+    """Cards the ranks can take: CUDA's count, or None on the CPU (gloo
+    ranks, any number)."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.device_count()
+
+
+def check_tensor_parallel(n: int, device: str) -> None:
+    """Exit, as the JAX server does, when fewer than ``n`` cards are
+    visible."""
+    if n < 1:
+        raise SystemExit(f"--tensor-parallel must be at least 1, got {n}")
+    visible = visible_devices(device) if n > 1 else None
+    if visible is not None and visible < n:
+        raise SystemExit(f"--tensor-parallel {n} but only {visible} "
+                         f"device(s) visible")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(n: int, port: int, rank: int) -> dict:
+    """The control plane's variables for rank ``rank`` of an ``n``-card
+    world on this host (``parallel/distributed.py``)."""
+    return {"DSTACK_MASTER_NODE_IP": "127.0.0.1", "DSTACK_NODES_NUM": "1",
+            "DSTACK_NODE_RANK": "0", "DSTACK_GPUS_PER_NODE": str(n),
+            "DSTACK_COORDINATOR_PORT": str(port), "LOCAL_RANK": str(rank)}
+
+
+def start_followers(argv: List[str], n: int, port: int) -> list:
+    """Ranks 1..n-1: this command again as followers, one a card."""
+    env = {k: v for k, v in os.environ.items() if k != "DSTACK_GPUS_NUM"}
+    return [subprocess.Popen(
+        [sys.executable, "-m", "dstack_tpu_torch.serving.server", *argv,
+         "--follower"], env={**env, **rank_env(n, port, r)})
+        for r in range(1, n)]
+
+
+def watch_followers(app: "ServingApp", procs: list, exit_fn=os._exit,
+                    poll_s: float = 0.5) -> threading.Thread:
+    """A thread that fails the replica when a follower exits or rank 0's
+    engine stops on a failed step (``engine.failed``): ``app`` answers
+    /health and /load with 503, and ``exit_fn(1)`` ends rank 0 (whose
+    collectives would wait on the lost rank forever, and whose followers
+    may wait in a collective of the failed operation)."""
+    def watch():
+        while True:
+            for r, p in enumerate(procs, start=1):
+                code = p.poll()
+                if code is not None and app.engine._stop:
+                    return  # rank 0 is shutting down: its followers end
+                if code is not None:
+                    app.failed = (f"tensor-parallel rank {r} exited with "
+                                  f"code {code}")
+                    logger.error("%s: this replica stops", app.failed)
+            if app.failed is not None or app.engine.failed is not None:
+                time.sleep(poll_s)
+                for p in procs:  # they may wait in a collective forever
+                    if p.poll() is None:
+                        p.kill()
+                exit_fn(1)
+                return
+            time.sleep(poll_s)
+
+    thread = threading.Thread(target=watch, daemon=True, name="followers")
+    thread.start()
+    return thread
+
+
+def _join_world(args) -> object:
+    """This rank's place in the --tensor-parallel world: the process group
+    (NCCL on cards, gloo on the CPU) and the mesh MeshSpec(tensor=N)."""
+    from dstack_tpu_torch.parallel import distributed
+    from dstack_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    distributed.initialize(force=True, device=args.device)
+    return build_mesh(MeshSpec(tensor=args.tensor_parallel),
+                      torch.device(args.device).type)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser()
     args = parser.parse_args(argv)
     missing = unported_flags(args)
     if missing:
         parser.exit(2, f"not yet ported: {', '.join(missing)}\n")
     logging.basicConfig(level=logging.INFO)
-    cfg, params, tokenizer, model_name = load_model(args)
-    if tokenizer.vocab_size > cfg.vocab_size:
-        raise SystemExit(f"tokenizer vocab {tokenizer.vocab_size} exceeds "
-                         f"model vocab {cfg.vocab_size}")
-    engine = build_engine(args, cfg, params)
-    app = ServingApp(engine, tokenizer, model_name=model_name)
-    app.start_engine()
-    server = app.make_server("0.0.0.0", args.port)
-    logger.info("serving %s on port %d (%s)", model_name,
-                server.server_address[1], engine.device)
+    n = args.tensor_parallel
+    check_tensor_parallel(n, args.device)
+    followers, mesh = [], None
+    if n > 1 and not args.follower:
+        port = _free_port()
+        os.environ.update(rank_env(n, port, 0))
+        os.environ.pop("DSTACK_GPUS_NUM", None)
+        followers = start_followers(argv, n, port)
     try:
-        server.serve_forever()
+        cfg, params, tokenizer, model_name = load_model(args)
+        if tokenizer.vocab_size > cfg.vocab_size:
+            raise SystemExit(f"tokenizer vocab {tokenizer.vocab_size} "
+                             f"exceeds model vocab {cfg.vocab_size}")
+        if n > 1:
+            mesh = _join_world(args)
+        engine = build_engine(args, cfg, params, mesh)
+        if args.follower:
+            logger.info("tensor-parallel follower: %s", engine.follow())
+            torch.distributed.destroy_process_group()
+            return
+        app = ServingApp(engine, tokenizer, model_name=model_name)
+        if followers:
+            watch_followers(app, followers)
+        app.start_engine()
+        server = app.make_server("0.0.0.0", args.port)
+        logger.info("serving %s on port %d (%s, tensor-parallel %d)",
+                    model_name, server.server_address[1], engine.device, n)
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()
+            engine.stop()
+            app.join_engine(timeout=30)
     finally:
-        server.server_close()
-        engine.stop()
+        for p in followers:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ from dstack_tpu.models import train as j_train
 from dstack_tpu_torch.models import llama, moe, train
 from dstack_tpu_torch.ops import flash_attention as fa
 from dstack_tpu_torch.ops.loss import chunked_cross_entropy
+from dstack_tpu_torch.parallel import mesh as mesh_lib
 from dstack_tpu_torch.serving import engine as t_engine
 from dstack_tpu_torch.serving.quant import quantize_params, quantize_weight
 
@@ -127,17 +128,37 @@ def test_int8_moe_params_equal_the_quantized_init(tied):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+class _Mesh:
+    """A DeviceMesh's names and sizes, and rank 0's coordinate."""
+
+    mesh_dim_names = mesh_lib.AXIS_ORDER
+
+    def __init__(self, spec: mesh_lib.MeshSpec):
+        self.shape = tuple(spec.sizes[a] for a in mesh_lib.AXIS_ORDER)
+
+    def get_coordinate(self):
+        return [0] * len(self.shape)
+
+
 def test_sharded_arguments_are_refused():
-    """A mesh or a sharding policy raises "not yet ported" on every entry
-    point (expert parallelism waits for sharded training)."""
+    """Under a mesh every entry point refuses what is not ported: an
+    expert axis among the batch axes (the all-to-all dispatch) raises
+    "not yet ported", and an expert degree that does not divide the
+    experts a ValueError."""
     opt = train.default_optimizer()
     tokens = torch.zeros((1, 8), dtype=torch.long)
-    for kw in ({"mesh": object()}, {"policy": object()}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            moe.backbone({}, tokens, TINY, **kw)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    batch_expert = dict(mesh=_Mesh(mesh_lib.MeshSpec(expert=2)),
+                        policy=llama.ShardingPolicy(
+                            batch_axes=("data", "expert")))
+    three = dict(mesh=_Mesh(mesh_lib.MeshSpec(expert=3)))
+    for kw, err, match in ((batch_expert, NotImplementedError,
+                            "not yet ported"),
+                           (three, ValueError, "expert mesh degree")):
+        with pytest.raises(err, match=match):
+            moe.backbone({"layers": {}}, tokens, TINY, **kw)
+        with pytest.raises(err, match=match):
             moe.make_train_step(TINY, opt, **kw)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(err, match=match):
             moe.create_state(0, TINY, opt, device="cpu", **kw)
     with pytest.raises(ValueError, match="remat"):
         moe.make_train_step(TINY, opt, remat="sometimes")
@@ -201,10 +222,11 @@ def test_engine_routes_each_path_with_its_capacity_and_mask(kw, want,
     seen = set()
     real = moe._moe_mlp
 
-    def spy(h, lp, cfg, capacity=None, token_mask=None):
+    def spy(h, lp, cfg, capacity=None, token_mask=None, layout=None):
         seen.add((h.shape[1], capacity,
                   None if token_mask is None else int(token_mask.sum())))
-        return real(h, lp, cfg, capacity=capacity, token_mask=token_mask)
+        return real(h, lp, cfg, capacity=capacity, token_mask=token_mask,
+                    layout=layout)
 
     monkeypatch.setattr(moe, "_moe_mlp", spy)
     engine = t_engine.InferenceEngine(SERVED, device="cpu", batch_size=2,

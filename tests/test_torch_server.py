@@ -125,7 +125,7 @@ def test_bad_json_is_a_400(base_url):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tensor-parallel", "2"],
+    ["--tensor-parallel", "2", "--standby"],
     ["--checkpoint", "ckpt", "--snapshot-dir", "snap"],
     ["--compile-cache", "cache"],
     ["--compile-cache-peers", "http://peer"],
