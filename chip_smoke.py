@@ -24,7 +24,10 @@ Phases (any failure stops the run with a non-zero exit and no result):
              forward (o, lse) and backward (dq, dk, dv) kernels to theirs
              (largest absolute error, and largest error of a row relative
              to the row) at the training path's shapes (Llama-3.2-1B b8 s1024 D=64,
-             Llama-3-8B geometry b4 s2048 D=128); times each kernel, its
+             Llama-3-8B geometry b4 s2048 D=128) and at the whole sequence
+             of half the heads that a Ulysses rank holds at seq=2 in
+             phase 14 (b1 s8192, Hq 16, Hkv 4, D=64 and D=128); times each
+             kernel, its
              plain version and, as a yardstick only,
              scaled_dot_product_attention, beside the card's least time
              (bound).  Then the loss's f32 logits from bf16 inputs against
@@ -177,6 +180,34 @@ Phases (any failure stops the run with a non-zero exit and no result):
              follower checks every token array rank 0 produced equal to
              its own.  Prints each engine's decode step and TTFT beside
              the one-card engine's.
+14. context-pipeline — sequence and pipeline parallelism on two rank
+             processes sharing card 0 under gloo (initialize(force=True)
+             from the control plane's variables, as phase 13's gloo pair),
+             each run beside the same seed's weights and batch unsharded
+             in this process (selective remat): (a) Ulysses, Llama-3.2-1B
+             at full width and depth, b1 s8192 at seq=2 (a rank holds
+             4096 positions and, after the all-to-all, the whole sequence
+             of 16 query heads), 3 steps, and the Llama-3-8B geometry at
+             CP_8B_LAYERS layers, b1 s8192, 2 steps; (b) ring, the same
+             1B run (f32 blocks, no kernel); (c) the GPipe pipeline, the
+             1B at stage=2 (8 layers a stage), b8 s1024,
+             CP_PIPE_MICRO microbatches, 3 steps.  Fails unless every
+             rank's losses are within CP_RTOL of the unsharded run's
+             (loss 1e-3, grad norm 5e-3), both ranks run gloo, and each
+             rank's flash launches are exactly (fwd, bwd) = (2 L S, L S)
+             for Ulysses over S steps, none for ring, and (2 T S, T S)
+             for the pipeline with T = (L / stages) x (M + stages - 1)
+             ticks.  Prints each run's median step and tokens/s beside
+             the unsharded run's, the collectives' share of one more step
+             traced by torch.profiler (their collective.* host ranges
+             over its wall: under gloo the whole collective, host copies
+             included) and every rank's peak memory.  Gloo takes CUDA
+             tensors in all-reduce, broadcast, both all-gathers,
+             reduce-scatter and all_to_all_single, not in send/recv
+             ("Bad address" on the H100), so ppermute goes through host
+             memory under gloo.  context_pipeline_phase(torch,
+             backend="nccl", ranks=4) runs the same at seq=4 and stage=4,
+             a card a rank.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; exits non-zero without
@@ -316,6 +347,19 @@ SHARDED_STEPS = 3
 SHARDED_1B_LAYERS = 4
 SHARDED_RESUME_STEPS = 2
 SHARDED_TIMEOUT_S = 420
+#: phase 14, context and pipeline parallelism on two gloo ranks sharing
+#: the card: the sequence of the Ulysses and ring runs (b1; each rank
+#: holds half), their steps, the Llama-3-8B geometry's depth and steps
+#: there, the pipeline's batch, sequence and microbatches (stage=2), and
+#: the seconds the ranks get in all
+CP_SEQ, CP_STEPS = 8192, 3
+CP_8B_LAYERS, CP_8B_STEPS = 4, 2
+CP_PIPE_BATCH, CP_PIPE_SEQ, CP_PIPE_MICRO = 8, 1024, 4
+CP_TIMEOUT_S = 480
+#: each scheme's limits on its losses and grad norms against the
+#: unsharded run's, relative (phase 12's)
+CP_RTOL = {"ulysses": TRAIN_PLAIN_RTOL, "ring": TRAIN_PLAIN_RTOL,
+           "pipeline": TRAIN_PLAIN_RTOL}
 #: hf-import phase: Llama-3.2-1B (full width and depth) in HF's layout,
 #: random bf16 weights from a seed, written in this many safetensors
 #: shards, with Llama-3.2-1B's published llama3 rope scaling
@@ -814,10 +858,25 @@ def checked_flash_errors(torch, fa, shape, scale: float):
     return out
 
 
+def flash_rows() -> dict:
+    """Row name -> (B, S, Hq, Hkv, D) of each timed flash shape: the
+    trainers' (phase 6), and the whole sequence of half the heads that a
+    Ulysses rank holds at seq=2 in phase 14 (b1 s8192, Hq 16, Hkv 4) at
+    both head dims."""
+    rows = {}
+    for cfg_name in TRAIN_STEPS:
+        cfg, batch, seq, _ = trainer(cfg_name)
+        rows[cfg_name] = (batch, seq, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.head_dim)
+    for cfg_name, d in (("llama3-1b", 64), ("llama3-8b-fit", 128)):
+        rows[f"{cfg_name}/seq=2"] = (1, CP_SEQ, 16, 4, d)
+    return rows
+
+
 def check_flash_kernels(torch) -> dict:
     """Hold the forward (o, lse) and backward (dq, dk, dv) kernels to their
-    plain versions at both training shapes, and at FLASH_EDGE_SHAPES, and
-    time each at the training shapes beside its plain version,
+    plain versions at the shapes of flash_rows, and at FLASH_EDGE_SHAPES,
+    and time each at flash_rows' shapes beside its plain version,
     scaled_dot_product_attention (the yardstick, never called by the
     port) and its bound."""
     import torch.nn.functional as F
@@ -829,10 +888,8 @@ def check_flash_kernels(torch) -> dict:
         log(f"kernel flash (B, S, Hq, Hkv, D) = {shape}: max err " + " ".join(
             f"{n} {e:.3e}" for n, e in errs.items()))
     out = {}
-    for cfg_name in TRAIN_STEPS:
-        cfg, batch, seq, _ = trainer(cfg_name)
-        shape = (batch, seq, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
-        d = cfg.head_dim
+    for row, shape in flash_rows().items():
+        d = shape[4]
         scale = d ** -0.5
         (q, k, v, do), (o, lse), errs = checked_flash_errors(torch, fa,
                                                              shape, scale)
@@ -867,7 +924,7 @@ def check_flash_kernels(torch) -> dict:
         for part, errs_shown in (("fwd", ("o", "lse", "o_row")),
                                  ("bwd", ("dq", "dk", "dv", "dq_row",
                                           "dk_row", "dv_row"))):
-            name = f"flash_attention_{part}[{cfg_name},D={d}]"
+            name = f"flash_attention_{part}[{row},D={d}]"
             bound_ms, bound_by, nbytes, flops = bounds[part]
             out[name] = {
                 "name": name, "route": "cuda", "source": FLASH_SOURCES[part],
@@ -887,7 +944,7 @@ def check_flash_kernels(torch) -> dict:
                 f"{flops} flop)  {flops / times[part] / 1e9:.1f} TFLOP/s, "
                 f"{bound_ms / times[part]:.3f} of the bound, "
                 f"{times[part] / times[part + '_sdpa']:.2f}x sdpa")
-        log(f"kernel flash fwd+bwd [{cfg_name}]: kernels "
+        log(f"kernel flash fwd+bwd [{row}]: kernels "
             f"{(times['fwd'] + times['bwd']) * 1e3:.1f} us, sdpa "
             f"{times['fwd_bwd_sdpa'] * 1e3:.1f} us")
         del q, k, v, do, o, lse, qt, kt, vt
@@ -1762,19 +1819,6 @@ def local_leaves(torch, state) -> list:
     return [(p, local_tensor(t)) for p, t in ckpt.state_leaves(state)]
 
 
-def stripe_of(mesh, tokens):
-    """This rank's rows of a global batch (its coordinate on the batch
-    axes of the default policy)."""
-    from dstack_tpu_torch.models.llama import ShardingPolicy
-    from dstack_tpu_torch.parallel import mesh as mesh_lib
-
-    index, count = mesh_lib.batch_stripe(
-        mesh_lib.mesh_sizes(mesh), mesh_lib.mesh_coordinate(mesh),
-        ShardingPolicy().batch_axes)
-    rows = tokens.shape[0] // count
-    return tokens[index * rows:(index + 1) * rows]
-
-
 def check_rel(label: str, got: list, want: list, limit: float) -> list:
     """Relative errors of ``got`` against ``want``; fails past ``limit``."""
     rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
@@ -1799,6 +1843,7 @@ def sharded_8b(torch, mesh, device: str, trained=None) -> dict:
     TRAIN_PLAIN_RTOL and counts the kernels' launches on the sharded
     steps."""
     from dstack_tpu_torch.models import train
+    from dstack_tpu_torch.models.data import rank_tokens
     from dstack_tpu_torch.ops import flash_attention as fa
 
     cfg, batch, seq, remat = trained or trainer("llama3-8b-fit")
@@ -1815,7 +1860,7 @@ def sharded_8b(torch, mesh, device: str, trained=None) -> dict:
                                generator=gen, device=device,
                                dtype=torch.int32)
         if route == "sharded":
-            tokens = stripe_of(mesh, tokens)
+            tokens = rank_tokens(tokens, mesh)
         step_fn = train.make_train_step(cfg, opt, remat=remat, **kw)
         if cuda:
             torch.cuda.synchronize()
@@ -1867,6 +1912,7 @@ def sharded_1b(torch, mesh, ckpt_dir: str, device: str,
     steps' losses and grad norms are held to the unsharded ones
     (TRAIN_PLAIN_RTOL), and their kernel launches counted."""
     from dstack_tpu_torch.models import train
+    from dstack_tpu_torch.models.data import rank_tokens
     from dstack_tpu_torch.ops import flash_attention as fa
 
     if trained is None:
@@ -1887,7 +1933,7 @@ def sharded_1b(torch, mesh, ckpt_dir: str, device: str,
         tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
                                generator=gen, device=device,
                                dtype=torch.int32)
-        return {"tokens": stripe_of(mesh, tokens) if sharded else tokens}
+        return {"tokens": rank_tokens(tokens, mesh) if sharded else tokens}
 
     def recorder(norms, stamps):
         def on_step(step, metrics):
@@ -2079,6 +2125,7 @@ def sharded_moe(torch, device: str, trained=None) -> dict:
     is the reference's own.  Counts the flash kernels' launches on the sharded
     steps (twice a layer a step forward, once backward)."""
     from dstack_tpu_torch.models import moe, train
+    from dstack_tpu_torch.models.data import rank_tokens
     from dstack_tpu_torch.ops import flash_attention as fa
     from dstack_tpu_torch.parallel import mesh as mesh_lib
 
@@ -2140,7 +2187,7 @@ def sharded_moe(torch, device: str, trained=None) -> dict:
     if cuda:
         torch.cuda.empty_cache()
     part, _, part_step = start(mesh=mesh)
-    stripe = {"tokens": stripe_of(mesh, tokens)}
+    stripe = {"tokens": rank_tokens(tokens, mesh)}
     fwd = bwd = 0
     for i in range(SHARDED_STEPS):
         if i:
@@ -3605,8 +3652,283 @@ def mesh_serving_phase(torch) -> dict:
     return out
 
 
+# -- phase 14: context and pipeline parallelism -------------------------------
+
+
+def cp_runs(small: bool = False, n: int = 2) -> list:
+    """Phase 14's sharded runs on ``n`` ranks: Ulysses (Llama-3.2-1B at
+    full width and depth and the Llama-3-8B layer geometry at
+    CP_8B_LAYERS, b1 s8192, seq=n), ring (the 1B, seq=n) and the pipeline
+    (the 1B, stage=n, CP_PIPE_MICRO microbatches, b8 s1024).  ``small``:
+    the tiny config, s256 and b4 s128 (a CPU rehearsal)."""
+    seq, pipe = (256, (4, 128)) if small else (CP_SEQ, (
+        CP_PIPE_BATCH, CP_PIPE_SEQ))
+    one = ("tiny", 4) if small else ("llama3-1b", None)
+    eight = ("tiny", 4) if small else ("llama3-8b-fit", CP_8B_LAYERS)
+    return [
+        {"name": "ulysses-1b", "model": one, "batch": 1, "seq": seq,
+         "steps": CP_STEPS, "mesh": {"seq": n},
+         "policy": {"seq_axis": "seq", "seq_scheme": "ulysses"}},
+        {"name": "ulysses-8b", "model": eight, "batch": 1, "seq": seq,
+         "steps": CP_8B_STEPS, "mesh": {"seq": n},
+         "policy": {"seq_axis": "seq", "seq_scheme": "ulysses"}},
+        {"name": "ring-1b", "model": one, "batch": 1, "seq": seq,
+         "steps": CP_STEPS, "mesh": {"seq": n},
+         "policy": {"seq_axis": "seq", "seq_scheme": "ring"}},
+        {"name": "pipeline-1b", "model": one, "batch": pipe[0],
+         "seq": pipe[1], "steps": CP_STEPS, "mesh": {"stage": n},
+         "policy": {"stage_axis": "stage",
+                    "num_microbatches": CP_PIPE_MICRO}},
+    ]
+
+
+def cp_cfg(model):
+    """(name, layers) -> the config: "llama3-1b", "llama3-8b-fit" (the 8B
+    layer geometry) or "tiny", cut to ``layers`` when given."""
+    from dstack_tpu_torch.models.llama import LlamaConfig
+
+    name, layers = model
+    cfg = {"llama3-1b": LlamaConfig.llama3_1b,
+           "llama3-8b-fit": LlamaConfig.llama3_8b_fit,
+           "tiny": LlamaConfig.tiny}[name]()
+    return cfg if layers is None else dataclasses.replace(
+        cfg, num_layers=layers)
+
+
+def cp_want_launches(run: dict) -> tuple:
+    """(fwd, bwd) flash launches a rank makes on ``run``'s steps, selective
+    remat (the forward twice): Ulysses layers x steps; ring none; the
+    pipeline (layers / stages) x (M + stages - 1) ticks x steps."""
+    cfg = cp_cfg(run["model"])
+    per_step = {"ulysses": cfg.num_layers, "ring": 0}.get(
+        run["policy"].get("seq_scheme"))
+    if per_step is None:
+        stages = run["mesh"]["stage"]
+        per_step = (cfg.num_layers // stages) * (
+            run["policy"]["num_microbatches"] + stages - 1)
+    return 2 * per_step * run["steps"], per_step * run["steps"]
+
+
+def cp_train(torch, run: dict, device: str, mesh=None) -> dict:
+    """``run``'s steps with selective remat from a seed-0 init and one
+    batch of random tokens from the same generator: unsharded (``mesh``
+    None, unstacked layers) or this rank's part on ``mesh`` (stacked
+    under the pipeline, whose stage shards the layer dim).  Each rank of a
+    mesh draws every matrix whole and keeps its blocks, so both see the
+    same weights and tokens.  Returns the losses, grad norms, median step,
+    tokens/s (of the global batch), peak memory, flash launches over the
+    steps and, on a mesh, the collectives' share of one more step traced
+    by torch.profiler (their host ranges over its wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dstack_tpu_torch.models import train
+    from dstack_tpu_torch.models.data import rank_tokens
+    from dstack_tpu_torch.models.llama import ShardingPolicy
+    from dstack_tpu_torch.ops import flash_attention as fa
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg = cp_cfg(run["model"])
+    if not cuda:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    policy = ShardingPolicy(**run["policy"]) if mesh is not None else None
+    pipelined = "stage_axis" in run["policy"]
+    opt = train.default_optimizer()
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = train.create_state(
+        gen, cfg, opt, mesh=mesh, policy=policy,
+        unstacked=mesh is None or not pipelined, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (run["batch"], run["seq"] + 1),
+                           generator=gen, device=device, dtype=torch.int32)
+    if mesh is not None:
+        tokens = rank_tokens(tokens, mesh, policy).contiguous()
+    step_fn = train.make_train_step(cfg, opt, mesh=mesh, policy=policy,
+                                    remat="selective")
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.fwd_launches = fa.flash_attention.bwd_launches = 0
+    losses, norms, stamps = [], [], [time.perf_counter()]
+    for _ in range(run["steps"]):
+        state, metrics = step_fn(state, {"tokens": tokens})
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        sync()
+        stamps.append(time.perf_counter())
+    step_s = median_step(stamps[1:]) if run["steps"] > 2 else \
+        stamps[-1] - stamps[-2]
+    out = {"losses": losses, "grad_norms": norms,
+           "step_s": [b - a for a, b in zip(stamps, stamps[1:])],
+           "step_median_s": step_s,
+           "tokens_per_s": run["batch"] * run["seq"] / step_s,
+           "fwd_launches": fa.flash_attention.fwd_launches,
+           "bwd_launches": fa.flash_attention.bwd_launches,
+           "max_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                             if cuda else None)}
+    if mesh is not None:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, {"tokens": tokens})
+            metrics["loss"].item()
+            sync()
+            wall = time.perf_counter() - t0
+        spans = {e.key: e.cpu_time_total / 1e6 for e in prof.key_averages()
+                 if e.key.startswith("collective.")}
+        out.update(traced_step_s=wall, collectives_s=spans,
+                   collectives_share=sum(spans.values()) / wall)
+    del state, step_fn
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def cp_rank(torch, out_dir: str, spec_path: str) -> None:
+    """One rank of phase 14 in its own process: the process group from the
+    control plane's variables (the spec's backend: gloo, the ranks sharing
+    card 0; or NCCL, a card a rank), then every run of the spec on its
+    mesh.  Writes ``rank<r>.json`` with the backend and each run's
+    results."""
+    import torch.distributed as dist
+
+    from dstack_tpu_torch.parallel import distributed
+    from dstack_tpu_torch.parallel import mesh as mesh_lib
+
+    spec = json.loads(Path(spec_path).read_text())
+    device, backend = spec["device"], spec["backend"]
+    distributed.initialize(force=True, device=device, backend=backend)
+    try:
+        out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+        for run in spec["runs"]:
+            mesh = mesh_lib.build_mesh(
+                mesh_lib.MeshSpec(**run["mesh"]), device,
+                backend="gloo" if backend == "gloo" else None)
+            out[run["name"]] = cp_train(torch, run, device, mesh=mesh)
+        (Path(out_dir) / f"rank{dist.get_rank()}.json").write_text(
+            json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def cp_world(runs: list, device: str = "cuda", backend: str = "gloo",
+             ranks: int = 2) -> list:
+    """Phase 14's ranks in fresh processes (``chip_smoke.py --cp-rank``):
+    under gloo each a one-card "node" of the control plane's variables,
+    all on card 0 (NCCL refuses two ranks on one device); under NCCL one
+    node of ``ranks`` cards, a card a rank.  Fails unless every rank exits
+    0 within CP_TIMEOUT_S; returns each rank's results."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-cp-"))
+    spec_path = tmp / "spec.json"
+    spec_path.write_text(json.dumps({"device": device, "backend": backend,
+                                     "runs": runs}))
+    port = free_port()
+    nodes = 1 if backend == "nccl" else ranks
+    procs = []
+    try:
+        for r in range(ranks):
+            env = dict(os.environ, DSTACK_MASTER_NODE_IP="127.0.0.1",
+                       DSTACK_NODES_NUM=str(nodes),
+                       DSTACK_NODE_RANK="0" if nodes == 1 else str(r),
+                       DSTACK_GPUS_PER_NODE=str(ranks // nodes),
+                       LOCAL_RANK=str(r) if nodes == 1 else "0",
+                       DSTACK_COORDINATOR_PORT=str(port))
+            env.pop("DSTACK_GPUS_NUM", None)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--cp-rank",
+                 str(tmp), str(spec_path)], env=env))
+        deadline = time.time() + CP_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            fail(f"context and pipeline: ranks exited {codes}")
+        return [json.loads((tmp / f"rank{r}.json").read_text())
+                for r in range(ranks)]
+    except subprocess.TimeoutExpired:
+        fail(f"context and pipeline: ranks still running after "
+             f"{CP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cp_check(label: str, run: dict, ranks: list, ref: dict,
+             cuda: bool = True) -> dict:
+    """Hold a sharded run's ranks to the unsharded run: every rank's losses
+    within CP_RTOL["loss"] and grad norms within CP_RTOL["grad_norm"],
+    and (on the card) its flash launches exactly cp_want_launches."""
+    got = [r[run["name"]] for r in ranks]
+    out = {"unsharded": {k: ref[k] for k in (
+        "losses", "grad_norms", "step_median_s", "tokens_per_s",
+        "max_memory_gb")},
+           "sharded": {k: got[0][k] for k in (
+               "losses", "grad_norms", "step_median_s", "tokens_per_s",
+               "collectives_share", "collectives_s", "traced_step_s")},
+           "rank_max_memory_gb": [g["max_memory_gb"] for g in got],
+           "rank_launches": [[g["fwd_launches"], g["bwd_launches"]]
+                             for g in got]}
+    for key, plural in (("loss", "losses"), ("grad_norm", "grad_norms")):
+        out[f"{key}_rel_err"] = [
+            check_rel(f"{label} rank {i} {key}", g[plural], ref[plural],
+                      CP_RTOL[run["name"].split("-")[0]][key])
+            for i, g in enumerate(got)]
+    want = cp_want_launches(run)
+    if cuda and any(tuple(l) != want for l in out["rank_launches"]):
+        fail(f"{label}: flash launches (fwd, bwd) per rank "
+             f"{out['rank_launches']}, expected {want} on each")
+    return out
+
+
+def context_pipeline_phase(torch, small: bool = False, device: str = "cuda",
+                           backend: str = "gloo", ranks: int = 2) -> dict:
+    """Phase 14: the unsharded runs in this process (Llama-3.2-1B and the
+    8B geometry at b1 s8192, the 1B at b8 s1024; one run serves both
+    schemes at s8192), then cp_runs on ``ranks`` ranks (the script's own
+    run: two gloo ranks sharing the card; ``backend="nccl"`` a card a
+    rank); every sharded run held to its unsharded one (cp_check).
+    ``small`` and ``device="cpu"`` rehearse it at the tiny config."""
+    runs = cp_runs(small, ranks)
+    refs = {}
+    for run in runs:
+        key = json.dumps([run["model"], run["batch"], run["seq"],
+                          run["steps"]])
+        if key not in refs:
+            refs[key] = cp_train(torch, run, device)
+            log(f"context unsharded {run['name']}: "
+                + json.dumps(refs[key]))
+    results = cp_world(runs, device, backend, ranks)
+    if any(r["backend"] != backend or r["world"] != ranks for r in results):
+        fail(f"context and pipeline: backends "
+             f"{[(r['backend'], r['world']) for r in results]}, want "
+             f"{backend} x {ranks}")
+    out = {}
+    for run in runs:
+        key = json.dumps([run["model"], run["batch"], run["seq"],
+                          run["steps"]])
+        label = f"context {run['name']} {run['mesh']}"
+        out[run["name"]] = cp_check(label, run, results, refs[key],
+                                    cuda=device == "cuda")
+        log(f"{label}: " + json.dumps(out[run["name"]]))
+    return out
+
+
 def main() -> int:
     import torch
+
+    if sys.argv[1:2] == ["--cp-rank"]:
+        # a rank of phase 14: its spec names the device
+        sys.path.insert(0, str(ROOT))
+        cp_rank(torch, *sys.argv[2:4])
+        return 0
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3704,6 +4026,16 @@ def main() -> int:
         if isinstance(run, dict) and "k5_row" in run:
             kernels[run["k5_row"]]["launches"] += sum(
                 run.get("rank_launches", [run["launches"]]))
+    context = context_pipeline_phase(torch)
+    # both ranks' launches: Ulysses runs the kernels on the whole sequence
+    # of half the heads (the seq=2 rows' shapes), the pipeline on
+    # microbatches of the 1B trainer's rows
+    for name, row in (("ulysses-1b", "llama3-1b/seq=2,D=64"),
+                      ("ulysses-8b", "llama3-8b-fit/seq=2,D=128"),
+                      ("pipeline-1b", "llama3-1b,D=64")):
+        for i, way in enumerate(("fwd", "bwd")):
+            kernels[f"flash_attention_{way}[{row}]"]["launches"] += sum(
+                r[i] for r in context[name]["rank_launches"])
     for k in kernels.values():
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on its path")
@@ -3757,6 +4089,11 @@ def main() -> int:
             "worst_gap_std", "flips", "rank_max_memory_gb") if k in run}
             if isinstance(run, dict) else run)
             for name, run in meshed.items()}}))
+    log("context-pipeline summary: " + json.dumps({"card": card, **{
+        name: {k: run[k] for k in (
+            "unsharded", "sharded", "loss_rel_err", "grad_norm_rel_err",
+            "rank_max_memory_gb", "rank_launches")}
+        for name, run in context.items()}}))
     # again here, so that the end of a long log still says which card
     log(f"card: {card}")
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -13,7 +13,9 @@
 
 The same windows and order as the JAX package's ``models/data.py``; the
 process index and count are given explicitly (default one process), or
-taken from a rank's place on a device mesh (:meth:`DataLoader.on_mesh`).
+taken from a rank's place on a device mesh (:meth:`DataLoader.on_mesh`),
+which under sequence parallelism also gives each rank its stripe of the
+sequence (:func:`seq_slice`).
 """
 
 from __future__ import annotations
@@ -84,6 +86,43 @@ class TokenDataset:
                           dtype=np.int32)
 
 
+def seq_slice(seq_len: int, index: int, count: int) -> slice:
+    """The columns of a ``[.., seq_len + 1]`` token window that stripe
+    ``index`` of ``count`` reads: its ``seq_len / count`` inputs and one
+    more, so its targets (inputs shifted by one, before striping) are
+    ``[1:]`` of the same slice."""
+    if seq_len % count:
+        raise ValueError(f"seq_len={seq_len} not divisible by {count} "
+                         f"sequence stripes")
+    n = seq_len // count
+    return slice(index * n, (index + 1) * n + 1)
+
+
+def rank_tokens(tokens, mesh, policy=None):
+    """This rank's part of a global token batch ``[B, S + 1]`` (a tensor
+    or an array): its rows (its coordinate on the policy's batch axes)
+    and, when the policy's ``seq_axis`` is on the mesh, its stripe of the
+    sequence (:func:`seq_slice`): what a sharded train step takes."""
+    from dstack_tpu_torch.models.llama import ShardingPolicy
+    from dstack_tpu_torch.parallel.mesh import (batch_stripe,
+                                                mesh_coordinate, mesh_sizes)
+
+    policy = policy or ShardingPolicy()
+    sizes, coord = mesh_sizes(mesh), mesh_coordinate(mesh)
+    index, count = batch_stripe(sizes, coord, policy.batch_axes)
+    rows = tokens.shape[0] // count
+    cols = seq_slice(tokens.shape[1] - 1, *_seq_stripe(sizes, coord, policy))
+    return tokens[index * rows:(index + 1) * rows, cols]
+
+
+def _seq_stripe(sizes: dict, coord: dict, policy) -> tuple:
+    """(index, count) of the rank's sequence stripe (0, 1 without one)."""
+    axis = policy.seq_axis
+    if axis is None or sizes.get(axis, 1) == 1:
+        return 0, 1
+    return coord[axis], sizes[axis]
+
+
 @functools.lru_cache(maxsize=2)
 def _epoch_permutation(n: int, seed: int, epoch: int) -> np.ndarray:
     # memoized: host_batch asks every step; two entries cover the current
@@ -96,10 +135,12 @@ class DataLoader:
     """Deterministic, striped, prefetching batch iterator.
 
     ``global_batch`` is the batch across all processes; this process
-    yields its ``global_batch / num_processes`` stripe.  Batches are a
-    pure function of (seed, step).  With a ``device``, :meth:`batches`
-    yields int32 tensors there, each copied one step ahead of use; without
-    one, CPU tensors.  Partial tail batches are dropped.
+    yields its ``global_batch / num_processes`` stripe, and of each
+    window its sequence stripe ``seq_index`` of ``seq_count``
+    (:func:`seq_slice`).  Batches are a pure function of (seed, step).
+    With a ``device``, :meth:`batches` yields int32 tensors there, each
+    copied one step ahead of use; without one, CPU tensors.  Partial tail
+    batches are dropped.
     """
 
     dataset: TokenDataset
@@ -108,6 +149,8 @@ class DataLoader:
     process_index: int = 0
     num_processes: int = 1
     device: Optional[Union[str, torch.device]] = None
+    seq_index: int = 0
+    seq_count: int = 1
 
     def __post_init__(self):
         if not 0 <= self.process_index < self.num_processes:
@@ -118,6 +161,11 @@ class DataLoader:
             raise ValueError(
                 f"global_batch={self.global_batch} not divisible by "
                 f"{self.num_processes} processes")
+        if not 0 <= self.seq_index < self.seq_count:
+            raise ValueError(
+                f"seq_index={self.seq_index} out of range for "
+                f"{self.seq_count} sequence stripes")
+        seq_slice(self.dataset.seq_len, self.seq_index, self.seq_count)
         if len(self.dataset) < self.global_batch:
             raise ValueError(
                 f"dataset has {len(self.dataset)} windows < one global "
@@ -129,17 +177,21 @@ class DataLoader:
         """The loader of this rank of ``mesh``: its stripe is its
         coordinate along the policy's batch axes (major first, as the
         sharded step shards the batch), not its rank, so ranks that
-        differ only in ``tensor`` read the same rows."""
+        differ only in ``tensor`` (or ``stage``) read the same rows; under
+        the policy's ``seq_axis`` its coordinate there picks its stripe
+        of the sequence."""
         from dstack_tpu_torch.models.llama import ShardingPolicy
         from dstack_tpu_torch.parallel.mesh import (batch_stripe,
                                                     mesh_coordinate,
                                                     mesh_sizes)
 
         policy = policy or ShardingPolicy()
-        index, count = batch_stripe(mesh_sizes(mesh), mesh_coordinate(mesh),
-                                    policy.batch_axes)
+        sizes, coord = mesh_sizes(mesh), mesh_coordinate(mesh)
+        index, count = batch_stripe(sizes, coord, policy.batch_axes)
+        seq_index, seq_count = _seq_stripe(sizes, coord, policy)
         return cls(dataset, global_batch, process_index=index,
-                   num_processes=count, **kw)
+                   num_processes=count, seq_index=seq_index,
+                   seq_count=seq_count, **kw)
 
     @property
     def local_batch(self) -> int:
@@ -158,7 +210,9 @@ class DataLoader:
         start = within * self.global_batch
         stripe = perm[start + self.process_index * self.local_batch:
                       start + (self.process_index + 1) * self.local_batch]
-        return np.stack([self.dataset.window(int(i)) for i in stripe])
+        cols = seq_slice(self.dataset.seq_len, self.seq_index,
+                         self.seq_count)
+        return np.stack([self.dataset.window(int(i))[cols] for i in stripe])
 
     def _to_device(self, step: int) -> torch.Tensor:
         host = torch.from_numpy(self.host_batch(step))
@@ -170,9 +224,9 @@ class DataLoader:
         return host.to(dev, non_blocking=True)
 
     def batches(self, step: int = 0) -> Iterator[dict]:
-        """Yield ``{"tokens": [local_batch, seq_len + 1]}`` from ``step``
-        on, forever (epochs reshuffle); the next batch's copy is issued
-        before the current one is handed out."""
+        """Yield ``{"tokens": [local_batch, seq_len / seq_count + 1]}``
+        from ``step`` on, forever (epochs reshuffle); the next batch's copy
+        is issued before the current one is handed out."""
         inflight = self._to_device(step)
         while True:
             step += 1

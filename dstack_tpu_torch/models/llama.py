@@ -14,8 +14,11 @@ Under a device mesh the parameters are DTensors placed by
 :func:`param_specs` (FSDP over the contraction dim, tensor parallelism
 over heads and ffn, the batch over ``dcn`` x ``data`` x ``fsdp``), and
 the forward runs on each rank's shards with explicit collectives
-(:mod:`dstack_tpu_torch.parallel.collectives`).  Sequence and pipeline
-parallelism are not ported yet.
+(:mod:`dstack_tpu_torch.parallel.collectives`).  Over ``seq`` each rank
+holds a stripe of the sequence and attention is ring or Ulysses
+(:mod:`dstack_tpu_torch.ops.ring_attention`,
+:mod:`dstack_tpu_torch.ops.ulysses`); over ``stage`` the stacked layers
+run as a GPipe pipeline (:mod:`dstack_tpu_torch.parallel.pipeline`).
 """
 
 from __future__ import annotations
@@ -31,11 +34,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from dstack_tpu_torch.ops import flash_attention as flash
+from dstack_tpu_torch.ops import ulysses
 from dstack_tpu_torch.ops.attention import causal_attention
+from dstack_tpu_torch.ops.ring_attention import ring_attention_sharded
 from dstack_tpu_torch.ops.loss import f32_logits
 from dstack_tpu_torch.ops.rmsnorm import rms_norm
 from dstack_tpu_torch.ops.rotary import RopeScaling, apply_rope, rope_frequencies
 from dstack_tpu_torch.parallel import collectives
+from dstack_tpu_torch.parallel.pipeline import pipeline_layers
 from dstack_tpu_torch.parallel.mesh import (distribute, entry_axes,
                                             mesh_sizes, placements)
 
@@ -116,8 +122,9 @@ class LlamaConfig:
 class ShardingPolicy:
     """How this model maps onto the mesh axes of
     :data:`dstack_tpu_torch.parallel.mesh.AXIS_ORDER` (the JAX package's
-    policy, field for field).  ``seq_axis`` and ``stage_axis`` over an
-    axis of size above 1 raise "not yet ported"."""
+    policy, field for field): ``seq_axis`` shards the sequence (attention
+    by ``seq_scheme``), ``stage_axis`` pipelines the stacked layers in
+    ``num_microbatches`` microbatches (default: the stage count)."""
 
     batch_axes: tuple[str, ...] = ("dcn", "data", "fsdp")
     tensor_axis: Optional[str] = "tensor"
@@ -205,10 +212,12 @@ def init_params(cfg: LlamaConfig, device: Union[str, torch.device],
     one layer at a time and cast into its stacked ``cfg.dtype`` buffer, so
     an 8B model never exists in f32 or on the host.
 
-    ``block(name, shape)``, when given, returns the slices of one (layer's)
-    matrix ``name`` that are kept: every matrix is still drawn whole, in
-    the same order, so the kept blocks are exactly the unsharded init's
-    (a rank's shards under a mesh, see :func:`param_specs`)."""
+    ``block(name, shape)``, when given, returns the slices of leaf
+    ``name`` (its stacked shape, the layer dim first) that are kept:
+    every matrix is still drawn whole, in the same order, so the kept
+    blocks are exactly the unsharded init's (a rank's shards under a
+    mesh, the layers of its pipeline stage among them; see
+    :func:`param_specs`)."""
     d, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
 
     def kept(name, shape):
@@ -217,19 +226,20 @@ def init_params(cfg: LlamaConfig, device: Union[str, torch.device],
         return sl, tuple(s.stop - s.start for s in sl)
 
     def dense(name, shape, fan_in, stacked=True):
-        sl, local = kept(name, shape)
-        out = torch.empty(((n,) if stacked else ()) + local,
-                          dtype=cfg.dtype, device=device)
-        for part in (out if stacked else [out]):
-            part.copy_(torch.randn(shape, generator=generator,
-                                   dtype=torch.float32, device=device)[sl]
-                       * fan_in ** -0.5)
-        return out
+        sl, local = kept(name, ((n,) if stacked else ()) + shape)
+        out = torch.empty(local, dtype=cfg.dtype, device=device)
+        if not stacked:
+            sl, out = (slice(0, 1),) + sl, out[None]
+        for layer in range(n if stacked else 1):
+            m = torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=device)
+            if sl[0].start <= layer < sl[0].stop:
+                out[layer - sl[0].start].copy_(m[sl[1:]] * fan_in ** -0.5)
+        return out if stacked else out[0]
 
     def ones(name, shape, stacked=True):
-        local = kept(name, shape)[1]
-        return torch.ones(((n,) if stacked else ()) + local,
-                          dtype=cfg.dtype, device=device)
+        local = kept(name, ((n,) if stacked else ()) + shape)[1]
+        return torch.ones(local, dtype=cfg.dtype, device=device)
 
     params: Params = {
         "embed": dense("embed", (cfg.vocab_size, d), d, stacked=False),
@@ -412,20 +422,29 @@ class Layout:
     (identity; backward sums over ``tensor``: a column-parallel product
     reads a replicated input) and :meth:`leave` (sum of a row-parallel
     product).  Activations are the rank's batch rows, replicated over
-    ``tensor``.  :attr:`kept` lists the axes a weight may stay sharded
+    ``tensor``, and under ``seq`` its stripe of the sequence: weights are
+    replicated over ``seq``, so their gradients are summed over it as
+    over a batch axis (:attr:`token_axes`).  Under ``stage`` the stacked
+    layer dim stays sharded (each stage runs its own layers,
+    :mod:`dstack_tpu_torch.parallel.pipeline`) and everything else is
+    replicated.  :attr:`kept` lists the axes a weight may stay sharded
     on (a subclass adds its own)."""
 
     def __init__(self, mesh: Any, policy: ShardingPolicy, cfg: LlamaConfig):
         self.mesh, self.policy = mesh, policy
+        self.seq = self.stage = None
         if mesh is None:
             return
         self.sizes = sizes = mesh_sizes(mesh)
-        for what, axis in (("sequence (seq_axis)", policy.seq_axis),
-                           ("pipeline (stage_axis)", policy.stage_axis)):
-            if axis is not None and sizes.get(axis, 1) > 1:
-                raise NotImplementedError(
-                    f"{what} parallelism is not yet ported to "
-                    "dstack_tpu_torch")
+        self.seq, self.stage = (
+            axis if axis is not None and sizes.get(axis, 1) > 1 else None
+            for axis in (policy.seq_axis, policy.stage_axis))
+        if self.seq and self.stage:
+            # the JAX package's refusal: neither context-parallel scheme
+            # has run nested in the pipeline's region
+            raise NotImplementedError(
+                "pipeline (stage) and context (seq) parallelism can't be "
+                "combined yet; drop one of the two axes from the mesh/policy")
         self.batch = [a for a in policy.batch_axes if sizes.get(a, 1) > 1]
         t = policy.tensor_axis
         self.tensor = t if t and sizes.get(t, 1) > 1 else None
@@ -436,10 +455,36 @@ class Layout:
             raise NotImplementedError(
                 f"tensor={tsize} must divide num_heads ({cfg.num_heads}) and "
                 f"num_kv_heads ({cfg.num_kv_heads})")
+        if (self.seq and policy.seq_scheme == "ulysses"
+                and not ulysses.supports(cfg, sizes[self.seq], tsize)):
+            raise ValueError(
+                f"seq_scheme='ulysses' needs num_heads ({cfg.num_heads}) "
+                f"and num_kv_heads ({cfg.num_kv_heads}) divisible by seq x "
+                f"tensor degree; use seq_scheme='ring' instead")
         self.batch_count = math.prod(sizes.get(a, 1)
                                      for a in policy.batch_axes)
+        self.seq_count = sizes[self.seq] if self.seq else 1
+        self.stage_count = sizes[self.stage] if self.stage else 1
         self.tsize = tsize
+        #: the axes the global batch's tokens are spread over: the
+        #: gradient of a weight replicated over them and the loss's sums
+        #: cross them
+        self.token_axes = self.batch + ([self.seq] if self.seq else [])
         self.kept = (self.tensor,)
+
+    def check_stacked(self, stacked: bool) -> None:
+        """Unstacked layers under ``stage`` raise (the JAX package's
+        refusal): the pipeline shards the stacked layer dim."""
+        if self.stage and not stacked:
+            raise NotImplementedError(
+                "pipeline parallelism needs stacked [L, ...] layer weights "
+                "(the stage axis shards the layer dim); don't unstack")
+
+    def positions(self, s: int, device) -> torch.Tensor:
+        """[1, s] global positions of this rank's ``s`` tokens: under
+        ``seq`` rank r's stripe starts at r * s, else at 0."""
+        start = self.mesh.get_local_rank(self.seq) * s if self.seq else 0
+        return start + torch.arange(s, device=device)[None, :]
 
     def weight(self, w: torch.Tensor, spec, whole: bool = False):
         """The weight a rank computes with: gathered over the batch axes
@@ -464,7 +509,7 @@ class Layout:
                                        reduce=a in self.batch)
                 gathered.add(a)
         return collectives.sum_grad(
-            w, self.mesh, [a for a in self.batch if a not in gathered])
+            w, self.mesh, [a for a in self.token_axes if a not in gathered])
 
     def enter(self, h: torch.Tensor) -> torch.Tensor:
         if self.mesh is None or self.tensor is None:
@@ -477,22 +522,29 @@ class Layout:
         return collectives.psum(y, self.mesh, self.tensor)
 
     def attention(self, q, k, v):
-        """The fused kernels: whole, or on this rank's rows and heads
-        through :func:`flash.flash_attention_sharded`."""
+        """Causal attention of this rank's rows, heads and (under ``seq``)
+        stripe: the fused kernels, whole or through
+        :func:`flash.flash_attention_sharded`; under ``seq``, Ulysses or
+        ring attention as the policy's ``seq_scheme`` says."""
         if self.mesh is None:
             return flash.flash_attention(q, k, v)
         p = self.policy
-        spec = (tuple(p.batch_axes), None, p.tensor_axis, None)
+        spec = (tuple(p.batch_axes), self.seq, p.tensor_axis, None)
 
         def dt(x):
             b, s, h, d = x.shape
             return distribute(x, spec, self.mesh,
-                              (b * self.batch_count, s, h * self.tsize, d))
+                              (b * self.batch_count, s * self.seq_count,
+                               h * self.tsize, d))
 
-        out = flash.flash_attention_sharded(
-            self.mesh, dt(q), dt(k), dt(v), batch_axes=p.batch_axes,
-            head_axis=p.tensor_axis)
-        return out.to_local()
+        kw = dict(batch_axes=p.batch_axes, head_axis=p.tensor_axis)
+        if self.seq is None:
+            fn = flash.flash_attention_sharded
+        else:
+            kw["seq_axis"] = self.seq
+            fn = (ulysses.ulysses_attention_sharded
+                  if p.seq_scheme == "ulysses" else ring_attention_sharded)
+        return fn(self.mesh, dt(q), dt(k), dt(v), **kw).to_local()
 
 
 def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
@@ -511,9 +563,12 @@ def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
     return layout.leave(torch.where(valid[..., None], x, 0))
 
 
-def _layer_fn(cfg: LlamaConfig, positions, inv_freqs, use_flash: bool,
+def _layer_fn(cfg: LlamaConfig, positions, inv_freqs, routed: bool,
               keep: Optional[tuple], layout: Layout, specs: dict):
-    """One transformer layer ``(x, lp) -> x``.  The layer is five steps,
+    """One transformer layer ``(x, lp) -> x``; its attention is
+    :meth:`Layout.attention` when ``routed`` (the fused kernels, or ring
+    or Ulysses under ``seq``), else :func:`causal_attention` over
+    ``positions``.  The layer is five steps,
     each making one named tensor (:data:`REMAT_NAMES`); under remat the
     steps between two kept tensors run as one checkpointed region, so the
     backward recomputes exactly what the JAX policy recomputes.  The
@@ -535,7 +590,7 @@ def _layer_fn(cfg: LlamaConfig, positions, inv_freqs, use_flash: bool,
         q, k, v = st.pop("qkv")
         q = apply_rope(q, positions, inv_freqs)
         k = apply_rope(k, positions, inv_freqs)
-        if use_flash:
+        if routed:
             out = layout.attention(q, k, v)
         else:
             out = causal_attention(q, k, v, q_positions=positions,
@@ -604,10 +659,28 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     always divides the batch axes, the JAX package's other condition for
     its fused kernel).  Returns the stripe's hidden states.  FSDP gathers
     each weight inside its layer, tensor parallelism splits heads and ffn
-    (``tensor`` must divide both head counts).  ``seq_axis`` or
-    ``stage_axis`` above 1 raise "not yet ported"."""
+    (``tensor`` must divide both head counts).
+
+    Under ``seq`` the tokens are the stripe of the sequence too (rank r
+    holds positions r * s onwards, RoPE and the mask global), and
+    attention is Ulysses or ring by ``policy.seq_scheme`` (Ulysses runs
+    the fused kernels on the whole sequence of its heads).  Under
+    ``stage`` the stacked layers run through
+    :func:`~dstack_tpu_torch.parallel.pipeline.pipeline_layers` in
+    ``policy.num_microbatches`` microbatches of the rank's rows, and the
+    output is every stage's.  The JAX package's refusals hold: both axes
+    at once, custom ``positions`` under either, unstacked layers under
+    ``stage``, Ulysses with heads that do not split over seq x tensor."""
     keep = remat_names(remat)
     layout = Layout(mesh, policy or ShardingPolicy(), cfg)
+    default_positions = positions is None
+    for axis, what in ((layout.stage, "the pipeline path"),
+                       (layout.seq, "the context-parallel (seq) path")):
+        if axis and not default_positions:
+            # the layer body reads whole-batch, global 0..S-1 positions
+            raise NotImplementedError(
+                f"custom `positions` are not supported on {what} yet; pass "
+                f"positions=None with {axis} parallelism")
     if mesh is not None:
         params = map_with_specs(lambda sp, p: _local(p, sp, mesh),
                                 specs_for(params, cfg, layout.policy), params)
@@ -616,25 +689,35 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     dev = tokens.device
     inv_freqs = torch.from_numpy(rope_frequencies(
         cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(dev)
-    default_positions = positions is None
     if default_positions:
-        positions = torch.arange(s, device=dev)[None, :]
-    use_flash = default_positions and flash.supports(
+        positions = layout.positions(s, dev)
+    use_flash = layout.seq is None and default_positions and flash.supports(
         s, cfg.head_dim, cfg.dtype, group=cfg.num_heads // cfg.num_kv_heads)
     layers = params["layers"]
     stacked = not isinstance(layers, (list, tuple))
+    layout.check_stacked(stacked)
     layer_specs = ({k: tuple(v[1:]) for k, v in specs["layers"].items()}
                    if stacked else specs["layers"][0] if layers else {})
-    layer = _layer_fn(cfg, positions, inv_freqs, use_flash, keep, layout,
+    layer = _layer_fn(cfg, positions, inv_freqs,
+                      use_flash or layout.seq is not None, keep, layout,
                       layer_specs)
 
     x = _embed_lookup(params["embed"].to(cfg.dtype), tokens, layout,
                       specs["embed"])
-    if stacked:
-        layers = [{k: w[l] for k, w in layers.items()}
-                  for l in range(cfg.num_layers)]
-    for lp in layers:
-        x = layer(x, lp)
+    if layout.stage:
+        shapes = init_params(cfg, "meta", None)["layers"]
+        x = pipeline_layers(
+            layer, {k: distribute(w, specs["layers"][k], mesh,
+                                  shapes[k].shape)
+                    for k, w in layers.items()}, x,
+            mesh=mesh, stage_axis=layout.stage,
+            num_microbatches=layout.policy.num_microbatches)
+    else:
+        if stacked:
+            layers = [{k: w[l] for k, w in layers.items()}
+                      for l in range(cfg.num_layers)]
+        for lp in layers:
+            x = layer(x, lp)
     return rms_norm(x, layout.weight(params["final_norm"],
                                      specs["final_norm"]), cfg.rms_eps)
 

@@ -102,20 +102,26 @@ def init_params(cfg: MoEConfig, device: Union[str, torch.device],
     cast into its stacked ``cfg.dtype`` buffer; the router stays f32 (tiny,
     and routing decisions are precision-sensitive).
 
-    ``block(name, shape)``, when given, returns the slices of one layer's
-    ``name`` (an expert stack's shape leads with E) that are kept: every
-    matrix is still drawn whole, in the same order, so the kept blocks are
-    exactly the unsharded init's (a rank's shards under a mesh)."""
+    ``block(name, shape)``, when given, returns the slices of leaf
+    ``name`` (its stacked shape: the layer dim first, then E for an
+    expert stack) that are kept, every layer among them: every matrix is
+    still drawn whole, in the same order, so the kept blocks are exactly
+    the unsharded init's (a rank's shards under a mesh)."""
     d, f, n, e = (cfg.hidden_size, cfg.intermediate_size, cfg.num_layers,
                   cfg.num_experts)
 
-    def kept(name, shape):
-        full = tuple(slice(0, s) for s in shape)
-        sl = full if block is None else block(name, shape)
+    def kept(name, shape, lead):
+        full = tuple(slice(0, s) for s in lead + shape)
+        sl = full if block is None else block(name, lead + shape)
+        if sl[:len(lead)] != full[:len(lead)]:
+            raise NotImplementedError(
+                "MoE layers split over pipeline stages are not yet ported "
+                "to dstack_tpu_torch")
+        sl = sl[len(lead):]
         return sl, tuple(s.stop - s.start for s in sl)
 
     def dense(name, lead, shape, fan_in, dtype=cfg.dtype, experts=False):
-        sl, local = kept(name, ((e,) if experts else ()) + shape)
+        sl, local = kept(name, ((e,) if experts else ()) + shape, lead)
         out = torch.empty(lead + local, dtype=dtype, device=device)
         for part in (out if lead else out[None]):
             for j in range(e if experts else 1):
@@ -128,7 +134,7 @@ def init_params(cfg: MoEConfig, device: Union[str, torch.device],
         return out
 
     def ones(name, lead, shape):
-        return torch.ones(lead + kept(name, shape)[1], dtype=cfg.dtype,
+        return torch.ones(lead + kept(name, shape, lead)[1], dtype=cfg.dtype,
                           device=device)
 
     params: Params = {
@@ -202,6 +208,12 @@ class ExpertLayout(Layout):
     def __init__(self, mesh: Any, policy: ShardingPolicy, cfg: MoEConfig,
                  expert_axis: Optional[str] = None):
         super().__init__(mesh, policy, cfg)
+        if self.seq or self.stage:
+            # the JAX MoE backbone pipelines nothing and keeps its
+            # activations whole over seq
+            raise NotImplementedError(
+                "MoE under sequence (seq) or pipeline (stage) parallelism "
+                "is not yet ported to dstack_tpu_torch")
         self.expert = None
         if mesh is None or not expert_axis or self.sizes.get(
                 expert_axis, 1) == 1:
@@ -568,7 +580,7 @@ def create_state(generator: Union[int, torch.Generator], cfg: MoEConfig,
     sizes, coord = mesh_lib.mesh_sizes(mesh), mesh_lib.mesh_coordinate(mesh)
 
     def block(name, shape):
-        spec = specs[name] if name in specs else specs["layers"][name][1:]
+        spec = specs[name] if name in specs else specs["layers"][name]
         return tuple(slice(a, b) for a, b in
                      mesh_lib.shard_index(spec, shape, sizes, coord))
 

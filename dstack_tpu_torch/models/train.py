@@ -14,11 +14,12 @@ periodic snapshots and flushes one on a preemption notice
 
 Under a ``mesh`` (:mod:`dstack_tpu_torch.parallel.mesh`) and a
 :class:`~dstack_tpu_torch.models.llama.ShardingPolicy` (FSDP x data x
-dcn x tensor) the state is DTensors placed by ``param_specs``, each rank
-feeds its stripe of the global batch, and the loss and gradient norm are
-the global ones.  Not ported yet (each raises "not yet ported"):
-sequence and pipeline parallelism (``seq_axis``, ``stage_axis`` over an
-axis above 1) and ``compile_cache``.
+dcn x tensor, and sequence or pipeline parallelism: ``seq_axis`` with
+ring or Ulysses attention, ``stage_axis`` with GPipe microbatches) the
+state is DTensors placed by ``param_specs``, each rank feeds its stripe
+of the global batch (and under ``seq`` of the sequence), and the loss
+and gradient norm are the global ones.  Not ported yet (raises "not yet
+ported"): ``compile_cache``.
 """
 
 from __future__ import annotations
@@ -205,13 +206,14 @@ def create_state(generator: Union[int, torch.Generator], cfg: LlamaConfig,
         return _fresh_state(llama.init_params(cfg, gen.device, gen),
                             optimizer, unstacked)
     policy = policy or ShardingPolicy()
-    llama.Layout(mesh, policy, cfg)  # refuse what is not ported first
+    # refuse what is not ported first
+    llama.Layout(mesh, policy, cfg).check_stacked(not unstacked)
     gen = _generator_on(generator, _mesh_device(mesh, device))
     specs = llama.param_specs(cfg, policy)
     sizes, coord = mesh_lib.mesh_sizes(mesh), mesh_lib.mesh_coordinate(mesh)
 
     def block(name, shape):
-        spec = specs[name] if name in specs else specs["layers"][name][1:]
+        spec = specs[name] if name in specs else specs["layers"][name]
         return tuple(slice(a, b) for a, b in
                      mesh_lib.shard_index(spec, shape, sizes, coord))
 
@@ -230,7 +232,8 @@ def state_from_params(params: Params, cfg: LlamaConfig, optimizer: AdamW,
     if mesh is None:
         return _fresh_state(params, optimizer, unstacked=False)
     policy = policy or ShardingPolicy()
-    llama.Layout(mesh, policy, cfg)
+    llama.Layout(mesh, policy, cfg).check_stacked(
+        not isinstance(params["layers"], (list, tuple)))
     dev = mesh_lib.mesh_device(mesh)
     local = llama.map_with_specs(
         lambda sp, p: mesh_lib.copy_to(
@@ -308,14 +311,17 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
 
     Under a ``mesh`` the state is :func:`create_state`'s sharded one and
     the batch is this rank's stripe of the global batch
-    (:meth:`dstack_tpu_torch.models.data.DataLoader.on_mesh`); the loss is
-    the mean over the global batch, and the gradients and their norm the
-    global ones."""
+    (:meth:`dstack_tpu_torch.models.data.DataLoader.on_mesh`,
+    :func:`dstack_tpu_torch.models.data.rank_tokens`): its rows, and under
+    ``seq`` its stripe of the sequence, "tokens" [b, S/n + 1] (the last
+    token is the next stripe's first: the targets are shifted before
+    striping) and "mask" [b, S/n]; the loss is the mean over the global
+    batch, and the gradients and their norm the global ones."""
     _not_ported(compile_cache=compile_cache)
     llama.remat_names(remat)  # reject a bad mode before the first step
     if mesh is not None:
         policy = policy or ShardingPolicy()
-        tsize = llama.Layout(mesh, policy, cfg).tsize
+        layout = llama.Layout(mesh, policy, cfg)
 
     def loss_fn(params, batch):
         tokens = batch["tokens"]
@@ -326,21 +332,21 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
             loss = chunked_cross_entropy(x, head, tokens[:, 1:],
                                          batch.get("mask"))
             return loss, {"loss": loss.detach()}
-        # this rank's share of the global mean: its rows' sum over the
+        # this rank's share of the global mean: its tokens' sum over the
         # global count; the weights' collectives sum the gradients
         total, count = chunked_nll_sum(x, head, tokens[:, 1:],
                                        batch.get("mask"))
-        count = all_reduce_sum(count, mesh,
-                               policy.batch_axes).clamp_min(1.0)
+        count = all_reduce_sum(count, mesh, layout.token_axes).clamp_min(1.0)
         return total / count, {
-            "loss": all_reduce_sum(total, mesh, policy.batch_axes) / count}
+            "loss": all_reduce_sum(total, mesh, layout.token_axes) / count}
 
     step = _step_from_loss(loss_fn, optimizer, sharded=mesh is not None)
     if telemetry is None:
         return step
     # each rank times its own stripe; it computes 1/tensor of the model
-    return telemetry.wrap(step, cfg,
-                          n_devices=1 if mesh is None else tsize)
+    # (and of the layers, 1/stage)
+    return telemetry.wrap(step, cfg, n_devices=1 if mesh is None else
+                          layout.tsize * layout.stage_count)
 
 
 def _step_from_loss(loss_fn: Callable[[Params, dict], tuple],
@@ -388,7 +394,7 @@ def state_template(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
         params = llama.unstack_params(params)
     if mesh is not None:
         policy = policy or ShardingPolicy()
-        llama.Layout(mesh, policy, cfg)
+        llama.Layout(mesh, policy, cfg).check_stacked(not unstacked)
         sizes, coord = mesh_lib.mesh_sizes(mesh), mesh_lib.mesh_coordinate(
             mesh)
 

@@ -264,20 +264,10 @@ def flash_attention_sharded(mesh, q, k, v, *,
     placed otherwise).  Each rank runs the same kernels (the plain
     versions on the CPU) on its local shard, so the kernels never see a
     DTensor; the result is a DTensor placed as q."""
-    from torch.distributed.tensor import DTensor
+    from dstack_tpu_torch.parallel.mesh import shard_call
 
-    from dstack_tpu_torch.parallel.mesh import placements
-
-    want = placements((tuple(batch_axes), None, head_axis, None), mesh)
-
-    def local(x):
-        if tuple(x.placements) != want:
-            x = x.redistribute(mesh, want)
-        return x.to_local()
-
-    o = flash_attention(local(q), local(k), local(v))
-    return DTensor.from_local(o, mesh, want, run_check=False, shape=q.shape,
-                              stride=q.stride())
+    return shard_call(flash_attention, mesh,
+                      (tuple(batch_axes), None, head_axis, None), q, k, v)
 
 
 # -- paged decode attention (serving) -----------------------------------------

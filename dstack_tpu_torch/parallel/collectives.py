@@ -15,9 +15,26 @@ them, its whole gradient.
   ``tensor`` for the input of a column-parallel product).
 - :func:`psum` all-reduces, and its backward is the identity (the sum of
   a row-parallel product, whose consumers are replicated).
+- :func:`ppermute` sends a tensor to a neighbour along an axis (``lax.
+  ppermute``: a rank that no pair sends to receives zeros); its backward
+  is the inverse permutation.
+- :func:`all_to_all` is the tiled swap of ``lax.all_to_all`` (split one
+  dim into a part per rank, concatenate the received parts along
+  another); its backward is the inverse swap.
+
+:func:`ppermute` picks its route by the axis group's backend: NCCL
+sends device memory (``batch_isend_irecv``); gloo, whose send and recv
+read a CUDA tensor's device pointer as host memory (on an H100 they fail
+with "Bad address"), gets a copy in host memory and its result is copied
+back.  :func:`all_to_all` is ``all_to_all_single`` under both (gloo
+takes CUDA tensors there, as it does for all-reduce, broadcast and both
+all-gathers; its list ``all_to_all`` does not exist).  Ranks that share
+one card run under gloo.
 
 No DTensor op runs here: DTensor's sharding propagation over the seven
-axes of a mesh costs seconds per new op signature.
+axes of a mesh costs seconds per new op signature.  Each collective runs
+in a ``collective.<name>`` range of ``torch.profiler`` (its host time:
+the whole collective under gloo, the launch under NCCL).
 """
 
 from __future__ import annotations
@@ -26,6 +43,7 @@ from typing import Any, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 # newer torch names the tensor-in, tensor-out collectives *_single
 _all_gather_single = getattr(dist, "all_gather_single",
@@ -38,7 +56,8 @@ def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     shape = list(x.shape)
     out = torch.empty([n * shape[0]] + shape[1:], dtype=x.dtype,
                       device=x.device)
-    _all_gather_single(out, x.contiguous(), group=group)
+    with record_function("collective.all_gather"):
+        _all_gather_single(out, x.contiguous(), group=group)
     if dim == 0:
         return out
     shape[dim] *= n
@@ -50,8 +69,9 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     shape[dim] //= n
     parts = x.reshape(shape[:dim] + [n] + shape[dim:]).movedim(dim, 0)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    _reduce_scatter_single(
-        out, parts.reshape([n * shape[0]] + shape[1:]), group=group)
+    with record_function("collective.reduce_scatter"):
+        _reduce_scatter_single(
+            out, parts.reshape([n * shape[0]] + shape[1:]), group=group)
     return out
 
 
@@ -80,7 +100,8 @@ class _SumGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
+        with record_function("collective.all_reduce"):
+            dist.all_reduce(grad, group=ctx.group)
         return grad, None
 
 
@@ -88,12 +109,66 @@ class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
+        with record_function("collective.all_reduce"):
+            dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+def _permute(x: torch.Tensor, group, pairs, index: int) -> torch.Tensor:
+    """What this rank (``index`` on the axis of ``group``) receives when
+    every ``(src, dst)`` of ``pairs`` sends its ``x``: zeros when no pair
+    sends to it.  Under gloo through host memory."""
+    host = dist.get_backend(group) != "nccl"
+    send = x.contiguous()
+    if host:
+        send = send.cpu()
+    recv = torch.zeros_like(send)
+    ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, d),
+                      group=group) for s, d in pairs if s == index]
+    ops += [dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, s),
+                       group=group) for s, d in pairs if d == index]
+    with record_function("collective.ppermute"):
+        for req in dist.batch_isend_irecv(ops) if ops else ():
+            req.wait()
+    return recv.to(x.device) if host else recv
+
+
+def _swap(x: torch.Tensor, group, n: int, split_dim: int,
+          concat_dim: int) -> torch.Tensor:
+    """``x`` split along ``split_dim`` into ``n`` parts, part j sent to
+    rank j of the group, and the parts received concatenated along
+    ``concat_dim`` in rank order."""
+    send = torch.stack(x.chunk(n, split_dim))
+    recv = torch.empty_like(send)
+    with record_function("collective.all_to_all"):
+        dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, pairs, index):
+        ctx.args = (group, [(d, s) for s, d in pairs], index)
+        return _permute(x, group, pairs, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _permute(grad, *ctx.args), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, split_dim, concat_dim):
+        ctx.args = (group, n, concat_dim, split_dim)
+        return _swap(x, group, n, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _swap(grad, *ctx.args), None, None, None, None
 
 
 def gather(x: torch.Tensor, dim: int, mesh: Any, axis: str,
@@ -121,6 +196,42 @@ def psum(x: torch.Tensor, mesh: Any, axis: str) -> torch.Tensor:
     if mesh.size(mesh.mesh_dim_names.index(axis)) == 1:
         return x
     return _Psum.apply(x, mesh.get_group(axis))
+
+
+def ppermute(x: torch.Tensor, mesh: Any, axis: str,
+             perm: Sequence[tuple]) -> torch.Tensor:
+    """What this rank receives when each ``(src, dst)`` of ``perm``
+    (indices along ``axis``) sends its ``x`` to ``dst``; zeros where no
+    pair sends (``lax.ppermute``).  The backward sends each gradient back
+    along the inverse pairs."""
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    pairs = [(int(s), int(d)) for s, d in perm]
+    for pair in pairs:
+        if not all(0 <= i < n for i in pair):
+            raise ValueError(f"ppermute pair {pair} is not on an axis of {n}")
+    for side in (0, 1):
+        if len({p[side] for p in pairs}) != len(pairs):
+            raise ValueError(f"ppermute pairs {pairs} are no permutation")
+    if n == 1:
+        return x if (0, 0) in pairs else torch.zeros_like(x)
+    return _Ppermute.apply(x, mesh.get_group(axis), pairs,
+                           mesh.get_local_rank(axis))
+
+
+def all_to_all(x: torch.Tensor, mesh: Any, axis: str, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all over ``axis`` (``lax.all_to_all(tiled=True)``):
+    ``x`` split along ``split_dim`` into one part per rank, part j sent to
+    rank j, the received parts concatenated along ``concat_dim`` in rank
+    order.  ``x.shape[split_dim]`` must divide by the axis size.  The
+    backward is the inverse swap."""
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    if n == 1:
+        return x
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    return _AllToAll.apply(x, mesh.get_group(axis), n, split_dim, concat_dim)
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: Any, axes: Sequence[str]

@@ -7,12 +7,15 @@ card, see :mod:`dstack_tpu_torch.parallel.distributed`) onto a
 the same order:
 
 - ``dcn``    — data parallelism across slices (slowest-varying);
-- ``stage``  — pipeline parallelism (not ported: a size above 1 raises);
+- ``stage``  — pipeline parallelism (stacked layers split into contiguous
+               runs, one a stage: ``parallel/pipeline.py``);
 - ``data``   — pure data parallelism;
 - ``fsdp``   — fully-sharded data parallelism (params and moments sharded,
                gathered per layer);
 - ``expert`` — expert parallelism (MoE experts; activations replicated);
-- ``seq``    — sequence parallelism (not ported: a size above 1 raises);
+- ``seq``    — sequence (context) parallelism: each rank holds a stripe
+               of the sequence (``ops/ring_attention.py``,
+               ``ops/ulysses.py``);
 - ``tensor`` — tensor parallelism over heads and the ffn (fastest-varying,
                so it sits on adjacent ranks).
 
@@ -278,6 +281,25 @@ def distribute(local: torch.Tensor, spec: Spec, mesh: Any,
     stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
     return DTensor.from_local(local, mesh, placements(spec, mesh),
                               run_check=False, shape=shape, stride=stride)
+
+
+def shard_call(fn, mesh: Any, spec: Spec, *xs):
+    """``fn`` on the local shards of DTensors ``xs``, each placed by
+    ``spec`` first (redistributed when placed otherwise): the result is a
+    DTensor placed by ``spec`` with the first input's global shape.  The
+    per-rank body of the JAX package's ``shard_map`` wrappers."""
+    from torch.distributed.tensor import DTensor
+
+    want = placements(spec, mesh)
+
+    def local(x):
+        if tuple(x.placements) != want:
+            x = x.redistribute(mesh, want)
+        return x.to_local()
+
+    out = fn(*(local(x) for x in xs))
+    return DTensor.from_local(out, mesh, want, run_check=False,
+                              shape=xs[0].shape, stride=xs[0].stride())
 
 
 def batch_stripe(sizes: dict[str, int], coord: dict[str, int],

@@ -600,7 +600,8 @@ class InferenceEngine:
                 f"expert-parallel serving needs num_experts "
                 f"({cfg.num_experts}) divisible by the expert mesh degree "
                 f"({e})")
-        over = [a for a in (*policy.batch_axes, policy.fsdp_axis)
+        over = [a for a in (*policy.batch_axes, policy.fsdp_axis,
+                            policy.seq_axis, policy.stage_axis)
                 if a and sizes.get(a, 1) > 1]
         if over:
             raise NotImplementedError(
@@ -635,8 +636,10 @@ class InferenceEngine:
         coord = mesh_lib.mesh_coordinate(self.mesh)
 
         def block(name, shape):
+            spec = (self._specs[name] if name in self._specs
+                    else self._specs["layers"][name])
             return tuple(slice(a, b) for a, b in mesh_lib.shard_index(
-                self._leaf_spec(name), shape, self._sizes, coord))
+                tuple(spec), shape, self._sizes, coord))
         return block
 
     def _local_blocks(self, params: Params) -> Params:

@@ -300,16 +300,35 @@ def test_placements_follow_the_mesh_order():
 
 
 def test_the_sharded_forward_refuses_what_is_not_ported():
-    """seq and stage above 1 raise "not yet ported" (sizes of 1 run the
-    sharded path), and a tensor degree must divide both head counts."""
+    """What stays refused are the JAX package's own refusals, with its
+    messages: seq together with stage, custom positions under either,
+    unstacked layers under stage, Ulysses with heads that do not split
+    over seq x tensor; and a tensor degree must divide both head counts
+    (sizes of 1 run the sharded path)."""
     cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
     tokens = torch.zeros((1, 8), dtype=torch.long)
-    for sizes, policy in ((dict(seq=2), dict(seq_axis="seq")),
-                          (dict(stage=2), dict(stage_axis="stage"))):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            llama.backbone({}, tokens, cfg,
+    stacked = llama.init_params(cfg, "meta", None)
+    seq, stage = (llama.ShardingPolicy(seq_axis="seq"),
+                  llama.ShardingPolicy(stage_axis="stage"))
+    with pytest.raises(NotImplementedError, match="can't be combined"):
+        llama.backbone(stacked, tokens, cfg,
+                       mesh=_Mesh(mesh_lib.MeshSpec(seq=2, stage=2)),
+                       policy=llama.ShardingPolicy(seq_axis="seq",
+                                                   stage_axis="stage"))
+    for sizes, policy in ((dict(seq=2), seq), (dict(stage=2), stage)):
+        with pytest.raises(NotImplementedError, match="custom `positions`"):
+            llama.backbone(stacked, tokens, cfg,
                            mesh=_Mesh(mesh_lib.MeshSpec(**sizes)),
-                           policy=llama.ShardingPolicy(**policy))
+                           policy=policy, positions=tokens)
+    with pytest.raises(NotImplementedError, match="stacked"):
+        llama.backbone(llama.unstack_params(stacked), tokens, cfg,
+                       mesh=_Mesh(mesh_lib.MeshSpec(stage=2)), policy=stage)
+    for sizes in (dict(seq=8), dict(seq=2, tensor=4)):
+        with pytest.raises(ValueError, match="seq_scheme='ulysses'"):
+            llama.backbone(stacked, tokens, cfg,
+                           mesh=_Mesh(mesh_lib.MeshSpec(**sizes)),
+                           policy=llama.ShardingPolicy(
+                               seq_axis="seq", seq_scheme="ulysses"))
     with pytest.raises(NotImplementedError, match="num_kv_heads"):
         llama.backbone({}, tokens, cfg,
                        mesh=_Mesh(mesh_lib.MeshSpec(tensor=8)))

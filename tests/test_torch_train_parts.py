@@ -215,25 +215,50 @@ class _MeshShape:
 
 
 def test_not_yet_ported_arguments_raise():
-    """Sequence and pipeline parallelism (an axis above 1) and a compile
-    cache are refused by every entry point; remat names must be the
-    layer's."""
+    """Every entry point refuses what stays refused: the JAX package's own
+    refusals (seq together with stage; unstacked layers under stage;
+    Ulysses with heads that do not split over seq x tensor), MoE under
+    seq or stage, and a compile cache; remat names must be the layer's."""
+    from dstack_tpu_torch.models import moe
+
     cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
     opt = train.default_optimizer()
     tokens = torch.zeros((1, 8), dtype=torch.long)
+    both = {"mesh": _MeshShape(seq=2, stage=2), "policy":
+            llama.ShardingPolicy(seq_axis="seq", stage_axis="stage")}
+    ulysses = {"mesh": _MeshShape(seq=8), "policy": llama.ShardingPolicy(
+        seq_axis="seq", seq_scheme="ulysses")}
+    for kw, err, match in ((both, NotImplementedError, "can't be combined"),
+                           (ulysses, ValueError, "seq_scheme='ulysses'")):
+        with pytest.raises(err, match=match):
+            train.make_train_step(cfg, opt, **kw)
+        with pytest.raises(err, match=match):
+            train.run_train_loop(cfg, opt, lambda s: None, steps=1,
+                                 generator=torch.Generator(), **kw)
+        with pytest.raises(err, match=match):
+            train.state_template(cfg, opt, **kw)
+        with pytest.raises(err, match=match):
+            llama.backbone({}, tokens, cfg, **kw)
+    stage = {"mesh": _MeshShape(stage=2),
+             "policy": llama.ShardingPolicy(stage_axis="stage")}
+    with pytest.raises(NotImplementedError, match="stacked"):
+        train.create_state(0, cfg, opt, unstacked=True, **stage)
+    with pytest.raises(NotImplementedError, match="stacked"):
+        train.state_template(cfg, opt, unstacked=True, **stage)
+    with pytest.raises(NotImplementedError, match="stacked"):
+        train.run_train_loop(cfg, opt, lambda s: None, steps=1,
+                             generator=0, unstacked=True, **stage)
+    moe_cfg = moe.MoEConfig.tiny_moe(dtype=torch.float32)
     for mesh, policy in ((_MeshShape(seq=2), llama.ShardingPolicy(
             seq_axis="seq")), (_MeshShape(stage=2), llama.ShardingPolicy(
                 stage_axis="stage"))):
         kw = {"mesh": mesh, "policy": policy}
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            train.make_train_step(cfg, opt, **kw)
+            moe.make_train_step(moe_cfg, opt, **kw)
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            train.run_train_loop(cfg, opt, lambda s: None, steps=1,
-                                 generator=torch.Generator(), **kw)
+            moe.create_state(0, moe_cfg, opt, device="cpu", **kw)
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            train.state_template(cfg, opt, **kw)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            llama.backbone({}, tokens, cfg, **kw)
+            moe.backbone({"layers": {}}, tokens, moe_cfg, **kw)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         train.make_train_step(cfg, opt, compile_cache=object())
     for remat in ("sometimes", ("qkv", "logits")):
