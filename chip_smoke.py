@@ -208,6 +208,29 @@ Phases (any failure stops the run with a non-zero exit and no result):
              memory under gloo.  context_pipeline_phase(torch,
              backend="nccl", ranks=4) runs the same at seq=4 and stage=4,
              a card a rank.
+15. elastic — a replica's cold start (dstack_tpu_torch/elastic/),
+             Llama-3.2-1B at full width and depth (bf16, paged), each
+             replica a `python -m dstack_tpu_torch.serving.server`
+             process: seeder A (weights from seed 5, published as a
+             snapshot, --compile-cache) warms and puts its paged-decode
+             library into its cache root; joiner B, from a copy of the
+             package with an empty build/ and another seed, pulls A's
+             weights and library (--weight-peers, --compile-cache-peers)
+             as a --standby; cold replica C the same without a cache
+             peer.  Fails unless B reports warming on /load and answers
+             503 until POST /elastic/standby/activate, B ran no nvcc
+             (compile_cache_misses 0, a peer hit) and C exactly one, B's
+             and C's weights came from A and their greedy tokens are A's,
+             and every replica launched K5 exactly layers x decode steps.
+             Then two trainer processes (the 1B at 2 layers, b1 s1024)
+             through one cache root: T1 from the checkout (hits 2, puts
+             2), T2 from a copy with an empty build/ (misses 0, hits 2),
+             each step's loss within 1e-3 of the same step in process and
+             K3/K4 launched once a layer.  Prints the snapshot's bytes and
+             write seconds, the pull's GB/s (timed in process), each
+             replica's seconds from start to ready, B's and C's TTFT
+             right after activation and each library's resolve seconds
+             (C's: the nvcc leg).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; exits non-zero without
@@ -3921,6 +3944,347 @@ def context_pipeline_phase(torch, small: bool = False, device: str = "cuda",
     return out
 
 
+# -- phase 15: replica cold start -------------------------------------------
+
+#: phase 15: Llama-3.2-1B (full width and depth, bf16, paged) served by a
+#: seeder A (weights from ELASTIC_SEED), a standby joiner B and a cold
+#: replica C, each started as a user starts a replica; then two trainer
+#: processes at ELASTIC_TRAIN_LAYERS layers (b1 s1024, no remat) through
+#: one compile cache root
+ELASTIC_SEED = 5
+ELASTIC_DECODE_TOKENS = 32
+ELASTIC_TRAIN_LAYERS = 2
+ELASTIC_TRAIN_SEQ = 1024
+#: a replica's start (weights pulled and read, nvcc or a fetch, one
+#: warmup request) and a trainer's step, each at most
+ELASTIC_TIMEOUT_S = 600
+#: a trainer process's loss against the same step in this process
+ELASTIC_LOSS_RTOL = 1e-3
+
+
+def port_copy(dest: Path) -> Path:
+    """A copy of the checkout's package and this script, without build/:
+    a process started from it finds no kernel library and fills its own
+    build/ (``_build.BUILD_DIR`` follows the package's files)."""
+    import shutil
+
+    shutil.copytree(ROOT / "dstack_tpu_torch", dest / "dstack_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    shutil.copy2(ROOT / "chip_smoke.py", dest / "chip_smoke.py")
+    return dest
+
+
+class Replica:
+    """A phase-15 server: ``python -m dstack_tpu_torch.serving.server``
+    serving Llama-3.2-1B paged from ``root`` (a checkout or a
+    :func:`port_copy`), its output in ``work/<name>.log``."""
+
+    def __init__(self, root: Path, name: str, args: list, work: Path,
+                 config: str = "llama3-1b", device: str = "cuda"):
+        self.name, self.log_path = name, work / f"{name}.log"
+        port = free_port()
+        self.base = f"http://127.0.0.1:{port}"
+        cmd = [sys.executable, "-m", "dstack_tpu_torch.serving.server",
+               "--config", config, "--device", device, "--paged",
+               "--batch-size", "8", "--max-len", "1024", "--port", str(port),
+               *args]
+        log(f"elastic: replica {name}: " + " ".join(cmd[1:]))
+        env = dict(os.environ, PYTHONPATH=str(root))
+        self.t0 = time.time()
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=out,
+                                         stderr=subprocess.STDOUT)
+
+    def wait_ready(self) -> float:
+        """Seconds from the process's start until it answers and is no
+        longer warming (a standby is then ready to activate)."""
+        while True:
+            if self.proc.poll() is not None:
+                fail(f"elastic: replica {self.name} exited with "
+                     f"{self.proc.returncode}:\n{self.tail()}")
+            try:
+                status, body, _ = http(self.base + "/elastic/standby",
+                                       timeout=5)
+                if status == 200 and not json.loads(body)["warming"]:
+                    return time.time() - self.t0
+            except OSError:
+                pass
+            if time.time() - self.t0 > ELASTIC_TIMEOUT_S:
+                fail(f"elastic: replica {self.name} not ready within "
+                     f"{ELASTIC_TIMEOUT_S} s:\n{self.tail()}")
+            time.sleep(0.05)
+
+    def stats(self) -> dict:
+        return json.loads(http(self.base + "/stats")[1])
+
+    def tail(self) -> str:
+        return self.log_path.read_text()[-4000:]
+
+    def close(self) -> None:
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def greedy_tokens(base: str, label: str) -> list:
+    status, body, _ = http(base + "/v1/completions", {
+        "prompt": PROMPT.format(i=0), "max_tokens": ELASTIC_DECODE_TOKENS,
+        "return_token_ids": True})
+    if status != 200:
+        fail(f"elastic: {label} completion answered {status}: {body[:200]}")
+    return json.loads(body)["choices"][0]["token_ids"]
+
+
+def check_k5_launches(label: str, stats: dict) -> int:
+    """The replica's paged-decode launches: exactly layers x decode
+    steps, and some."""
+    launches = stats["kernels"]["paged_decode_attention"]["launches"]
+    want = stats["num_layers"] * stats["decode_steps"]
+    if launches != want or launches <= 0:
+        fail(f"elastic: {label} launched the paged-decode kernel {launches} "
+             f"times, expected {stats['num_layers']} layers x "
+             f"{stats['decode_steps']} decode steps")
+    return launches
+
+
+def check_counters(label: str, stats: dict, at_least=(), **want) -> dict:
+    """The replica's compile-cache counters: each of ``want`` equal, each
+    of ``at_least`` at least 1."""
+    cache = stats["compile_cache"]
+    for name, value in [*want.items(), *((n, None) for n in at_least)]:
+        got = cache[f"compile_cache_{name}"]
+        if got < 1 if value is None else got != value:
+            fail(f"elastic: {label} compile_cache_{name} {got}, expected "
+                 f"{'>= 1' if value is None else value}: {cache} "
+                 f"{stats.get('compile_cache_resolved')}")
+    return cache
+
+
+def elastic_train_step(torch, compile_cache=None,
+                       device: str = "cuda") -> dict:
+    """One step of the 1B trainer at ELASTIC_TRAIN_LAYERS layers (b1 s1024,
+    seed ELASTIC_SEED) through ``make_train_step(compile_cache=)``; on the
+    CPU (a rehearsal) the tiny config at s64."""
+    from dstack_tpu_torch.models import train
+    from dstack_tpu_torch.models.llama import LlamaConfig
+    from dstack_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(
+        LlamaConfig.llama3_1b() if device == "cuda" else LlamaConfig.tiny(),
+        num_layers=ELASTIC_TRAIN_LAYERS)
+    seq = ELASTIC_TRAIN_SEQ if device == "cuda" else 64
+    gen = torch.Generator(device=device).manual_seed(ELASTIC_SEED)
+    opt = train.default_optimizer()
+    state = train.create_state(gen, cfg, opt, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq + 1), generator=gen,
+                           device=device, dtype=torch.int32)
+    step_fn = train.make_train_step(cfg, opt, remat=False,
+                                    compile_cache=compile_cache)
+    fa.flash_attention.fwd_launches = fa.flash_attention.bwd_launches = 0
+    t = time.time()
+    _, metrics = step_fn(state, {"tokens": tokens})
+    loss = metrics["loss"].item()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"loss": loss, "first_step_s": time.time() - t,
+            "fwd_launches": fa.flash_attention.fwd_launches,
+            "bwd_launches": fa.flash_attention.bwd_launches,
+            "source": getattr(step_fn, "source", None)}
+
+
+def elastic_train_rank(torch, out_path: str, cache_root: str,
+                       device: str = "cuda") -> None:
+    """A phase-15 trainer process (``chip_smoke.py --elastic-train OUT
+    ROOT [DEVICE]``): one step through a CompileCache over
+    ``cache_root``; writes the step's numbers and the cache's counters to
+    ``out_path``."""
+    from dstack_tpu_torch.elastic import CompileCache
+    from dstack_tpu_torch.ops import _build
+
+    cache = CompileCache(cache_root)
+    built = sorted(p.name for p in _build.BUILD_DIR.glob("*.so"))
+    out = elastic_train_step(torch, cache, device)
+    out.update(cache.snapshot(), resolved=cache.resolved,
+               build_dir=str(_build.BUILD_DIR), built_before=built)
+    Path(out_path).write_text(json.dumps(out))
+
+
+def elastic_trainer(root: Path, out: Path, cache_root: Path,
+                    device: str) -> dict:
+    cmd = [sys.executable, str(root / "chip_smoke.py"), "--elastic-train",
+           str(out), str(cache_root), device]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t = time.time()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=ELASTIC_TIMEOUT_S)
+    if proc.returncode != 0:
+        fail(f"elastic: trainer from {root} exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return {**json.loads(out.read_text()), "process_s": time.time() - t}
+
+
+def elastic_phase(torch, config: str = "llama3-1b",
+                  device: str = "cuda") -> dict:
+    """Phase 15: a replica's cold start through dstack_tpu_torch/elastic/,
+    each replica a server process as a user starts one.
+
+    (a) Seeder A serves Llama-3.2-1B from seed ELASTIC_SEED with that
+    seed's weights published as a snapshot (--snapshot-dir) and a compile
+    cache root: it warms, and its paged-decode library (in the checkout's
+    build/) goes into the root.  The weight pull's GB/s is timed in this
+    process.  (b) Joiner B runs from a copy of the package with an empty
+    build/, another seed, --weight-peers A, --compile-cache-peers A and
+    --standby: it must be warming on /load and refuse /v1 until
+    activated, run no nvcc (misses 0, a peer hit), serve A's greedy
+    tokens, and launch K5 layers x decode steps.  (c) Cold replica C: the
+    same, but no compile-cache peer and an empty root: exactly one nvcc
+    run.  (d) Two trainer processes through one cache root: T1 from the
+    checkout (its build/ has the flash libraries: hits 2, puts 2), T2
+    from a copy with an empty build/ (misses 0, hits 2); each one step's
+    loss within ELASTIC_LOSS_RTOL of the same step in this process.
+    Every server is stopped before this returns.  ``config="tiny",
+    device="cpu"`` rehearses the flow on the CPU (with ``fail`` patched:
+    a CPU replica resolves no library, so the counters' checks fail
+    there by design)."""
+    import shutil
+    import tempfile
+
+    from dstack_tpu_torch.elastic import pull_weights
+    from dstack_tpu_torch.models import checkpoint, llama
+    from dstack_tpu_torch.models.llama import LlamaConfig
+
+    cfg = {"llama3-1b": LlamaConfig.llama3_1b, "tiny": LlamaConfig.tiny}[
+        config]()
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-elastic-"))
+    replicas = []
+    out = {}
+    try:
+        gen = torch.Generator(device=device).manual_seed(ELASTIC_SEED)
+        params = llama.init_params(cfg, device, gen)
+        t = time.time()
+        snap = checkpoint.snapshot_train_state(params)
+        del params
+        checkpoint.write_snapshot(work / "sa", snap, 0)
+        out["snapshot_bytes"] = checkpoint.snapshot_nbytes(snap)
+        out["snapshot_write_s"] = time.time() - t
+        del snap
+
+        a = Replica(ROOT, "a", [
+            "--seed", str(ELASTIC_SEED), "--snapshot-dir", str(work / "sa"),
+            "--compile-cache", str(work / "ca")], work, config, device)
+        replicas.append(a)
+        out["a_ready_s"] = a.wait_ready()
+        a_stats = a.stats()
+        check_counters("seeder A", a_stats, hits=1, puts=1, misses=0)
+        want = greedy_tokens(a.base, "seeder A")
+
+        t = time.time()
+        pulled = pull_weights([a.base], work / "pulled")
+        pull_s = time.time() - t
+        if pulled["source"] != "peer":
+            fail(f"elastic: the timed pull did not come from A: {pulled}")
+        pull_bytes = sum(p.stat().st_size for p in
+                         (work / "pulled").glob("step_*/host_*.npz"))
+        out.update(pull_bytes=pull_bytes, pull_s=pull_s,
+                   pull_gb_per_s=pull_bytes / pull_s / 1e9)
+        shutil.rmtree(work / "pulled")
+
+        for name, extra in (
+                ("b", ["--compile-cache-peers", a.base]), ("c", [])):
+            seed = ELASTIC_SEED + (1 if name == "b" else 2)
+            r = Replica(port_copy(work / f"{name}-root"), name, [
+                "--seed", str(seed), "--snapshot-dir", str(work / f"s{name}"),
+                "--weight-peers", a.base,
+                "--compile-cache", str(work / f"c{name}"), "--standby",
+                *extra], work, config, device)
+            replicas.append(r)
+            ready = r.wait_ready()
+            status, body, _ = http(r.base + "/load")
+            if status != 200 or json.loads(body)["warming"] != 1:
+                fail(f"elastic: standby {name} /load: {status} {body[:200]}")
+            status = http(r.base + "/v1/completions",
+                          {"prompt": "x", "max_tokens": 1})[0]
+            if status != 503:
+                fail(f"elastic: standby {name} answered {status} to /v1 "
+                     "before activation")
+            status, body, _ = http(r.base + "/elastic/standby/activate", {})
+            if status != 200 or not json.loads(body)["activated"]:
+                fail(f"elastic: activating {name}: {status} {body[:200]}")
+            t = time.time()
+            status = http(r.base + "/v1/completions",
+                          {"prompt": PROMPT.format(i=1), "max_tokens": 1})[0]
+            ttft = time.time() - t
+            if status != 200:
+                fail(f"elastic: {name}'s first request answered {status}")
+            got = greedy_tokens(r.base, name)
+            if got != want:
+                fail(f"elastic: {name}'s greedy tokens {got} are not A's "
+                     f"{want}")
+            stats = r.stats()
+            pull = stats.get("weight_pull") or {}
+            if pull.get("source") != "peer" or pull.get("peer") != a.base:
+                fail(f"elastic: {name}'s weights did not come from A: {pull}")
+            if name == "b":
+                cache = check_counters("joiner B", stats, misses=0,
+                                       at_least=("peer_hits",))
+            else:
+                cache = check_counters("cold C", stats, misses=1)
+            out[name] = {"ready_s": ready, "ttft_s": ttft,
+                         "compile_cache": cache,
+                         "resolved": stats["compile_cache_resolved"],
+                         "launches": check_k5_launches(name, stats),
+                         "decode_steps": stats["decode_steps"]}
+            r.close()
+        out["a_launches"] = check_k5_launches("seeder A", a.stats())
+        out["nvcc_leg_s"] = out["c"]["ready_s"] - out["b"]["ready_s"]
+        out["launches"] = (out["a_launches"] + out["b"]["launches"]
+                           + out["c"]["launches"])
+
+        ref = elastic_train_step(torch, device=device)
+        trainers = {
+            "t1": elastic_trainer(ROOT, work / "t1.json", work / "ct",
+                                  device),
+            "t2": elastic_trainer(port_copy(work / "t2-root"),
+                                  work / "t2.json", work / "ct", device)}
+        want_counts = {"t1": {"hits": 2, "puts": 2, "misses": 0},
+                       "t2": {"hits": 2, "misses": 0}}
+        for name, run in trainers.items():
+            for key, value in want_counts[name].items():
+                if run[f"compile_cache_{key}"] != value:
+                    fail(f"elastic: trainer {name} compile_cache_{key} "
+                         f"{run[f'compile_cache_{key}']}, expected {value}: "
+                         f"{run}")
+            layers = ELASTIC_TRAIN_LAYERS
+            if (run["fwd_launches"], run["bwd_launches"]) != (layers, layers):
+                fail(f"elastic: trainer {name} flash launches "
+                     f"{run['fwd_launches']}/{run['bwd_launches']}, expected "
+                     f"{layers} each")
+            rel = abs(run["loss"] - ref["loss"]) / abs(ref["loss"])
+            run["loss_rel_err"] = rel
+            if not (math.isfinite(run["loss"]) and rel <= ELASTIC_LOSS_RTOL):
+                fail(f"elastic: trainer {name} loss {run['loss']} vs "
+                     f"{ref['loss']} in process (rel {rel:.2e})")
+        if trainers["t2"]["built_before"]:
+            fail(f"elastic: T2's build/ was not empty: {trainers['t2']}")
+        out["train_ref"] = ref
+        out["trainers"] = trainers
+        out["fwd_launches"] = sum(r["fwd_launches"] for r in trainers.values())
+        out["bwd_launches"] = sum(r["bwd_launches"] for r in trainers.values())
+    except BaseException:
+        for r in replicas:
+            log(f"elastic: replica {r.name} log (tail):\n{r.tail()}")
+        raise
+    finally:
+        for r in replicas:
+            r.close()
+        shutil.rmtree(work, ignore_errors=True)
+    log("elastic: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3928,6 +4292,12 @@ def main() -> int:
         # a rank of phase 14: its spec names the device
         sys.path.insert(0, str(ROOT))
         cp_rank(torch, *sys.argv[2:4])
+        return 0
+
+    if sys.argv[1:2] == ["--elastic-train"]:
+        # a trainer of phase 15 (its device is its third argument)
+        sys.path.insert(0, str(ROOT))
+        elastic_train_rank(torch, *sys.argv[2:5])
         return 0
 
     if not torch.cuda.is_available():
@@ -4036,6 +4406,12 @@ def main() -> int:
         for i, way in enumerate(("fwd", "bwd")):
             kernels[f"flash_attention_{way}[{row}]"]["launches"] += sum(
                 r[i] for r in context[name]["rank_launches"])
+    elastic = elastic_phase(torch)
+    kernels["paged_decode_attention[bf16,llama3-1b]"]["launches"] += \
+        elastic["launches"]
+    for way in ("fwd", "bwd"):
+        kernels[f"flash_attention_{way}[llama3-1b,D=64]"]["launches"] += \
+            elastic[f"{way}_launches"]
     for k in kernels.values():
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on its path")
@@ -4094,6 +4470,16 @@ def main() -> int:
             "unsharded", "sharded", "loss_rel_err", "grad_norm_rel_err",
             "rank_max_memory_gb", "rank_launches")}
         for name, run in context.items()}}))
+    log("elastic summary: " + json.dumps({"card": card, **{
+        k: elastic[k] for k in (
+            "snapshot_bytes", "snapshot_write_s", "a_ready_s", "pull_bytes",
+            "pull_s", "pull_gb_per_s", "nvcc_leg_s", "a_launches")},
+        **{name: elastic[name] for name in ("b", "c")},
+        "trainers": {name: {k: run[k] for k in (
+            "loss", "loss_rel_err", "first_step_s", "process_s",
+            "compile_cache_hits", "compile_cache_misses",
+            "compile_cache_puts", "resolved")}
+            for name, run in elastic["trainers"].items()}}))
     # again here, so that the end of a long log still says which card
     log(f"card: {card}")
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -18,8 +18,7 @@ dcn x tensor, and sequence or pipeline parallelism: ``seq_axis`` with
 ring or Ulysses attention, ``stage_axis`` with GPipe microbatches) the
 state is DTensors placed by ``param_specs``, each rank feeds its stripe
 of the global batch (and under ``seq`` of the sequence), and the loss
-and gradient norm are the global ones.  Not ported yet (raises "not yet
-ported"): ``compile_cache``.
+and gradient norm are the global ones.
 """
 
 from __future__ import annotations
@@ -143,13 +142,6 @@ class AdamW:
 def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
                       grad_clip: float = 1.0) -> AdamW:
     return AdamW(lr=lr, weight_decay=weight_decay, grad_clip=grad_clip)
-
-
-def _not_ported(**kw) -> None:
-    given = [name for name, value in kw.items() if value is not None]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: not yet ported to dstack_tpu_torch")
 
 
 def _generator_on(generator: Union[int, torch.Generator],
@@ -316,8 +308,21 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
     ``seq`` its stripe of the sequence, "tokens" [b, S/n + 1] (the last
     token is the next stripe's first: the targets are shifted before
     striping) and "mask" [b, S/n]; the loss is the mean over the global
-    batch, and the gradients and their norm the global ones."""
-    _not_ported(compile_cache=compile_cache)
+    batch, and the gradients and their norm the global ones.
+
+    ``compile_cache``: a :class:`dstack_tpu_torch.elastic.compile_cache.
+    CompileCache` through which the first step on CUDA makes the flash
+    kernels' libraries present (fetched from the root or a peer instead
+    of built by nvcc where it can).  Defaults to the env-configured cache
+    (``DSTACK_COMPILE_CACHE``); unset → the libraries are built at first
+    launch."""
+    # here, not at the top: elastic/ imports the checkpoints, which
+    # import this module
+    from dstack_tpu_torch.elastic.compile_cache import (CompileCache,
+                                                        maybe_cached)
+
+    if compile_cache is None:
+        compile_cache = CompileCache.from_env()
     llama.remat_names(remat)  # reject a bad mode before the first step
     if mesh is not None:
         policy = policy or ShardingPolicy()
@@ -340,7 +345,10 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
         return total / count, {
             "loss": all_reduce_sum(total, mesh, layout.token_axes) / count}
 
-    step = _step_from_loss(loss_fn, optimizer, sharded=mesh is not None)
+    step = maybe_cached(
+        _step_from_loss(loss_fn, optimizer, sharded=mesh is not None),
+        compile_cache, tag="train_step", kernels=("flash_fwd", "flash_bwd"),
+        needs=lambda state, batch: batch["tokens"].device.type == "cuda")
     if telemetry is None:
         return step
     # each rank times its own stripe; it computes 1/tensor of the model

@@ -55,11 +55,17 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def source_digest(name: str) -> str:
+    """sha256 of what the library of ``csrc/<name>.cu`` is built from: the
+    source, the shared headers and the flags (the compile cache's content
+    address, elastic/compile_cache.py)."""
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    return hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{source_digest(name)[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:

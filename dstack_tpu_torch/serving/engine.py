@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dstack_tpu_torch.elastic.compile_cache import CompileCache
 from dstack_tpu_torch.models import moe
 from dstack_tpu_torch.models import llama
 from dstack_tpu_torch.models.llama import (
@@ -385,6 +386,7 @@ class InferenceEngine:
         device: Optional[Union[str, torch.device]] = None,
         mesh: Optional[Any] = None,
         sharding_policy: Optional[ShardingPolicy] = None,
+        compile_cache: Optional[CompileCache] = None,
     ) -> None:
         """``device``: None means CUDA, and raises when no card is visible;
         the CPU runs only when asked for (``device="cpu"``).
@@ -441,6 +443,17 @@ class InferenceEngine:
 
         ``telemetry``: a `telemetry.serving.EngineTelemetry`, or None (the
         hot paths then pay one ``is None`` check).
+
+        ``compile_cache``: a `dstack_tpu_torch.elastic.compile_cache.
+        CompileCache` through which a CUDA engine that launches the
+        paged-decode kernel (paged, pages not int4; under a mesh on every
+        rank) makes its library present before the first launch or in
+        :meth:`warmup`, whichever comes first: a scaling-up replica whose
+        library a peer already built fetches it instead of running nvcc.
+        Defaults to the env-configured cache (``DSTACK_COMPILE_CACHE`` /
+        ``DSTACK_COMPILE_CACHE_PEERS``); both unset → no caching, the
+        library is built at first launch.  Hit/miss counters surface on
+        ``/load`` and ``/stats``.
         """
         # under a mesh, the card of this rank (or the mesh's CPU)
         self.device = (resolve_device(device) if mesh is None
@@ -453,6 +466,8 @@ class InferenceEngine:
         self.failed: Optional[str] = None
         self.cfg = cfg
         self.telemetry = telemetry
+        self.compile_cache = (compile_cache if compile_cache is not None
+                              else CompileCache.from_env())
         self.batch_size = batch_size
         self.max_len = min(max_len, cfg.max_seq_len)
         self.paged = paged
@@ -463,6 +478,11 @@ class InferenceEngine:
             raise ValueError("int4 KV packing needs an even head_dim")
         self.kv_quantize = kv_quantize
         self.kv_quant = kv_quantize is not None
+        #: the paged-decode library is still to be resolved through the
+        #: compile cache (before the first launch)
+        self._kernels_pending = (
+            self.compile_cache is not None and self.device.type == "cuda"
+            and paged and kv_quantize != "int4")
         if paged:
             if kv_block_size <= 0 or kv_block_size & (kv_block_size - 1):
                 # prefill buckets are powers of two: any power-of-two block
@@ -792,6 +812,24 @@ class InferenceEngine:
         while not req.done.is_set():
             self.step()
         return req
+
+    def warmup(self, prompt_len: int = 8, max_new_tokens: int = 4) -> float:
+        """Drive one tiny request end to end, after making the kernel's
+        library present through the compile cache, so the first real
+        request pays neither nvcc nor the card's first launches — the
+        standby's warming step (elastic/standby.py).  Under a mesh, rank
+        0 calls it and the ranks run its operations in lockstep.  Returns
+        elapsed seconds."""
+        t0 = time.time()
+        self._ensure_kernels()
+        self.generate(list(range(1, prompt_len + 1)),
+                      max_new_tokens=max_new_tokens)
+        return time.time() - t0
+
+    def _ensure_kernels(self) -> None:
+        if self._kernels_pending:
+            self._kernels_pending = False
+            self.compile_cache.ensure("paged_decode")
 
     def run_forever(self) -> None:
         """Serving loop: step when there is work, block when idle.  A bad
@@ -1404,6 +1442,7 @@ class InferenceEngine:
         cache_mask = (torch.arange(kv_span, device=dev)[None, :]
                       < base_len[:, None])[:, None, None, :]
         use_kernel = self.paged and self.kv_quantize != "int4"
+        self._ensure_kernels()
         view_k, view_v = self._cache_k, self._cache_v
         if self.paged and not use_kernel:
             # [L, B, span, ...] linear views, read-only until the insert

@@ -4,7 +4,11 @@ Standard-library HTTP (``http.server.ThreadingHTTPServer``): one thread per
 connection, the engine on its own thread.  Endpoints: /health, /v1/models,
 /v1/completions, /v1/chat/completions (non-streaming and SSE streaming, and
 the two legs of prefill/decode disaggregation), /metrics (Prometheus text,
-OpenMetrics on request), /stats, /load, /drain, /traces, /traces/{id}.
+OpenMetrics on request), /stats, /load, /drain, /traces, /traces/{id}, and
+the elastic routes: /elastic/compile/{key} (a kernel library from the
+compile cache), /elastic/weights/manifest and /elastic/weights/{shard}
+(the published snapshot, seeded to joining replicas), /elastic/standby
+and /elastic/standby/activate.
 
 Run: python -m dstack_tpu_torch.serving.server --config llama3-8b --paged
 (CUDA by default; ``--device cpu`` runs on the CPU).
@@ -16,6 +20,13 @@ follower of rank 0's engine (serving/lockstep.py) on card ``LOCAL_RANK``
 of one NCCL world.  A follower that exits, or a step that fails on rank
 0, fails the replica: /health and /load answer 503, the followers are
 killed and rank 0 exits non-zero.
+
+A replica's cold start (``dstack_tpu_torch/elastic/``): ``--weight-peers``
+with ``--snapshot-dir`` pulls the published snapshot from a live replica
+and serves it; ``--compile-cache``/``--compile-cache-peers`` resolve the
+paged-decode kernel's library from a cache root or a peer instead of
+running nvcc; ``--standby`` warms, then refuses /v1 until
+``POST /elastic/standby/activate``.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ import json
 import logging
 import os
 import queue
+import re
 import socket
 import subprocess
 import sys
@@ -39,12 +51,26 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from dstack_tpu_torch.elastic.compile_cache import (
+    ENV_CACHE_DIR,
+    ENV_CACHE_PEERS,
+    CompileCache,
+)
+from dstack_tpu_torch.elastic.weight_stream import (
+    ENV_SEED_RATE_BPS,
+    ENV_WEIGHT_PEERS,
+    WeightStreamError,
+    pull_weights,
+)
 from dstack_tpu_torch.models.checkpoint import (
+    MANIFEST_NAME,
     _dtype_name,
     _torch_dtype,
+    latest_snapshot_step,
     load_hf_llama,
+    read_snapshot,
 )
-from dstack_tpu_torch.models.llama import LlamaConfig
+from dstack_tpu_torch.models.llama import LlamaConfig, init_params
 from dstack_tpu_torch.ops.flash_attention import paged_decode_attention
 from dstack_tpu_torch.serving import deadlines
 from dstack_tpu_torch.serving.engine import (
@@ -105,15 +131,40 @@ def json_response(obj, status: int = 200,
                     headers)
 
 
+#: chunk of a seeded shard file (and of its pacing)
+SEED_CHUNK_BYTES = 1 << 20
+_SHARD_NAME = re.compile(r"host_\d{5}\.npz")
+
+
 class ServingApp:
     def __init__(self, engine: InferenceEngine, tokenizer,
-                 model_name: str = "dstack-tpu-model") -> None:
+                 model_name: str = "dstack-tpu-model",
+                 snapshot_dir: Optional[str] = None, standby: bool = False,
+                 seed_rate_bps: float = 0.0,
+                 weight_pull: Optional[dict] = None) -> None:
         self.engine = engine
         #: why the replica can no longer serve (a tensor-parallel rank
         #: exited), or None
         self.failed: Optional[str] = None
         self.tokenizer = tokenizer
         self.model_name = model_name
+        #: published snapshot dir this replica can SEED to joining peers
+        #: (GET /elastic/weights/*) — None disables the seeding routes
+        self.snapshot_dir = snapshot_dir
+        #: seeder-side transfer pacing (bytes/s; 0 = unlimited) so weight
+        #: streaming stays below serving traffic
+        self.seed_rate_bps = float(seed_rate_bps)
+        #: standby replica: warmed but refusing /v1 until the gateway
+        #: activates it (POST /elastic/standby/activate)
+        self.standby = standby
+        #: still warming (the kernel's library resolved, one request
+        #: driven) — reported on /load as ``warming`` so routers and
+        #: admission never count this replica as capacity
+        self.warming = False
+        self._activated_at: Optional[float] = None
+        #: the startup's weight pull report (elastic/weight_stream.py
+        #: pull_weights), or None when it pulled nothing
+        self.weight_pull = weight_pull
         #: request tracer — rides the engine's telemetry so scheduler spans
         #: and HTTP spans share one ring; None when telemetry or tracing is
         #: off
@@ -122,8 +173,40 @@ class ServingApp:
         self._thread = threading.Thread(
             target=engine.run_forever, daemon=True, name="engine")
 
-    def start_engine(self) -> None:
-        self._thread.start()
+    def start_engine(self, warm: bool = False) -> None:
+        """Start the engine loop; ``warm=True`` first drives one warmup
+        request on a background thread (the kernel's library built or
+        pulled from the compile cache, the card's first launches made)
+        with ``warming`` visible on ``/load`` the whole time, then starts
+        the loop.  The warmup runs BEFORE the engine thread so the two
+        never race ``step()``."""
+        if not warm:
+            self._thread.start()
+            return
+        self.warming = True
+
+        def _warm() -> None:
+            try:
+                self.engine.warmup()
+            except Exception:  # noqa: BLE001 — warming must not wedge
+                logger.exception("standby warmup failed")
+            finally:
+                self.warming = False
+                self._thread.start()
+
+        threading.Thread(target=_warm, daemon=True,
+                         name="engine-warm").start()
+
+    def activate_standby(self) -> dict:
+        """Flip a standby replica live: the entire scale-up critical
+        path once warming is done — no provision, no weights, no
+        compile.  Idempotent; returns the activation report."""
+        was_standby = self.standby
+        self.standby = False
+        if was_standby and self._activated_at is None:
+            self._activated_at = time.time()
+        return {"activated": was_standby, "warming": bool(self.warming),
+                "standby": False}
 
     def join_engine(self, timeout: float) -> None:
         """Wait for the engine thread to end after ``engine.stop()`` (a
@@ -205,13 +288,25 @@ class ServingApp:
         busy = snap["active_slots"] + snap["queue_depth"]
         snap["load"] = round(busy / cap, 4) if cap else float(busy)
         snap["draining"] = int(bool(self.engine.draining))
-        snap["warming"] = 0
+        # warming is DISTINCT from draining: a still-warming (or
+        # not-yet-activated standby) replica has never served and must
+        # not count toward routable capacity — but it is healthy and
+        # about to be, so orchestrators must not tear it down either
+        snap["warming"] = int(bool(self.warming or self.standby))
+        cache = self.engine.compile_cache
+        if cache is not None:
+            snap.update(cache.snapshot())
         return snap
 
     @staticmethod
     def _draining_response() -> Response:
         return json_response({"detail": "replica draining, retry elsewhere"},
                              status=503, headers={"Retry-After": "1"})
+
+    @staticmethod
+    def _warming_response() -> Response:
+        return json_response({"detail": "replica warming, not yet serving"},
+                             status=503, headers={"Retry-After": "2"})
 
     @staticmethod
     def _deadline_response() -> Response:
@@ -242,7 +337,8 @@ class ServingApp:
         wedged = self._wedged_response()
         if wedged is not None:
             return wedged
-        status = "draining" if self.engine.draining else "ok"
+        status = ("warming" if self.warming or self.standby
+                  else "draining" if self.engine.draining else "ok")
         out = {"status": status, "model": self.model_name}
         if self.engine.speculation:
             out["speculation"] = self._speculation()
@@ -318,9 +414,95 @@ class ServingApp:
         out["kernels"] = {
             "paged_decode_attention": {
                 "launches": paged_decode_attention.launches}}
+        cache = self.engine.compile_cache
+        if cache is not None:
+            out["compile_cache"] = cache.snapshot()
+            out["compile_cache_resolved"] = dict(cache.resolved)
+        out["warming"] = bool(self.warming)
+        out["standby"] = bool(self.standby)
+        if self.weight_pull is not None:
+            out["weight_pull"] = self.weight_pull
         if self.engine.speculation:
             out["speculation"] = self._speculation()
         return json_response(out)
+
+    # -- elastic: compile cache + weight seeding, standby ------------------
+
+    def elastic_compile(self, handler) -> Response:
+        """One kernel library from the local compile cache — the
+        peer-fetch path a scaling-up replica hits on a local miss
+        (elastic/compile_cache.py)."""
+        cache = self.engine.compile_cache
+        if cache is None:
+            return json_response({"detail": "compile cache disabled"},
+                                 status=404)
+        key = handler.route_path[len("/elastic/compile/"):]
+        if not (key and all(c in "0123456789abcdef" for c in key)):
+            return json_response({"detail": "bad cache key"}, status=400)
+        data = cache.get_bytes(key)
+        if data is None:
+            return json_response(
+                {"detail": f"no cached library {key[:12]}…"}, status=404)
+        return Response(200, data, "application/octet-stream")
+
+    def _seed_step_dir(self) -> Optional[Path]:
+        """Latest published snapshot step dir to seed from, or None."""
+        if not self.snapshot_dir:
+            return None
+        step = latest_snapshot_step(self.snapshot_dir)
+        if step is None:
+            return None
+        return Path(self.snapshot_dir) / f"step_{step:08d}"
+
+    def elastic_weights_manifest(self, handler) -> Response:
+        step_dir = self._seed_step_dir()
+        if step_dir is None:
+            return json_response({"detail": "no published snapshot to seed"},
+                                 status=404)
+        return Response(200, (step_dir / MANIFEST_NAME).read_bytes(),
+                        "application/json")
+
+    def elastic_weights_shard(self, handler) -> Optional[Response]:
+        """Stream one host shard file, chunked and paced below serving
+        traffic (``seed_rate_bps``; 0 = unlimited).  Only names the
+        manifest format can produce are served — no path traversal."""
+        step_dir = self._seed_step_dir()
+        if step_dir is None:
+            return json_response({"detail": "no published snapshot to seed"},
+                                 status=404)
+        name = handler.route_path[len("/elastic/weights/"):]
+        if not _SHARD_NAME.fullmatch(name):
+            return json_response({"detail": "not a shard file name"},
+                                 status=400)
+        path = step_dir / name
+        try:
+            f = open(path, "rb")
+        except FileNotFoundError:
+            return json_response({"detail": f"no shard {name}"}, status=404)
+        with f:
+            handler.start_stream(200, "application/octet-stream", {
+                "Content-Length": str(os.fstat(f.fileno()).st_size)})
+            while block := f.read(SEED_CHUNK_BYTES):
+                handler.send_raw(block)
+                if self.seed_rate_bps > 0:
+                    # seeding must lose to serving: pace the transfer
+                    time.sleep(len(block) / self.seed_rate_bps)
+        return None
+
+    def elastic_standby_status(self, handler) -> Response:
+        return json_response({"standby": bool(self.standby),
+                              "warming": bool(self.warming),
+                              "activated_at": self._activated_at})
+
+    def elastic_standby_activate(self, handler) -> Response:
+        """Gateway scale-up path: flip this pre-warmed standby live.
+        409 while still warming — the caller should pick another standby
+        or fall back to a cold provision rather than wait here."""
+        if self.warming:
+            return json_response(
+                {"detail": "standby still warming", "warming": True},
+                status=409, headers={"Retry-After": "2"})
+        return json_response(self.activate_standby())
 
     def models(self, handler) -> Response:
         return json_response({
@@ -398,6 +580,9 @@ class ServingApp:
     def _generate(self, handler, payload, ids: List[int], chat: bool):
         if self.engine.draining:
             return self._draining_response()
+        if self.warming or self.standby:
+            # the engine loop is not running yet: accepting would hang
+            return self._warming_response()
         marker, req = self._phase_request(ids, payload, handler)
         remaining = deadlines.parse_remaining(handler.headers)
         if remaining is not None:
@@ -423,24 +608,23 @@ class ServingApp:
                  "completion_tokens": len(req.output),
                  "total_tokens": len(ids) + len(req.output)}
         if chat:
-            return json_response({
-                "id": f"chatcmpl-{uuid.uuid4().hex[:12]}",
-                "object": "chat.completion",
-                "created": int(time.time()),
-                "model": model,
-                "choices": [{"index": 0,
-                             "message": {"role": "assistant",
-                                         "content": text},
-                             "finish_reason": req.finish_reason}],
-                "usage": usage,
-            })
+            choice = {"index": 0,
+                      "message": {"role": "assistant", "content": text},
+                      "finish_reason": req.finish_reason}
+        else:
+            choice = {"index": 0, "text": text,
+                      "finish_reason": req.finish_reason}
+        if payload.get("return_token_ids"):
+            # the generated ids (vLLM's extension of the OpenAI API): a
+            # replica's greedy tokens compared with another's, token for
+            # token, whatever the tokenizer prints for them
+            choice["token_ids"] = list(req.output)
         return json_response({
-            "id": f"cmpl-{uuid.uuid4().hex[:12]}",
-            "object": "text_completion",
+            "id": f"{'chatcmpl' if chat else 'cmpl'}-{uuid.uuid4().hex[:12]}",
+            "object": "chat.completion" if chat else "text_completion",
             "created": int(time.time()),
             "model": model,
-            "choices": [{"index": 0, "text": text,
-                         "finish_reason": req.finish_reason}],
+            "choices": [choice],
             "usage": usage,
         })
 
@@ -547,6 +731,14 @@ class ServingApp:
             ("GET", "/stats"): self.stats,
             ("GET", "/load"): self.load,
             ("POST", "/drain"): self.drain,
+            # the exact paths win over the prefix "/elastic/weights/"
+            ("GET", "/elastic/compile/"): self.elastic_compile,
+            ("GET", "/elastic/weights/manifest"):
+                self.elastic_weights_manifest,
+            ("GET", "/elastic/weights/"): self.elastic_weights_shard,
+            ("GET", "/elastic/standby"): self.elastic_standby_status,
+            ("POST", "/elastic/standby/activate"):
+                self.elastic_standby_activate,
             ("GET", "/traces"): self.traces,
             # a key ending in "/" matches every path under it
             ("GET", "/traces/"): self.trace_detail,
@@ -729,32 +921,114 @@ def build_parser() -> argparse.ArgumentParser:
         "--no-telemetry", action="store_true",
         help="disable the in-process serving telemetry (/metrics + /stats "
              "then serve empty; also DSTACK_TPU_SERVING_TELEMETRY=0)")
-    parser.add_argument("--compile-cache", default=None, metavar="DIR",
-                        help="(not yet ported)")
-    parser.add_argument("--compile-cache-peers", default=None,
-                        metavar="URLS", help="(not yet ported)")
-    parser.add_argument("--snapshot-dir", default=None, metavar="DIR",
-                        help="(not yet ported)")
-    parser.add_argument("--weight-peers", default=None, metavar="URLS",
-                        help="(not yet ported)")
-    parser.add_argument("--seed-rate-bps", type=float, default=0.0,
-                        metavar="BPS", help="(not yet ported)")
-    parser.add_argument("--standby", action="store_true",
-                        help="(not yet ported)")
+    parser.add_argument(
+        "--compile-cache", default=None, metavar="DIR",
+        help="compile cache root (elastic/compile_cache.py): the kernels' "
+             "nvcc libraries keyed by source + card + nvcc + driver, shared "
+             "with peers; also DSTACK_COMPILE_CACHE")
+    parser.add_argument(
+        "--compile-cache-peers", default=None, metavar="URLS",
+        help="comma-separated peer base URLs to fetch cached libraries from "
+             "on a local miss; also DSTACK_COMPILE_CACHE_PEERS")
+    parser.add_argument(
+        "--snapshot-dir", default=None, metavar="DIR",
+        help="published snapshot dir (models/checkpoint.py manifest format) "
+             "this replica seeds to joining peers over /elastic/weights/*")
+    parser.add_argument(
+        "--weight-peers", default=None, metavar="URLS",
+        help="comma-separated live-replica base URLs to stream weights from "
+             "into --snapshot-dir before start, then serve them (the seed's "
+             "random weights are the fallback); also DSTACK_WEIGHT_PEERS")
+    parser.add_argument(
+        "--seed-rate-bps", type=float, default=0.0, metavar="BPS",
+        help="cap seeding transfers at this many bytes/s so weight streaming "
+             "stays below serving traffic (0 = unlimited; also "
+             "DSTACK_SEED_RATE_BPS)")
+    parser.add_argument(
+        "--standby", action="store_true",
+        help="start as a pre-warmed standby: warm up, then refuse /v1 (503) "
+             "until POST /elastic/standby/activate")
+    parser.add_argument("--from-snapshot", action="store_true",
+                        help=argparse.SUPPRESS)
     return parser
 
 
-def unported_flags(args) -> List[str]:
-    """Flags set on the command line whose feature the port lacks."""
-    checks = [
-        ("--compile-cache", args.compile_cache is not None),
-        ("--compile-cache-peers", args.compile_cache_peers is not None),
-        ("--snapshot-dir", args.snapshot_dir is not None),
-        ("--weight-peers", args.weight_peers is not None),
-        ("--seed-rate-bps", bool(args.seed_rate_bps)),
-        ("--standby", args.standby),
-    ]
-    return [flag for flag, on in checks if on]
+def _urls(text: str) -> List[str]:
+    return [p.strip() for p in text.split(",") if p.strip()]
+
+
+def elastic_plan(args, env=None) -> dict:
+    """What the elastic flags, or their environment variables, set up:
+    the compile cache's root and peers, the weight peers, whether this
+    rank pulls weights (rank 0, with --weight-peers and --snapshot-dir),
+    whether it warms (a standby, or any replica with a cache: cheap on a
+    hit, and it fills the cache for the fleet on a miss), whether it
+    starts as a standby, and the seeding rate."""
+    env = os.environ if env is None else env
+    root = args.compile_cache or env.get(ENV_CACHE_DIR, "").strip()
+    cache_peers = _urls(args.compile_cache_peers
+                        or env.get(ENV_CACHE_PEERS, ""))
+    weight_peers = _urls(args.weight_peers or env.get(ENV_WEIGHT_PEERS, ""))
+    cache = bool(root or cache_peers)
+    lead = not args.follower
+    return {"cache_root": root or None, "cache_peers": cache_peers,
+            "weight_peers": weight_peers,
+            "pull": lead and bool(weight_peers and args.snapshot_dir),
+            "warm": lead and (args.standby or cache),
+            "standby": lead and args.standby,
+            "seed_rate_bps": args.seed_rate_bps or float(
+                env.get(ENV_SEED_RATE_BPS, "0") or 0)}
+
+
+def compile_cache_of(plan: dict) -> Optional[CompileCache]:
+    if not (plan["cache_root"] or plan["cache_peers"]):
+        return None
+    return CompileCache(plan["cache_root"], plan["cache_peers"])
+
+
+def pull_snapshot(args, plan: dict, cold_fallback=lambda: -1) -> dict:
+    """Pull the published snapshot from the weight peers into
+    --snapshot-dir before the engine is built: the report of
+    :func:`~dstack_tpu_torch.elastic.weight_stream.pull_weights`.  A
+    failure is not fatal: the replica starts from its cold source (its
+    seed's weights, or --checkpoint), step -1."""
+    try:
+        report = pull_weights(plan["weight_peers"], args.snapshot_dir,
+                              cold_fallback=cold_fallback)
+    except WeightStreamError as e:
+        logger.warning("weight pull failed, cold start: %s", e)
+        report = {"source": "cold", "peer": None, "step": -1,
+                  "errors": [str(e)]}
+    logger.info("weight pull: %s", report)
+    return report
+
+
+def serves_pulled(args, report: Optional[dict]) -> bool:
+    """Whether this rank serves the snapshot in --snapshot-dir: rank 0
+    pulled it from a peer (a follower is told so by --from-snapshot), and
+    no --checkpoint names other weights."""
+    pulled = args.from_snapshot or (report is not None
+                                    and report["source"] == "peer")
+    return pulled and not args.checkpoint
+
+
+def read_pulled(args, cfg: LlamaConfig):
+    """The engine's params from the pulled snapshot (sha256-verified
+    again on read) on --device, or on the host under --tensor-parallel
+    (each rank keeps its blocks, as with --checkpoint); None when it is
+    not a param tree of ``cfg`` (a full train state, another model): the
+    replica then starts from its seed's weights."""
+    device = "cpu" if args.tensor_parallel > 1 else args.device
+    try:
+        params, step = read_snapshot(args.snapshot_dir,
+                                     init_params(cfg, "meta", None),
+                                     verify=True, device=device)
+    except (ValueError, KeyError) as e:
+        logger.warning("pulled snapshot is not an engine param tree (%s); "
+                       "cold init instead", e)
+        return None
+    logger.info("engine params restored from peer snapshot step %d", step)
+    return params
 
 
 def load_model(args) -> tuple:
@@ -779,8 +1053,9 @@ def load_model(args) -> tuple:
             args.model_name or Path(args.checkpoint).name)
 
 
-def build_engine(args, cfg: LlamaConfig, params,
-                 mesh=None) -> InferenceEngine:
+def build_engine(args, cfg: LlamaConfig, params, mesh=None,
+                 compile_cache: Optional[CompileCache] = None
+                 ) -> InferenceEngine:
     """The engine of the command line (sharded over ``mesh`` when given;
     a follower rank's has no telemetry)."""
     return InferenceEngine(
@@ -802,7 +1077,29 @@ def build_engine(args, cfg: LlamaConfig, params,
                    else make_engine_telemetry()),
         device=args.device,
         mesh=mesh,
+        compile_cache=compile_cache,
     )
+
+
+def start_replica(args, cfg: LlamaConfig, params, tokenizer, model_name: str,
+                  *, mesh=None, plan: Optional[dict] = None,
+                  report: Optional[dict] = None,
+                  cold_fallback=lambda: -1) -> ServingApp:
+    """Rank 0's startup: pull the weights (unless ``report`` says it
+    pulled already), serve them when they came from a peer, build the
+    engine with its compile cache and start it, warming first when the
+    plan says so.  Returns the app; the caller serves its HTTP."""
+    plan = plan or elastic_plan(args)
+    if report is None and plan["pull"]:
+        report = pull_snapshot(args, plan, cold_fallback)
+    if params is None and serves_pulled(args, report):
+        params = read_pulled(args, cfg)
+    engine = build_engine(args, cfg, params, mesh, compile_cache_of(plan))
+    app = ServingApp(engine, tokenizer, model_name=model_name,
+                     snapshot_dir=args.snapshot_dir, standby=plan["standby"],
+                     seed_rate_bps=plan["seed_rate_bps"], weight_pull=report)
+    app.start_engine(warm=plan["warm"])
+    return app
 
 
 def visible_devices(device: str) -> Optional[int]:
@@ -893,34 +1190,41 @@ def main(argv: Optional[List[str]] = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = build_parser()
     args = parser.parse_args(argv)
-    missing = unported_flags(args)
-    if missing:
-        parser.exit(2, f"not yet ported: {', '.join(missing)}\n")
     logging.basicConfig(level=logging.INFO)
     n = args.tensor_parallel
     check_tensor_parallel(n, args.device)
+    plan = elastic_plan(args)
+    # rank 0 pulls before its followers start: every rank then reads the
+    # same snapshot
+    report = pull_snapshot(args, plan) if plan["pull"] else None
     followers, mesh = [], None
     if n > 1 and not args.follower:
         port = _free_port()
         os.environ.update(rank_env(n, port, 0))
         os.environ.pop("DSTACK_GPUS_NUM", None)
-        followers = start_followers(argv, n, port)
+        followers = start_followers(
+            argv + (["--from-snapshot"] if serves_pulled(args, report)
+                    else []), n, port)
     try:
         cfg, params, tokenizer, model_name = load_model(args)
         if tokenizer.vocab_size > cfg.vocab_size:
             raise SystemExit(f"tokenizer vocab {tokenizer.vocab_size} "
                              f"exceeds model vocab {cfg.vocab_size}")
+        if args.follower and serves_pulled(args, None):
+            params = read_pulled(args, cfg)
         if n > 1:
             mesh = _join_world(args)
-        engine = build_engine(args, cfg, params, mesh)
         if args.follower:
+            engine = build_engine(args, cfg, params, mesh,
+                                  compile_cache_of(plan))
             logger.info("tensor-parallel follower: %s", engine.follow())
             torch.distributed.destroy_process_group()
             return
-        app = ServingApp(engine, tokenizer, model_name=model_name)
+        app = start_replica(args, cfg, params, tokenizer, model_name,
+                            mesh=mesh, plan=plan, report=report)
+        engine = app.engine
         if followers:
             watch_followers(app, followers)
-        app.start_engine()
         server = app.make_server("0.0.0.0", args.port)
         logger.info("serving %s on port %d (%s, tensor-parallel %d)",
                     model_name, server.server_address[1], engine.device, n)

@@ -3,8 +3,9 @@ engine's refusals (the JAX engine's messages), ``moe.param_specs``
 against the JAX package's, int8 scales of a row-parallel shard, the
 lockstep's wire format and its token check, and ``--tensor-parallel``:
 its parsing, its "only k device(s)" exit, a two-rank server on the CPU
-(gloo) over HTTP whose follower, once killed, takes rank 0 down, and a
-step that fails on rank 0 alone stopping the replica.
+(gloo) over HTTP whose follower, once killed, takes rank 0 down, a
+two-rank replica serving the weights its rank 0 pulled from a peer, and
+a step that fails on rank 0 alone stopping the replica.
 
 Mesh parity with JAX is in ``test_torch_mesh_serving.py`` (serving) and
 ``test_torch_moe_parallel.py`` (expert-parallel training).
@@ -17,6 +18,7 @@ import os
 import socket
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import urllib.request
@@ -29,12 +31,14 @@ from jax.sharding import PartitionSpec as P
 
 from dstack_tpu.models import moe as j_moe
 from dstack_tpu.models.llama import ShardingPolicy as JPolicy
+from dstack_tpu_torch.models import checkpoint as ckpt
 from dstack_tpu_torch.models import llama, moe
 from dstack_tpu_torch.parallel import mesh as mesh_lib
 from dstack_tpu_torch.serving import engine as t_engine
 from dstack_tpu_torch.serving import lockstep
 from dstack_tpu_torch.serving import server as t_server
 from dstack_tpu_torch.serving.quant import quantize_weight
+from dstack_tpu_torch.serving.tokenizer import ByteTokenizer
 
 ROOT = Path(__file__).resolve().parents[1]
 torch.set_num_threads(1)
@@ -193,7 +197,10 @@ def test_tensor_parallel_flag_parses_and_exits_without_cards(monkeypatch):
     parser = t_server.build_parser()
     assert parser.parse_args([]).tensor_parallel == 1
     args = parser.parse_args(["--tensor-parallel", "4"])
-    assert args.tensor_parallel == 4 and not t_server.unported_flags(args)
+    assert args.tensor_parallel == 4
+    # it sets up nothing of a replica's cold start
+    assert t_server.elastic_plan(args, env={}) == t_server.elastic_plan(
+        parser.parse_args([]), env={})
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(SystemExit, match="--tensor-parallel 4 but only 1 "
                                          "device\\(s\\) visible"):
@@ -265,6 +272,84 @@ def test_tensor_parallel_server_on_two_cpu_ranks(tmp_path):
             proc.kill()
             proc.wait()
         log.close()
+
+
+def _tp_server(tmp_path, name, *flags):
+    """A ``--tensor-parallel 2 --device cpu`` server of the tiny config
+    (two gloo ranks): (process, base URL, its log's path)."""
+    port = t_server._free_port()
+    log_path = tmp_path / f"{name}.log"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dstack_tpu_torch.serving.server",
+             "--config", "tiny", "--device", "cpu", "--tensor-parallel", "2",
+             "--port", str(port), "--batch-size", "2", "--max-len", "128",
+             *flags],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "OMP_NUM_THREADS": "1"})
+    return proc, f"http://127.0.0.1:{port}", log_path
+
+
+def _wait_healthy(proc, base, log_path):
+    for _ in range(240):
+        try:
+            if _get(base + "/health", timeout=5)[0] == 200:
+                return
+        except OSError:
+            pass
+        assert proc.poll() is None, log_path.read_text()
+        time.sleep(0.5)
+    raise AssertionError(f"{base} not healthy:\n{log_path.read_text()}")
+
+
+def test_tensor_parallel_replica_serves_weights_rank_0_pulled(tmp_path):
+    """``--weight-peers`` under ``--tensor-parallel 2``: rank 0 pulls the
+    seeder's snapshot before it starts its follower, and both ranks serve
+    it.  Its greedy tokens equal those of a two-rank server that draws
+    the same weights from the seeder's seed; a rank that kept its own
+    seed's shards would give others."""
+    seed_params = llama.init_params(llama.LlamaConfig.tiny(), "cpu",
+                                    torch.Generator().manual_seed(3))
+    ckpt.write_snapshot(tmp_path / "seed", ckpt.snapshot_train_state(
+        seed_params), 0)
+    seeder = t_server.ServingApp(
+        t_engine.InferenceEngine(llama.LlamaConfig.tiny(), batch_size=1,
+                                 max_len=64, device="cpu"),
+        ByteTokenizer(), snapshot_dir=str(tmp_path / "seed"))
+    http = seeder.make_server("127.0.0.1", 0)
+    thread = threading.Thread(target=http.serve_forever, daemon=True)
+    thread.start()
+    peer = f"http://127.0.0.1:{http.server_address[1]}"
+    servers = [_tp_server(tmp_path, "drawn", "--seed", "3"),
+               _tp_server(tmp_path, "pulled", "--seed", "4",
+                          "--weight-peers", peer, "--snapshot-dir",
+                          str(tmp_path / "pulled"))]
+    try:
+        tokens = []
+        for proc, base, log_path in servers:
+            _wait_healthy(proc, base, log_path)
+            req = urllib.request.Request(
+                base + "/v1/completions", method="POST",
+                data=json.dumps({"prompt": "hello", "max_tokens": 6,
+                                 "return_token_ids": True}).encode())
+            with urllib.request.urlopen(req, timeout=120) as r:
+                tokens.append(json.loads(r.read())["choices"][0][
+                    "token_ids"])
+        assert len(tokens[0]) == 6 and tokens[1] == tokens[0]
+        stats = _get(servers[1][1] + "/stats")[1]
+        assert stats["weight_pull"]["source"] == "peer"
+    finally:
+        for proc, _, _ in servers:
+            proc.terminate()
+        for proc, _, _ in servers:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        http.shutdown()
+        http.server_close()
+        thread.join(timeout=10)
 
 
 class _Exited:

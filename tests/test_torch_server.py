@@ -124,21 +124,43 @@ def test_bad_json_is_a_400(base_url):
     assert err.value.code == 400
 
 
-@pytest.mark.parametrize("flags", [
-    ["--tensor-parallel", "2", "--standby"],
-    ["--checkpoint", "ckpt", "--snapshot-dir", "snap"],
-    ["--compile-cache", "cache"],
-    ["--compile-cache-peers", "http://peer"],
-    ["--snapshot-dir", "snap"],
-    ["--weight-peers", "http://peer"],
-    ["--seed-rate-bps", "100"],
-    ["--standby"],
-])
-def test_unported_flags_exit_nonzero(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        t_server.main(["--config", "tiny", "--device", "cpu", *flags])
-    assert exc.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+_COLD = dict(cache_root=None, cache_peers=[], weight_peers=[], pull=False,
+             warm=False, standby=False, seed_rate_bps=0.0)
+
+
+@pytest.mark.parametrize("flags, want", [
+    (["--tensor-parallel", "2", "--standby"], dict(warm=True, standby=True)),
+    (["--checkpoint", "ckpt", "--snapshot-dir", "snap"], {}),
+    (["--compile-cache", "cache"], dict(cache_root="cache", warm=True)),
+    (["--compile-cache-peers", "http://peer"],
+     dict(cache_peers=["http://peer"], warm=True)),
+    (["--snapshot-dir", "snap"], {}),
+    (["--weight-peers", "http://peer"], dict(weight_peers=["http://peer"])),
+    (["--seed-rate-bps", "100"], dict(seed_rate_bps=100.0)),
+    (["--standby"], dict(warm=True, standby=True)),
+], ids=["tp-standby", "checkpoint-seeder", "cache", "cache-peers", "seeder",
+        "peers-without-dir", "seed-rate", "standby"])
+def test_elastic_flags_set_up_the_cold_start(flags, want, monkeypatch):
+    """What each elastic flag set makes main set up (elastic_plan, which
+    main follows): the compile cache's root and peers, a weight pull
+    (only with both --weight-peers and --snapshot-dir), warming and
+    standby; a follower rank of the same command line pulls, warms and
+    stands by never.  No rank is started."""
+    for var in ("DSTACK_COMPILE_CACHE", "DSTACK_COMPILE_CACHE_PEERS",
+                "DSTACK_WEIGHT_PEERS", "DSTACK_SEED_RATE_BPS"):
+        monkeypatch.delenv(var, raising=False)
+    parser = t_server.build_parser()
+    args = parser.parse_args(["--config", "tiny", "--device", "cpu", *flags])
+    plan = t_server.elastic_plan(args)
+    assert plan == {**_COLD, **want}
+    cache = t_server.compile_cache_of(plan)
+    assert (cache is None) == ("cache_root" not in want
+                               and "cache_peers" not in want)
+    if cache is not None:
+        assert cache.peers == plan["cache_peers"]
+    follower = t_server.elastic_plan(parser.parse_args(
+        ["--config", "tiny", "--device", "cpu", *flags, "--follower"]))
+    assert not (follower["pull"] or follower["warm"] or follower["standby"])
 
 
 def test_server_without_cuda_refuses_the_default_device(monkeypatch):
@@ -202,7 +224,7 @@ def test_checkpoint_loads_config_weights_and_tokenizer(tmp_path,
     monkeypatch.setattr(t_server, "load_tokenizer", load_tokenizer)
     args = t_server.build_parser().parse_args(
         ["--checkpoint", str(path), "--device", "cpu"])
-    assert t_server.unported_flags(args) == []
+    assert not t_server.elastic_plan(args, env={})["pull"]
     cfg, params, tokenizer, name = t_server.load_model(args)
     assert asked == [str(path)] and isinstance(tokenizer, WordTokenizer)
     assert cfg == want and name == "tiny-hf"

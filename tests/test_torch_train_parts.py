@@ -217,8 +217,8 @@ class _MeshShape:
 def test_not_yet_ported_arguments_raise():
     """Every entry point refuses what stays refused: the JAX package's own
     refusals (seq together with stage; unstacked layers under stage;
-    Ulysses with heads that do not split over seq x tensor), MoE under
-    seq or stage, and a compile cache; remat names must be the layer's."""
+    Ulysses with heads that do not split over seq x tensor) and MoE under
+    seq or stage; remat names must be the layer's."""
     from dstack_tpu_torch.models import moe
 
     cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
@@ -259,8 +259,6 @@ def test_not_yet_ported_arguments_raise():
             moe.create_state(0, moe_cfg, opt, device="cpu", **kw)
         with pytest.raises(NotImplementedError, match="not yet ported"):
             moe.backbone({"layers": {}}, tokens, moe_cfg, **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train.make_train_step(cfg, opt, compile_cache=object())
     for remat in ("sometimes", ("qkv", "logits")):
         with pytest.raises(ValueError, match="remat"):
             train.make_train_step(cfg, opt, remat=remat)
