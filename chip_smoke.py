@@ -232,6 +232,32 @@ Phases (any failure stops the run with a non-zero exit and no result):
              right after activation and each library's resolve seconds
              (C's: the nvcc leg).
 
+16. mesh-serving-rest — (run right after phase 13) Llama-3-8B (full
+             size, seed 1, batch 8, max_len 1024, paged) on one card
+             beside two rank processes sharing it under gloo: (a)
+             prefill/decode at tensor=2 both ways (a 300-token prompt's
+             export through the wire codec, bitwise; the pair's export
+             held to the one-card one within PD_EXPORT_RTOL, the first
+             token equal; each install decoded 16 tokens); (b) the
+             weights over fsdp (MeshSpec(fsdp=2), each rank half the
+             matrices, a layer gathered at use) in bf16, then with int8
+             weights; (c) a one-card engine made under
+             DSTACK_TPU_RAGGED_DECODE=0 (K5 over the full block-table
+             span) beside the ragged one (both held to the plain
+             forward; their agreement printed: K5's split count follows
+             the table's width, so a near-tie may fall either way); (d)
+             llama.decode_step on Llama-3.2-1B (full size), 16 greedy
+             steps, and quant.memory_bytes of its bf16 and int8 trees.
+             Every greedy token within 0.1 std of the plain forward (int8
+             weights: of the dequantized tree), K5 launches exactly layers
+             x decode steps on every rank, every follower checks every
+             token array rank 0 produced.  Prints the export's worst
+             errors, each engine's decode step and TTFT beside the
+             one-card engine's, every rank's weights and peak memory.  On
+             N cards phase 13's --tensor-parallel server also takes a
+             prefill leg and a decode leg carrying its prefill_result,
+             whose tokens must equal a colocated request's.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; exits non-zero without
 one, or when run outside a checkout of the repository.
@@ -2815,17 +2841,20 @@ def int8_moe_params(torch, cfg, device: str, seed: int) -> dict:
     return out
 
 
-def dequantized_dense(torch, params, dtype) -> dict:
-    """``params`` with its attention matrices and head dequantized to
-    ``dtype`` and its expert stacks left int8: the tree ``moe.forward``
-    takes (its attention multiplies plain tensors, its experts take int8
-    as the reference's ``qeinsum`` does)."""
+def dequantized_dense(torch, params, dtype,
+                      names=("wq", "wk", "wv", "wo")) -> dict:
+    """``params`` with its layer matrices ``names`` (by default the
+    attention's) and head dequantized to ``dtype`` and the rest left as
+    they are: with the default, the tree ``moe.forward`` takes (its
+    attention multiplies plain tensors, its expert stacks take int8 as
+    the reference's ``qeinsum`` does); with every matrix, a Llama tree
+    the plain forward takes."""
     def deq(w):
         return (w["q"].to(dtype) * w["s"][..., None, :].to(dtype)
                 if isinstance(w, dict) else w)
 
     out = dict(params, layers={
-        k: deq(w) if k in ("wq", "wk", "wv", "wo") else w
+        k: deq(w) if k in names else w
         for k, w in params["layers"].items()})
     if "lm_head" in params:
         out["lm_head"] = deq(params["lm_head"])
@@ -3243,26 +3272,30 @@ def k5_row(case: dict) -> str:
 
 
 def mesh_cfg(name: str, layers=None):
-    """A served config of phase 13: "llama3-8b", "llama3-70b" or
-    "mixtral" (Mixtral-8x7B, dropless at MOE_SERVE_CAPACITY_FACTOR), cut
-    to ``layers`` when given."""
+    """A served config of phase 13 or 16: "llama3-8b", "llama3-70b" or
+    "mixtral" (Mixtral-8x7B, dropless at MOE_SERVE_CAPACITY_FACTOR), or
+    "tiny" for a CPU rehearsal; cut to ``layers`` when given."""
     from dstack_tpu_torch.models.llama import LlamaConfig
     from dstack_tpu_torch.models.moe import MoEConfig
 
     cfg = {"llama3-8b": LlamaConfig.llama3_8b,
            "llama3-70b": LlamaConfig.llama3_70b,
+           # a CPU rehearsal's
+           "tiny": lambda: dataclasses.replace(LlamaConfig.tiny(),
+                                               max_seq_len=1024),
            "mixtral": lambda: MoEConfig.mixtral_8x7b(
                capacity_factor=MOE_SERVE_CAPACITY_FACTOR)}[name]()
     return cfg if layers is None else dataclasses.replace(
         cfg, num_layers=layers)
 
 
-def mesh_engine(cfg, seed: int, kv, mesh=None, params=None):
+def mesh_engine(cfg, seed: int, kv, mesh=None, params=None,
+                device: str = "cuda", **kw):
     from dstack_tpu_torch.serving.engine import InferenceEngine
 
     return InferenceEngine(cfg, params=params, rng_seed=seed, kv_quantize=kv,
-                           mesh=mesh, device="cuda" if mesh is None else None,
-                           **MESH_ENGINE_KW)
+                           mesh=mesh, device=device if mesh is None else None,
+                           **MESH_ENGINE_KW, **kw)
 
 
 def counted_run(torch, engine, cfg, moe_routes: bool) -> tuple:
@@ -3329,32 +3362,46 @@ def mesh_serve_rank(torch, out_dir: str, spec_path: str) -> None:
     """One rank of a phase-13 world in its own process: the process group
     from the control plane's variables (``backend`` of the spec: NCCL, one
     card a rank; or gloo, ranks sharing a card), then each case's engine
-    on its mesh, drawn from its seed (each rank its blocks): rank 0 runs
-    counted_run and closes the engine, the others follow it.  Each
-    rank writes its launches, decode steps and lockstep counts to
+    on its mesh, drawn from its seed (each rank its blocks; a case may
+    name a serving ``policy`` and ``quantize``): rank 0 runs the case's
+    ``run`` (counted_run by default; "pd": pd_rank_run; "light":
+    light_run) and closes the engine, the others follow it.  Each rank
+    writes its launches, decode steps, lockstep counts and weight bytes to
     ``rank<r>.json``; rank 0 adds its numbers and tokens, and the MoE
     cases' routes to ``routes_<case>.pt``."""
     import torch.distributed as dist
 
+    from dstack_tpu_torch.models.llama import ShardingPolicy
     from dstack_tpu_torch.ops import flash_attention as fa
     from dstack_tpu_torch.parallel import distributed
     from dstack_tpu_torch.parallel import mesh as mesh_lib
+    from dstack_tpu_torch.serving.quant import memory_bytes
 
     spec = json.loads(Path(spec_path).read_text())
-    backend = spec["backend"]
-    distributed.initialize(force=True, device="cuda", backend=backend)
+    backend, device = spec["backend"], spec.get("device", "cuda")
+    distributed.initialize(force=True, device=device, backend=backend)
     try:
         rank, out = dist.get_rank(), {"backend": dist.get_backend()}
         for case in spec["cases"]:
             cfg = mesh_cfg(case["model"], case.get("layers"))
             mesh = mesh_lib.build_mesh(
-                mesh_lib.MeshSpec(**case["mesh"]), "cuda",
+                mesh_lib.MeshSpec(**case["mesh"]), device,
                 backend="gloo" if backend == "gloo" else None)
-            engine = mesh_engine(cfg, case["seed"], case.get("kv"),
-                                 mesh=mesh)
+            policy = case.get("policy")
+            engine = mesh_engine(
+                cfg, case["seed"], case.get("kv"), mesh=mesh,
+                sharding_policy=policy and ShardingPolicy(**dict(
+                    policy, batch_axes=tuple(policy["batch_axes"]))),
+                quantize=case.get("quantize"))
             if rank == 0:
-                run, _, routes = counted_run(torch, engine, cfg,
-                                             case["model"] == "mixtral")
+                kind, routes = case.get("run", "counted"), None
+                if kind == "pd":
+                    run = pd_rank_run(torch, engine, case)
+                elif kind == "light":
+                    run = light_run(torch, engine, FSDP_NEW_TOKENS)
+                else:
+                    run, _, routes = counted_run(torch, engine, cfg,
+                                                 case["model"] == "mixtral")
                 leader = engine._leader
                 engine.close()
                 run["checks_sent"] = leader.checks_sent if leader else 0
@@ -3367,31 +3414,37 @@ def mesh_serve_rank(torch, out_dir: str, spec_path: str) -> None:
                 run = engine.follow()
                 run.update(launches=fa.paged_decode_attention.launches,
                            decode_steps=engine.decode_steps - steps0)
-            torch.cuda.synchronize()
-            run["max_memory_allocated_gb"] = (
-                torch.cuda.max_memory_allocated() / 1e9)
+            run["max_memory_allocated_gb"] = None
+            if device == "cuda":
+                torch.cuda.synchronize()
+                run["max_memory_allocated_gb"] = (
+                    torch.cuda.max_memory_allocated() / 1e9)
+            run["weight_gb"] = memory_bytes(engine.params) / 1e9
             out[case["name"]] = run
             del engine
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
 
 
-def mesh_world(torch, backend: str, ranks: int, cases: list) -> tuple:
+def mesh_world(torch, backend: str, ranks: int, cases: list,
+               device: str = "cuda") -> tuple:
     """Run ``cases`` in a fresh world of ``ranks`` processes
     (mesh_serve_rank): under NCCL one card a rank (one node of ``ranks``
     cards), under gloo every rank on card 0 (``ranks`` nodes of one card
-    on this host).  Fails unless every rank exits 0 within
-    MESH_SERVE_TIMEOUT_S; returns (each rank's results, the MoE cases'
-    routes)."""
+    on this host; ``device="cpu"``: on the CPU, a rehearsal).  Fails
+    unless every rank exits 0 within MESH_SERVE_TIMEOUT_S; returns (each
+    rank's results, the MoE cases' routes)."""
     import shutil
     import tempfile
 
     tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-mesh-"))
     spec_path = tmp / "spec.json"
-    spec_path.write_text(json.dumps({"backend": backend, "cases": cases}))
+    spec_path.write_text(json.dumps({"backend": backend, "cases": cases,
+                                     "device": device}))
     port = free_port()
 
     def env(r):
@@ -3448,7 +3501,8 @@ def check_world(label: str, cfg, case: dict, results: list) -> dict:
                rank_launches=[run["launches"] for run in runs],
                rank_decode_steps=[run["decode_steps"] for run in runs],
                rank_max_memory_gb=[run["max_memory_allocated_gb"]
-                                   for run in runs])
+                                   for run in runs],
+               rank_weight_gb=[run["weight_gb"] for run in runs])
     return out
 
 
@@ -3508,6 +3562,7 @@ def drive_tp_server(n: int, config: str, layers: int) -> dict:
         wall = time.time() - t_run
         if any(r != (200, 64) for r in results):
             fail(f"tp server: completions {results}")
+        pd = tp_server_pd_legs(base, layers)
         after = json.loads(http(base + "/stats")[1])
         launches = (after["kernels"]["paged_decode_attention"]["launches"]
                     - before["kernels"]["paged_decode_attention"]["launches"])
@@ -3516,7 +3571,7 @@ def drive_tp_server(n: int, config: str, layers: int) -> dict:
             fail(f"tp server: {launches} launches over {steps} steps x "
                  f"{layers} layers")
         return {"ttft_s": sorted(ttfts[1:])[1], "launches": launches,
-                "decode_steps": steps, "burst_wall_s": wall}
+                "decode_steps": steps, "burst_wall_s": wall, **pd}
     finally:
         proc.terminate()
         try:
@@ -3524,6 +3579,36 @@ def drive_tp_server(n: int, config: str, layers: int) -> dict:
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait()
+
+
+def tp_server_pd_legs(base: str, layers: int) -> dict:
+    """Phase 16 on N cards: the ``--tensor-parallel`` server takes a
+    prefill leg (every KV head of every layer in its prefill_result) and a
+    decode leg carrying it, whose 16 token ids must equal a colocated
+    request's."""
+    from dstack_tpu_torch.serving.wire import PD_PHASE_HEADER
+
+    payload = {"prompt": PROMPT.format(i=7), "max_tokens": 16,
+               "return_token_ids": True}
+    t0 = time.time()
+    status, result, _ = http_json(base + "/v1/completions", payload,
+                                  {PD_PHASE_HEADER: "prefill"})
+    prefill_s = time.time() - t0
+    if status != 200 or result["kv_k"]["shape"][0] != layers:
+        fail(f"tp server pd: the prefill leg answered {status}")
+    t0 = time.time()
+    status, decoded, _ = http_json(
+        base + "/v1/completions", dict(payload, prefill_result=result),
+        {PD_PHASE_HEADER: "decode"})
+    decode_s = time.time() - t0
+    colocated = http_json(base + "/v1/completions", payload)[1]
+    got = decoded["choices"][0]["token_ids"] if status == 200 else None
+    want = colocated["choices"][0]["token_ids"]
+    if got != want or len(want) != 16:
+        fail(f"tp server pd: the decode leg answered {status} with {got}, "
+             f"the colocated request {want}")
+    return {"pd_prefill_s": prefill_s, "pd_decode_s": decode_s,
+            "pd_kv_shape": result["kv_k"]["shape"]}
 
 
 def http_ok(url: str) -> bool:
@@ -3672,6 +3757,346 @@ def mesh_serving_phase(torch) -> dict:
         log(f"{label}: " + json.dumps(run))
     del mparams
     torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 16: the rest of serving under a mesh -------------------------------
+
+#: phase 16(a)'s prompt: 300 tokens, as phase 10's PD export
+PD_PROMPT = tuple((i * 53 + 17) % 256 for i in range(300))
+PD_NEW_TOKENS = 16
+#: the gloo pair's bf16 export against the one-card engine's: the
+#: largest |difference| of ks, vs and logits over each array's largest
+#: |value|.  The pair's row-parallel products sum two bf16 partials
+#: where one card accumulates in f32, and a layer's input carries the
+#: earlier layers' differences: a few bf16 steps (2^-8) at the top of
+#: the range after 32 layers
+PD_EXPORT_RTOL = 5e-2
+#: tokens each request of phase 16(b) decodes: every forward under fsdp
+#: gathers the weights through host memory (gloo), 12-13 s a forward of
+#: the whole 8B on the H100's host
+FSDP_NEW_TOKENS = 8
+#: phase 16(b)'s int8-weight leg's depth, cut to keep the script near
+#: 800 s (at full depth its forward took 6-7 s)
+FSDP_INT8_LAYERS = 8
+FSDP_POLICY = {"batch_axes": ["fsdp"], "fsdp_axis": "fsdp",
+               "tensor_axis": None}
+#: phase 16(d): Llama-3.2-1B decode_step steps after the prompt
+DECODE_API_STEPS = 16
+
+
+def pd_wire(torch, exp: dict, label: str) -> str:
+    """An export as the prefill leg's JSON (the server's wire codec),
+    its round trip checked bitwise."""
+    from dstack_tpu_torch.serving.server import _arr_from_wire, _arr_to_wire
+
+    wire = {k: _arr_to_wire(exp[k]) for k in ("ks", "vs", "logits")}
+    for k, v in wire.items():
+        back = _arr_from_wire(v)
+        if back.dtype != exp[k].dtype or not torch.equal(back, exp[k]):
+            fail(f"{label}: {k} changed on the wire")
+    return json.dumps(dict(wire, first_token=exp["first_token"],
+                           length=exp["length"]))
+
+
+def pd_prefill(text: str) -> dict:
+    """A decode leg's ``Request.prefill`` from :func:`pd_wire`'s JSON."""
+    from dstack_tpu_torch.serving.server import _arr_from_wire
+
+    return {k: (_arr_from_wire(v) if k in ("ks", "vs", "logits") else v)
+            for k, v in json.loads(text).items()}
+
+
+def pd_rank_run(torch, engine, case: dict) -> dict:
+    """Rank 0 of phase 16(a)'s pair: a warm-up, the one-card engine's
+    export (``case["import"]``, wire JSON) installed and decoded, then the
+    pair's export of the same prompt through the wire codec, written to
+    ``case["export"]``.  K5 launches and decode steps over the run."""
+    from dstack_tpu_torch.ops import flash_attention as fa
+    from dstack_tpu_torch.serving.engine import Request
+
+    fa.paged_decode_attention.launches = 0
+    steps0 = engine.decode_steps
+    drive(torch, engine, [Request(tokens=list(range(40)), max_new_tokens=4)])
+    installed = Request(tokens=list(PD_PROMPT), max_new_tokens=PD_NEW_TOKENS,
+                        prefill=pd_prefill(Path(case["import"]).read_text()))
+    install_s = drive(torch, engine, [installed])
+    t0 = time.perf_counter()
+    exp = engine.prefill_export(list(PD_PROMPT),
+                                max_new_tokens=PD_NEW_TOKENS)
+    export_s = time.perf_counter() - t0
+    text = pd_wire(torch, exp, "pd pair")
+    Path(case["export"]).write_text(text)
+    return {"tokens": [installed.output], "install_and_decode_s": install_s,
+            "export_s": export_s, "wire_bytes": len(text),
+            "launches": fa.paged_decode_attention.launches,
+            "decode_steps": engine.decode_steps - steps0}
+
+
+def light_run(torch, engine, new_tokens: int) -> dict:
+    """ENGINE_PROMPTS submitted at once, ``new_tokens`` each, on a paged
+    engine (one card's or rank 0's of a mesh): TTFT (the first prompt's
+    prefill alone; no warm-up, which under fsdp would cost a forward of
+    seconds), the decode step (the last first token to the last token
+    over the steps decoded), the tokens, and K5 launches and decode steps
+    over the run."""
+    from dstack_tpu_torch.ops import flash_attention as fa
+    from dstack_tpu_torch.serving.engine import Request
+
+    fa.paged_decode_attention.launches = 0
+    steps0 = engine.decode_steps
+    reqs = [Request(tokens=list(p), max_new_tokens=new_tokens)
+            for p in ENGINE_PROMPTS]
+    drive(torch, engine, reqs)
+    steps = engine.decode_steps - steps0
+    return {"ttft_s": reqs[0].first_token_at - reqs[0].submitted_at,
+            "decode_step_s": (max(r.finished_at for r in reqs)
+                              - max(r.first_token_at for r in reqs)) / steps,
+            "tokens": [r.output for r in reqs],
+            "launches": fa.paged_decode_attention.launches,
+            "decode_steps": steps}
+
+
+def export_errors(torch, got: dict, want: dict) -> dict:
+    """ks, vs and logits: the largest |got - want| over want's largest
+    |value|."""
+    return {k: float((got[k].float() - want[k].float()).abs().max()
+                     / want[k].float().abs().max())
+            for k in ("ks", "vs", "logits")}
+
+
+def decode_api_part(torch, cfg=None, device: str = "cuda") -> dict:
+    """Phase 16(d): ``llama.decode_step`` from ``init_kv_caches`` on
+    Llama-3.2-1B (full size, seed 2): the first ENGINE_PROMPTS prompt a
+    token a step, then DECODE_API_STEPS greedy steps, each token held to
+    the plain forward's argmax within 0.1 std; ``memory_bytes`` of the
+    bf16 tree and of its int8 quantization beside ``num_params``."""
+    from dstack_tpu_torch.models.llama import (LlamaConfig, decode_step,
+                                               init_kv_caches, init_params)
+    from dstack_tpu_torch.serving.quant import memory_bytes, quantize_params
+
+    cfg = cfg or LlamaConfig.llama3_1b()
+    params = init_params(cfg, device,
+                         torch.Generator(device=device).manual_seed(2))
+    prompt = list(ENGINE_PROMPTS[0])
+    cache = init_kv_caches(cfg, 1, 64, device=device)
+    for t in prompt:
+        logits, cache = decode_step(
+            params, torch.tensor([t], device=device), cache, cfg)
+    out = []
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_API_STEPS):
+        token = torch.argmax(logits, dim=-1)
+        out.append(token)
+        logits, cache = decode_step(params, token, cache, cfg)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / DECODE_API_STEPS
+    tokens = [int(t) for t in torch.cat(out)]
+    worst = greedy_gaps(torch, params, cfg, as_requests([prompt], [tokens]),
+                        0.1, "decode_step 1b", DECODE_API_STEPS)
+    res = {"num_params": cfg.num_params(), "step_s": step_s,
+           "bf16_bytes": memory_bytes(params), "worst_gap_std": worst,
+           "int8_bytes": memory_bytes(quantize_params(
+               params, tied_head_copy=cfg.tie_embeddings))}
+    log("mesh-rest decode_step: " + json.dumps(res))
+    return res
+
+
+def mesh_serving_rest_phase(torch, model: str = "llama3-8b",
+                            device: str = "cuda") -> dict:
+    """Phase 16: the rest of serving under a mesh, beside the one-card
+    engine on the same Llama-3-8B weights (full size, seed 1, batch 8,
+    max_len 1024, paged).  Two rank processes share card 0 under gloo as
+    phase 13's pair does.
+
+    (a) PD at tensor=2: the one-card engine's export of PD_PROMPT goes
+    through the wire codec to the pair, which installs it (each rank its
+    heads) and decodes PD_NEW_TOKENS, then exports the same prompt (each
+    rank's heads gathered) through the wire to this process, where it is
+    held to the one-card export (PD_EXPORT_RTOL; first_token equal) and
+    installed into the one-card engine.  (b) MeshSpec(fsdp=2) with the
+    weights over fsdp (FSDP_POLICY): bf16, then int8 weights; each rank
+    holds half the matrices and gathers a layer at use.  (c) a one-card
+    engine made under DSTACK_TPU_RAGGED_DECODE=0 (the full block-table
+    span) beside the ragged one, each held to the plain forward and their
+    agreement counted.  (d) decode_api_part.
+    Every greedy token within 0.1 std of the plain forward (int8 weights:
+    of the dequantized tree), K5 launches exactly layers x decode steps
+    on every rank of every run, every follower in lockstep.  Returns each
+    part's numbers and ``k5_launches``, the launches by kernels-line
+    row.  A CPU rehearsal passes ``model="tiny", device="cpu"`` with
+    ``fail`` patched to print (launch counts are the card's)."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    from dstack_tpu_torch.models.llama import init_params
+    from dstack_tpu_torch.ops import flash_attention as fa
+    from dstack_tpu_torch.serving.engine import Request
+    from dstack_tpu_torch.serving.quant import memory_bytes, quantize_params
+
+    cuda = device == "cuda"
+    cfg = mesh_cfg(model)
+    params = init_params(cfg, device,
+                         torch.Generator(device=device).manual_seed(1))
+    row_8b = k5_row({"model": "llama3-8b", "mesh": {}})
+    row_t2 = k5_row({"model": "llama3-8b", "mesh": {"tensor": 2}})
+    k5, out = Counter(), {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-rest-"))
+    try:
+        one = mesh_engine(cfg, 1, None, params=params, device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp = one.prefill_export(list(PD_PROMPT),
+                                 max_new_tokens=PD_NEW_TOKENS)
+        one_export_s = time.perf_counter() - t0
+        (tmp / "one.json").write_text(pd_wire(torch, exp, "pd one-card"))
+        int8_cfg = mesh_cfg(model, FSDP_INT8_LAYERS)
+        cases = [{"name": "llama3-8b-t2-pd", "model": model,
+                  "mesh": {"tensor": 2}, "seed": 1, "run": "pd",
+                  "import": str(tmp / "one.json"),
+                  "export": str(tmp / "pair.json")},
+                 {"name": "llama3-8b-fsdp2", "model": model,
+                  "mesh": {"fsdp": 2}, "seed": 1, "run": "light",
+                  "policy": FSDP_POLICY},
+                 {"name": "llama3-8b-fsdp2-int8", "model": model,
+                  "layers": FSDP_INT8_LAYERS, "mesh": {"fsdp": 2},
+                  "seed": 1, "run": "light", "policy": FSDP_POLICY,
+                  "quantize": "int8"}]
+        t0 = time.time()
+        results, _ = mesh_world(torch, "gloo", 2, cases, device)
+        out["world_s"] = time.time() - t0
+        if any(r["backend"] != "gloo" for r in results):
+            fail(f"mesh rest: gloo world backends {results}")
+
+        # (a) PD at tensor=2, both ways
+        pair = check_world("pd gloo t2", cfg, cases[0], results)
+        k5[row_t2] += sum(pair["rank_launches"])
+        pair["worst_gap_std"] = greedy_gaps(
+            torch, params, cfg, as_requests([PD_PROMPT], pair["tokens"]),
+            0.1, "pd install into the pair", PD_NEW_TOKENS)
+        pair_exp = pd_prefill((tmp / "pair.json").read_text())
+        errs = export_errors(torch, pair_exp, exp)
+        if (max(errs.values()) > PD_EXPORT_RTOL
+                or pair_exp["first_token"] != exp["first_token"]
+                or pair_exp["length"] != exp["length"]):
+            fail(f"pd: the pair's export against the one-card one: {errs} "
+                 f"(limit {PD_EXPORT_RTOL}), first token "
+                 f"{pair_exp['first_token']} vs {exp['first_token']}")
+        pair["export_rel_err"] = errs
+        fa.paged_decode_attention.launches = 0
+        steps0 = one.decode_steps
+        installed = Request(tokens=list(PD_PROMPT),
+                            max_new_tokens=PD_NEW_TOKENS, prefill=pair_exp)
+        install_s = drive(torch, one, [installed])
+        pd_one = {"launches": fa.paged_decode_attention.launches,
+                  "decode_steps": one.decode_steps - steps0,
+                  "install_and_decode_s": install_s,
+                  "export_s": one_export_s}
+        check_launches("pd install into one card", cfg, [pd_one])
+        k5[row_8b] += pd_one["launches"]
+        pd_one["worst_gap_std"] = greedy_gaps(
+            torch, params, cfg, [installed], 0.1, "pd install into one card",
+            PD_NEW_TOKENS)
+        out["pd"] = {"pair": pair, "one_card": pd_one}
+        log("mesh-rest pd: " + json.dumps(out["pd"]))
+
+        # (b) the weights over fsdp, beside the one-card engine
+        lone = light_run(torch, one, FSDP_NEW_TOKENS)
+        lone["weight_gb"] = memory_bytes(params) / 1e9
+        check_launches("fsdp one-card bf16", cfg, [lone])
+        k5[row_8b] += lone["launches"]
+        fsdp = check_world("fsdp gloo bf16", cfg, cases[1], results)
+        k5[row_8b] += sum(fsdp["rank_launches"])
+        fsdp["worst_gap_std"] = greedy_gaps(
+            torch, params, cfg, as_requests(ENGINE_PROMPTS, fsdp["tokens"]),
+            0.1, "fsdp bf16", FSDP_NEW_TOKENS)
+        out["fsdp_bf16"] = {"one_card": lone, "fsdp2": fsdp}
+        del one
+        torch.cuda.empty_cache()
+        ref = params if FSDP_INT8_LAYERS is None else init_params(
+            int8_cfg, device, torch.Generator(device=device).manual_seed(1))
+        engine = mesh_engine(int8_cfg, 1, None, params=ref, device=device,
+                             quantize="int8")
+        drive(torch, engine, [Request(tokens=list(range(40)),
+                                      max_new_tokens=1)])  # warm, as `one`
+        lone8 = light_run(torch, engine, FSDP_NEW_TOKENS)
+        lone8["weight_gb"] = memory_bytes(engine.params) / 1e9
+        del engine
+        torch.cuda.empty_cache()
+        check_launches("fsdp one-card int8", int8_cfg, [lone8])
+        k5[row_8b] += lone8["launches"]
+        fsdp8 = check_world("fsdp gloo int8", int8_cfg, cases[2], results)
+        k5[row_8b] += sum(fsdp8["rank_launches"])
+        deq = dequantized_dense(
+            torch, quantize_params(ref), cfg.dtype,
+            names=("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
+        del ref
+        fsdp8["worst_gap_std"] = greedy_gaps(
+            torch, deq, int8_cfg, as_requests(ENGINE_PROMPTS,
+                                              fsdp8["tokens"]),
+            0.1, "fsdp int8", FSDP_NEW_TOKENS)
+        del deq
+        torch.cuda.empty_cache()
+        out["fsdp_int8"] = {"one_card": lone8, "fsdp2": fsdp8}
+        embed_gb = memory_bytes(params["embed"]) / 1e9
+        for name in ("fsdp_bf16", "fsdp_int8"):
+            # the embedding whole on each rank, half of everything else
+            # (the norms and some int8 scales, replicated, within 2%)
+            whole = out[name]["one_card"]["weight_gb"]
+            half = embed_gb + (whole - embed_gb) / 2
+            if max(out[name]["fsdp2"]["rank_weight_gb"]) > 1.02 * half:
+                fail(f"{name}: ranks hold "
+                     f"{out[name]['fsdp2']['rank_weight_gb']} GB of the "
+                     f"{whole} GB of weights, not {half} GB")
+            log(f"mesh-rest {name}: " + json.dumps(out[name]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) the full block-table span beside the ragged bucket
+    runs = {}
+    for name, ragged in (("ragged", "1"), ("full", "0")):
+        before = os.environ.get("DSTACK_TPU_RAGGED_DECODE")
+        os.environ["DSTACK_TPU_RAGGED_DECODE"] = ragged
+        try:
+            engine = mesh_engine(cfg, 1, None, params=params, device=device)
+        finally:
+            if before is None:
+                os.environ.pop("DSTACK_TPU_RAGGED_DECODE")
+            else:
+                os.environ["DSTACK_TPU_RAGGED_DECODE"] = before
+        run, reqs, _ = counted_run(torch, engine, cfg, False)
+        check_launches(f"{name} span", cfg, [run])
+        k5[row_8b] += run["launches"]
+        runs[name] = {k: run[k] for k in ("ttft_s", "decode_step_s",
+                                          "decode_tok_per_s", "launches",
+                                          "decode_steps", "tokens")}
+        runs[name]["worst_gap_std"] = greedy_gaps(
+            torch, params, cfg, reqs, 0.1, f"{name} span", 12)
+        del engine
+        torch.cuda.empty_cache()
+    # K5 splits the full span into other partial sums than the ragged
+    # bucket (its split count follows the table's width), so the two
+    # agree to rounding, and a near-tie may fall either way: each engine
+    # is held to the plain forward, and the agreement is printed
+    ragged, full = runs["ragged"]["tokens"], runs["full"]["tokens"]
+    runs["same_tokens"] = sum(
+        next((i for i, (a, b) in enumerate(zip(r, f)) if a != b), len(r))
+        for r, f in zip(ragged, full))
+    runs["tokens_checked"] = sum(len(r) for r in ragged)
+    out["span"] = runs
+    log("mesh-rest span: " + json.dumps(runs))
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) the plain-cache decode
+    out["decode_api"] = decode_api_part(
+        torch, None if cuda else mesh_cfg("tiny"), device)
+    out["k5_launches"] = dict(k5)
     return out
 
 
@@ -4300,6 +4725,12 @@ def main() -> int:
         elastic_train_rank(torch, *sys.argv[2:5])
         return 0
 
+    if sys.argv[1:2] == ["--mesh-serve-rank"]:
+        # a rank of phase 13 or 16: its spec names the device
+        sys.path.insert(0, str(ROOT))
+        mesh_serve_rank(torch, *sys.argv[2:4])
+        return 0
+
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -4310,9 +4741,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     if sys.argv[1:2] == ["--sharded-rank"]:
         sharded_rank(torch, *sys.argv[2:5])
-        return 0
-    if sys.argv[1:2] == ["--mesh-serve-rank"]:
-        mesh_serve_rank(torch, *sys.argv[2:4])
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4396,6 +4824,9 @@ def main() -> int:
         if isinstance(run, dict) and "k5_row" in run:
             kernels[run["k5_row"]]["launches"] += sum(
                 run.get("rank_launches", [run["launches"]]))
+    rest = mesh_serving_rest_phase(torch)
+    for row, launches in rest["k5_launches"].items():
+        kernels[row]["launches"] += launches
     context = context_pipeline_phase(torch)
     # both ranks' launches: Ulysses runs the kernels on the whole sequence
     # of half the heads (the seq=2 rows' shapes), the pipeline on
@@ -4465,6 +4896,23 @@ def main() -> int:
             "worst_gap_std", "flips", "rank_max_memory_gb") if k in run}
             if isinstance(run, dict) else run)
             for name, run in meshed.items()}}))
+    log("mesh-serving-rest summary: " + json.dumps({
+        "card": card, "world_s": rest["world_s"],
+        "pd_pair": {k: rest["pd"]["pair"][k] for k in (
+            "export_rel_err", "export_s", "install_and_decode_s",
+            "wire_bytes", "rank_launches", "followers_checked",
+            "worst_gap_std")},
+        "pd_one_card": rest["pd"]["one_card"],
+        **{name: {side: {k: run[k] for k in (
+            "ttft_s", "decode_step_s", "launches", "decode_steps",
+            "rank_launches", "followers_checked", "worst_gap_std",
+            "rank_max_memory_gb", "rank_weight_gb", "weight_gb") if k in run}
+            for side, run in rest[name].items()}
+           for name in ("fsdp_bf16", "fsdp_int8")},
+        "span": {name: ({k: v for k, v in run.items() if k != "tokens"}
+                        if isinstance(run, dict) else run)
+                 for name, run in rest["span"].items()},
+        "decode_api": rest["decode_api"]}))
     log("context-pipeline summary: " + json.dumps({"card": card, **{
         name: {k: run[k] for k in (
             "unsharded", "sharded", "loss_rel_err", "grad_norm_rel_err",

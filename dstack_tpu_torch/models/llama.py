@@ -35,7 +35,8 @@ from torch.utils.checkpoint import checkpoint
 
 from dstack_tpu_torch.ops import flash_attention as flash
 from dstack_tpu_torch.ops import ulysses
-from dstack_tpu_torch.ops.attention import causal_attention
+from dstack_tpu_torch.ops.attention import (KVCache, causal_attention,
+                                            decode_step_attention)
 from dstack_tpu_torch.ops.ring_attention import ring_attention_sharded
 from dstack_tpu_torch.ops.loss import f32_logits
 from dstack_tpu_torch.ops.rmsnorm import rms_norm
@@ -44,6 +45,7 @@ from dstack_tpu_torch.parallel import collectives
 from dstack_tpu_torch.parallel.pipeline import pipeline_layers
 from dstack_tpu_torch.parallel.mesh import (distribute, entry_axes,
                                             mesh_sizes, placements)
+from dstack_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
 
@@ -428,10 +430,17 @@ class Layout:
     layer dim stays sharded (each stage runs its own layers,
     :mod:`dstack_tpu_torch.parallel.pipeline`) and everything else is
     replicated.  :attr:`kept` lists the axes a weight may stay sharded
-    on (a subclass adds its own)."""
+    on (a subclass adds its own).
 
-    def __init__(self, mesh: Any, policy: ShardingPolicy, cfg: LlamaConfig):
-        self.mesh, self.policy = mesh, policy
+    ``serving``: the serving engine's layout, as the JAX engine's
+    unconstrained activations are placed.  Every rank holds all the rows
+    (the batch axes stripe nothing), and each weight is gathered at use
+    over every axis of its spec that is not kept (``fsdp``), so a rank
+    keeps its shard and holds one layer's gathered weights at a time."""
+
+    def __init__(self, mesh: Any, policy: ShardingPolicy, cfg: LlamaConfig,
+                 serving: bool = False):
+        self.mesh, self.policy, self.serving = mesh, policy, serving
         self.seq = self.stage = None
         if mesh is None:
             return
@@ -445,7 +454,8 @@ class Layout:
             raise NotImplementedError(
                 "pipeline (stage) and context (seq) parallelism can't be "
                 "combined yet; drop one of the two axes from the mesh/policy")
-        self.batch = [a for a in policy.batch_axes if sizes.get(a, 1) > 1]
+        self.batch = [a for a in policy.batch_axes
+                      if sizes.get(a, 1) > 1 and not serving]
         t = policy.tensor_axis
         self.tensor = t if t and sizes.get(t, 1) > 1 else None
         tsize = sizes[t] if self.tensor else 1
@@ -461,8 +471,8 @@ class Layout:
                 f"seq_scheme='ulysses' needs num_heads ({cfg.num_heads}) "
                 f"and num_kv_heads ({cfg.num_kv_heads}) divisible by seq x "
                 f"tensor degree; use seq_scheme='ring' instead")
-        self.batch_count = math.prod(sizes.get(a, 1)
-                                     for a in policy.batch_axes)
+        self.batch_count = 1 if serving else math.prod(
+            sizes.get(a, 1) for a in policy.batch_axes)
         self.seq_count = sizes[self.seq] if self.seq else 1
         self.stage_count = sizes[self.stage] if self.stage else 1
         self.tsize = tsize
@@ -488,15 +498,17 @@ class Layout:
 
     def weight(self, w: torch.Tensor, spec, whole: bool = False):
         """The weight a rank computes with: gathered over the batch axes
-        (and over ``tensor`` too when ``whole``: the head before the loss,
-        whose gradient every tensor rank computes whole)."""
+        (under ``serving``, over every axis not kept; and over ``tensor``
+        too when ``whole``: the head before the loss, whose gradient every
+        tensor rank computes whole)."""
         if self.mesh is None:
             return w
         gathered = set()
         for dim, entry in enumerate(spec):
             axes = [a for a in entry_axes(entry) if self.sizes[a] > 1]
             kept = [a for a in axes
-                    if a not in self.batch and not (whole and a == self.tensor)]
+                    if (a in self.kept if self.serving else a not in self.batch)
+                    and not (whole and a == self.tensor)]
             if axes[:len(kept)] != kept:
                 raise NotImplementedError(
                     f"spec {spec}: a gathered axis is major to a kept one")
@@ -739,3 +751,56 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     x = backbone(params, tokens, cfg, mesh=mesh, policy=policy,
                  positions=positions, remat=remat)
     return f32_logits(x, output_head(params, cfg, mesh, policy))
+
+
+# -- the plain-cache decode ----------------------------------------------------
+
+
+def init_kv_caches(cfg: LlamaConfig, batch: int, max_len: int,
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> KVCache:
+    """Zeroed [L, B, S, Hkv, D] caches in ``cfg.dtype`` for
+    :func:`decode_step`, on ``device`` (CUDA unless the CPU is named)."""
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                   v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                   length=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def decode_step(params: Params, token: torch.Tensor, cache: KVCache,
+                cfg: LlamaConfig) -> tuple:
+    """One autoregressive step of every row at position ``cache.length``
+    (token [B]); returns (f32 logits [B, V], the cache one longer).  The
+    plain-cache decode of the JAX package: plain attention over a dense
+    cache, no kernel (the serving engine's paged decode is the kernel's
+    path)."""
+    b = token.shape[0]
+    dev = token.device
+    pos = cache.length
+    positions = torch.as_tensor(pos, device=dev).long().reshape(1, 1).expand(
+        b, 1)
+    inv_freqs = torch.from_numpy(rope_frequencies(
+        cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(dev)
+    x = params["embed"].to(cfg.dtype)[token][:, None, :]      # [B, 1, D]
+    layers = params["layers"]
+    new_k, new_v = [], []
+    for l in range(cfg.num_layers):
+        lp = (layers[l] if isinstance(layers, (list, tuple))
+              else {k: w[l] for k, w in layers.items()})
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        q, k, v = ((h @ lp[name]).reshape(b, 1, -1, cfg.head_dim)
+                   for name in ("wq", "wk", "wv"))
+        q = apply_rope(q, positions, inv_freqs)
+        k = apply_rope(k, positions, inv_freqs)
+        attn, layer = decode_step_attention(
+            q, KVCache(k=cache.k[l], v=cache.v[l], length=pos), k, v)
+        x = x + attn.reshape(b, 1, cfg.q_dim) @ lp["wo"]
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+        x = x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+        new_k.append(layer.k)
+        new_v.append(layer.v)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = f32_logits(x, output_head(params, cfg))
+    return logits[:, 0], KVCache(k=torch.stack(new_k), v=torch.stack(new_v),
+                                 length=pos + 1)

@@ -203,11 +203,12 @@ class ExpertLayout(Layout):
     to them, and :meth:`combine` sums the experts' outputs.  Routing stays
     the global batch's (:meth:`slot_offsets`, :meth:`batch_total`).  An
     expert axis among the batch axes (the all-to-all dispatch) is not
-    ported."""
+    ported.  ``serving``: as :class:`Layout`'s (every rank routes all the
+    rows, so routing is the rows' own)."""
 
     def __init__(self, mesh: Any, policy: ShardingPolicy, cfg: MoEConfig,
-                 expert_axis: Optional[str] = None):
-        super().__init__(mesh, policy, cfg)
+                 expert_axis: Optional[str] = None, serving: bool = False):
+        super().__init__(mesh, policy, cfg, serving)
         if self.seq or self.stage:
             # the JAX MoE backbone pipelines nothing and keeps its
             # activations whole over seq

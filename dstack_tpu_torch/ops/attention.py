@@ -4,12 +4,14 @@ The route :func:`dstack_tpu_torch.models.llama.backbone` takes when the
 fused kernel does not handle the shape (custom positions, a sequence that
 is not a multiple of 128), and the reference the flash kernels' plain
 versions are tested against.  It materialises the [B, Hkv, G, Sq, Skv] f32
-scores, as the JAX package's ``causal_attention`` does.
+scores, as the JAX package's ``causal_attention`` does.  :class:`KVCache`
+and :func:`decode_step_attention` are the plain-cache decode of
+:func:`dstack_tpu_torch.models.llama.decode_step`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -52,3 +54,33 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
                        v.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+class KVCache(NamedTuple):
+    """The plain decode cache: ``k``, ``v`` [B, max_seq, Hkv, D] and the
+    tokens filled so far, ``length`` (a 0-d int tensor, one for the whole
+    batch)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+
+def decode_step_attention(q: torch.Tensor, cache: KVCache,
+                          new_k: torch.Tensor, new_v: torch.Tensor) -> tuple:
+    """One-token decode: write ``new_k``/``new_v`` at ``cache.length``
+    and attend over the ``length + 1`` filled rows.  q, new_k, new_v:
+    [B, 1, H*, D].  Returns ``(out [B, 1, Hq, D], new cache)``; the cache
+    tensors are new ones, as the JAX package's functional update gives
+    them."""
+    b = q.shape[0]
+    idx = torch.as_tensor(cache.length, device=q.device)
+    # clamped into the cache as dynamic_update_slice clamps its start
+    at = idx.long().clamp(0, cache.k.shape[1] - 1).reshape(1)
+    k = cache.k.index_copy(1, at, new_k)
+    v = cache.v.index_copy(1, at, new_v)
+    out = causal_attention(
+        q, k, v, q_positions=idx.long().reshape(1, 1).expand(b, 1),
+        kv_positions=torch.arange(k.shape[1], device=q.device)[None, :],
+        kv_valid_length=(idx.long() + 1).reshape(1).expand(b))
+    return out, KVCache(k=k, v=v, length=idx + 1)

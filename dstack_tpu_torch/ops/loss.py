@@ -5,11 +5,13 @@ The [B, S, V] f32 logits of a Llama vocabulary dominate training memory
 sequence chunks, and each chunk's ``x @ head`` and NLL run under
 ``torch.utils.checkpoint``, so the backward recomputes one chunk's logits
 at a time (one extra head matmul per step), as the JAX package's
-``jax.checkpoint(body)`` does.
+``jax.checkpoint(body)`` does.  The chunk's default is
+``DSTACK_TPU_CE_CHUNK``, read at each call (:func:`ce_chunk`).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -63,16 +65,33 @@ def _chunk_nll(x, head, targets, mask):
     return nll.sum() if mask is None else (nll * mask.float()).sum()
 
 
+def ce_chunk(chunk: Optional[int] = None) -> int:
+    """The sequence chunk of the cross entropy: ``chunk``, or else
+    ``DSTACK_TPU_CE_CHUNK`` read now (default 512, the JAX package's
+    measured best for the 1B bench shape), with the JAX package's
+    errors."""
+    if chunk is None:
+        raw = os.environ.get("DSTACK_TPU_CE_CHUNK", "512")
+        try:
+            chunk = int(raw)
+        except ValueError:
+            raise ValueError(f"DSTACK_TPU_CE_CHUNK={raw!r} is not an int")
+        if chunk < 1:
+            raise ValueError(f"DSTACK_TPU_CE_CHUNK must be >= 1, got {raw}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    return chunk
+
+
 def chunked_nll_sum(x: torch.Tensor, head: torch.Tensor,
                     targets: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
-                    chunk: int = 512) -> tuple:
+                    chunk: Optional[int] = None) -> tuple:
     """``(total, count)``: the NLL summed over the (masked) positions, f32
     and differentiable, and the number of those positions, f32 without a
     gradient (see :func:`chunked_cross_entropy`; a sharded loss sums both
     over the batch's ranks)."""
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    chunk = ce_chunk(chunk)
     b, s, _ = x.shape
     chunk = _pick_chunk(s, chunk)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -90,11 +109,12 @@ def chunked_nll_sum(x: torch.Tensor, head: torch.Tensor,
 def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
                           targets: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
-                          chunk: int = 512) -> torch.Tensor:
+                          chunk: Optional[int] = None) -> torch.Tensor:
     """Mean NLL over (masked) positions without full logits.
 
     x: [B, S, D] final hidden states; head: [D, V] (``embed.T`` when tied);
     targets: [B, S] int; mask: [B, S], 1 where the loss counts.  ``chunk``
-    is the target sequence chunk, shrunk to a divisor of S."""
+    is the target sequence chunk, shrunk to a divisor of S (None:
+    :func:`ce_chunk`'s)."""
     total, count = chunked_nll_sum(x, head, targets, mask, chunk)
     return total / count.clamp_min(1.0)

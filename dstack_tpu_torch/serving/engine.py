@@ -27,6 +27,7 @@ stream after the reads it must follow.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -140,6 +141,34 @@ def _all_layers(params: Params, cfg: LlamaConfig) -> List[Dict[str, Any]]:
     return [_layer_params(params, l) for l in range(cfg.num_layers)]
 
 
+def _gathered(layout: Layout, w, spec: tuple):
+    """A serving weight as a rank computes with it: its shard gathered
+    whole over the axes the layout does not keep (``fsdp``); an int8
+    ``{"q", "s"}`` weight's scales follow its output channels."""
+    if isinstance(w, dict):
+        return {"q": layout.weight(w["q"], spec),
+                "s": layout.weight(w["s"], spec[:-2] + spec[-1:])}
+    return layout.weight(w, spec)
+
+
+class _GatheredLayers:
+    """The layers of an engine whose weights are sharded over ``fsdp``, as
+    the forward walks them: each layer's shards gathered at use
+    (:func:`_gathered`), so a rank holds its shards and the gathered
+    weights of the layer it runs (and, while the next is gathered, of the
+    one before)."""
+
+    def __init__(self, params: Params, cfg: LlamaConfig, layout: Layout,
+                 specs: Dict[str, tuple]):
+        self.params, self.layout, self.specs = params, layout, specs
+        self.n = cfg.num_layers
+
+    def __iter__(self):
+        for l in range(self.n):
+            yield {name: _gathered(self.layout, w, self.specs[name])
+                   for name, w in _layer_params(self.params, l).items()}
+
+
 def _inv_freqs(cfg: LlamaConfig, device) -> torch.Tensor:
     return torch.from_numpy(rope_frequencies(
         cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(device)
@@ -159,10 +188,14 @@ def _logits(rows, params: Params, cfg: LlamaConfig,
             layout: Optional[Layout] = None):
     """f32 logits of normed hiddens.  Under a mesh a head of its own
     ("lm_head": untied, or a tied model's int8 copy) holds this rank's
-    vocab columns, and the logits are gathered whole on every rank; a
-    tied head reads the replicated embedding whole."""
-    y = qmatmul(rows, output_head(params, cfg), cfg.dtype,
-                preferred=torch.float32)
+    vocab columns (gathered over ``fsdp`` first), and the logits are
+    gathered whole on every rank; a tied head reads the replicated
+    embedding whole."""
+    head = output_head(params, cfg)
+    if layout is not None and "lm_head" in params:
+        head = _gathered(layout, head, (layout.policy.fsdp_axis,
+                                        layout.policy.tensor_axis))
+    y = qmatmul(rows, head, cfg.dtype, preferred=torch.float32)
     if layout is None or layout.tensor is None or "lm_head" not in params:
         return y
     return collectives.all_gather_list(y, y.dim() - 1, layout.mesh,
@@ -246,15 +279,19 @@ def _layer_kv(layers, cfg: LlamaConfig, x, positions, inv_freqs,
 
 def _prompt_forward(params: Params, cfg: LlamaConfig, padded: torch.Tensor,
                     length: int, bucket: int, every_position: bool = False,
-                    layout: Optional[Layout] = None):
+                    layout: Optional[Layout] = None, layers=None):
     """Forward over a padded prompt: (last-position f32 logits, ks, vs) —
     the one source of prefill math.  ``every_position``: logits [length,
     V] of each prompt position instead.  Under a mesh (``layout``) the
-    weights are this rank's, the K/V its heads', the logits whole."""
+    weights are this rank's, the K/V its heads', the logits whole;
+    ``layers`` (default: views of ``params``' layers) is how the engine
+    reads them."""
     device = padded.device
     positions = torch.arange(bucket, device=device)[None, :]
     x = _embed(params, cfg, padded)[None, :, :]
-    x, ks, vs = _layer_kv(_all_layers(params, cfg), cfg, x, positions,
+    if layers is None:
+        layers = _all_layers(params, cfg)
+    x, ks, vs = _layer_kv(layers, cfg, x, positions,
                           _inv_freqs(cfg, device), positions < length,
                           layout)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -396,16 +433,21 @@ class InferenceEngine:
         sharded as the JAX engine's mesh does: heads and ffn over the
         policy's ``tensor`` axis (Megatron-style; the KV cache holds this
         rank's Hkv / tensor heads in every format), MoE experts over
-        ``expert``, the embedding replicated and a head of its own
-        vocab-sharded.  ``sharding_policy`` defaults to
-        ``ShardingPolicy(batch_axes=(), fsdp_axis=None,
-        tensor_axis="tensor")``.  Given ``params`` are whole trees, of
-        which each rank keeps its blocks; without them each rank draws
-        every matrix from ``rng_seed`` and keeps its blocks (the one-card
-        engine's weights, never whole on one card).  Every rank builds
-        the engine; rank 0 drives it and :meth:`close` ends it, and every
-        other rank calls :meth:`follow` (serving/lockstep.py).
-        Prefill/decode export and install are not ported under a mesh.
+        ``expert``, the matrices' contraction dim over ``fsdp_axis``
+        (gathered a layer at a time at use; ``lm_head`` at (fsdp,
+        tensor)), the embedding replicated and a head of its own
+        vocab-sharded.  Every rank holds all the slots: the batch axes
+        stripe nothing, as the JAX engine's unconstrained activations are
+        replicated, and the KV cache is sharded over ``tensor`` only.
+        ``sharding_policy`` defaults to ``ShardingPolicy(batch_axes=(),
+        fsdp_axis=None, tensor_axis="tensor")``.  Given ``params`` are
+        whole trees, of which each rank keeps its blocks; without them
+        each rank draws every matrix from ``rng_seed`` and keeps its
+        blocks (the one-card engine's weights, never whole on one card).
+        Every rank builds the engine; rank 0 drives it and :meth:`close`
+        ends it, and every other rank calls :meth:`follow`
+        (serving/lockstep.py).  Prefill/decode export and install run on
+        every rank as lockstep operations.
 
         ``paged=True`` switches the KV cache from a dense [B, max_len] row
         per slot to block paging: each request reserves only
@@ -460,6 +502,7 @@ class InferenceEngine:
                        else mesh_lib.mesh_device(mesh))
         self.mesh = mesh
         self._layout: Optional[Layout] = None
+        self._fsdp = False
         self._leader = self._follower = None
         #: why a sharded engine stopped serving (a step failed on rank 0),
         #: or None
@@ -483,6 +526,15 @@ class InferenceEngine:
         self._kernels_pending = (
             self.compile_cache is not None and self.device.type == "cuda"
             and paged and kv_quantize != "int4")
+        #: paged decode reads a power-of-two bucket of each slot's block
+        #: table sized to the longest active slot; DSTACK_TPU_RAGGED_DECODE=0
+        #: reads the full span (the JAX engine's dense-paged baseline)
+        self._ragged = os.environ.get(
+            "DSTACK_TPU_RAGGED_DECODE", "1") != "0"
+        #: a sharded engine's device operations, each sent and run whole
+        #: (a prefill leg's export comes from the HTTP thread)
+        self._op_lock = (threading.Lock() if mesh is not None
+                         else contextlib.nullcontext())
         if paged:
             if kv_block_size <= 0 or kv_block_size & (kv_block_size - 1):
                 # prefill buckets are powers of two: any power-of-two block
@@ -558,7 +610,10 @@ class InferenceEngine:
                 params["lm_head"] = self._local_blocks(
                     {"lm_head": params["lm_head"]})["lm_head"]
         self.params = params
-        self._layers = _all_layers(params, cfg)
+        self._layers = (
+            _GatheredLayers(params, cfg, self._layout,
+                            {n: self._leaf_spec(n) for n in params["layers"]})
+            if self._fsdp else _all_layers(params, cfg))
         self._inv_freqs = _inv_freqs(cfg, self.device)
         self._queue: "queue.Queue[Request]" = queue.Queue()
         #: head-of-line request waiting for KV blocks (paged mode)
@@ -591,6 +646,9 @@ class InferenceEngine:
         self.spec_stats = {"steps": 0, "accepted": 0}
         if mesh is not None:
             self._leader, self._follower = lockstep.role(self)
+        #: rank 0 of a sharded engine, or a one-card engine: the rank that
+        #: returns what the operations produce
+        self._is_rank0 = self._follower is None
 
     # -- the mesh ----------------------------------------------------------
 
@@ -620,18 +678,21 @@ class InferenceEngine:
                 f"expert-parallel serving needs num_experts "
                 f"({cfg.num_experts}) divisible by the expert mesh degree "
                 f"({e})")
-        over = [a for a in (*policy.batch_axes, policy.fsdp_axis,
-                            policy.seq_axis, policy.stage_axis)
+        over = [a for a in (policy.seq_axis, policy.stage_axis)
                 if a and sizes.get(a, 1) > 1]
         if over:
             raise NotImplementedError(
-                f"serving with the batch or the weights sharded over {over} "
-                "is not yet ported to dstack_tpu_torch")
+                f"serving with the sequence or the layers sharded over "
+                f"{over} is not yet ported to dstack_tpu_torch")
         if device is not None and torch.device(device).type != mesh.device_type:
             raise ValueError(f"device={device} but the mesh is on "
                              f"{mesh.device_type}")
-        self._layout = (moe.ExpertLayout(mesh, policy, cfg, "expert")
-                        if self._is_moe else Layout(mesh, policy, cfg))
+        self._layout = (
+            moe.ExpertLayout(mesh, policy, cfg, "expert", serving=True)
+            if self._is_moe else Layout(mesh, policy, cfg, serving=True))
+        #: the weights are sharded over fsdp: gathered a layer at a time
+        self._fsdp = bool(policy.fsdp_axis) and sizes.get(
+            policy.fsdp_axis, 1) > 1
         specs = (moe.param_specs(cfg, policy) if self._is_moe
                  else llama.param_specs(cfg, policy))
         # the embedding replicated: decode reads one row a token, and a
@@ -713,21 +774,25 @@ class InferenceEngine:
     def close(self) -> None:
         """Rank 0: end the followers' loops (after the engine's last
         step, from the thread that drives it).  Idempotent."""
-        if self._leader is not None:
-            self._leader.stop()
-            self._leader = None
+        with self._op_lock:
+            if self._leader is not None:
+                self._leader.stop()
+                self._leader = None
 
     def _op(self, name: str, **args):
         """Run device operation ``name`` (``_do_<name>``) with host
         ``args``, on every rank of a sharded engine: rank 0 broadcasts it
-        first."""
-        if self._leader is not None:
-            self._leader.send(name, args)
-        return getattr(self, "_do_" + name)(**args)
+        first, and no other operation is sent or run meanwhile (from
+        another thread of rank 0)."""
+        with self._op_lock:
+            if self._leader is not None:
+                self._leader.send(name, args)
+            return getattr(self, "_do_" + name)(**args)
 
     def _produced(self, kind: str, *arrays) -> None:
         if self._leader is not None:
-            self._leader.produced(kind, *arrays)
+            with self._op_lock:
+                self._leader.produced(kind, *arrays)
 
     def _reset_device_state(self) -> None:
         """(Re-)allocate the KV cache and slot state.  Called at init and
@@ -792,10 +857,6 @@ class InferenceEngine:
     def submit(self, request: Request) -> Request:
         if self.draining:
             raise EngineDraining("engine is draining; not admitting")
-        if request.prefill is not None and self.mesh is not None:
-            raise NotImplementedError(
-                "installing a prefill replica's KV under a mesh is not yet "
-                "ported to dstack_tpu_torch")
         # clamp so prompt + generation always fit the cache
         request.max_new_tokens = max(min(request.max_new_tokens,
                                          self.max_len - 2), 1)
@@ -841,7 +902,8 @@ class InferenceEngine:
         while not self._stop:
             if not self.has_work():
                 if self._leader is not None:
-                    self._leader.keepalive(self.KEEPALIVE_S)
+                    with self._op_lock:
+                        self._leader.keepalive(self.KEEPALIVE_S)
                 try:
                     req = self._queue.get(timeout=0.05)
                     self._queue.put(req)
@@ -1213,7 +1275,7 @@ class InferenceEngine:
         ``blocks``); the logits wait for the slot's first token."""
         logits, ks, vs = _prompt_forward(
             self.params, self.cfg, torch.from_numpy(padded).to(self.device),
-            length, padded.shape[0], layout=self._layout)
+            length, padded.shape[0], layout=self._layout, layers=self._layers)
         self._install_rows(slot, ks[:, 0], vs[:, 0], blocks)
         self._logits[slot] = logits
 
@@ -1257,33 +1319,43 @@ class InferenceEngine:
         """Prefill/decode disaggregation, the prefill side: the prompt's
         K/V ([L, n, Hkv, D] on the host) and last-position f32 logits,
         with no slot taken.  The prompt budget is :meth:`_prefill`'s, so
-        a disaggregated prompt is cut exactly as a colocated one.  Not
-        ported under a mesh."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "prefill_export under a mesh is not yet ported to "
-                "dstack_tpu_torch")
+        a disaggregated prompt is cut exactly as a colocated one.  Under
+        a mesh rank 0 calls it (from any thread) and every rank runs the
+        forward of its shards (:meth:`_do_export`)."""
         max_new_tokens = max(min(max_new_tokens, self.max_len - 2), 1)
         toks = self._prompt_tokens(tokens, max_new_tokens)
         n = len(toks)
         bucket = self._bucket(n)
         padded = np.zeros((bucket,), np.int64)
         padded[:n] = toks[:bucket]
+        return self._op("export", padded=padded, length=n)
+
+    def _do_export(self, padded: np.ndarray, length: int) -> Optional[dict]:
+        """The prompt forward of a prefill leg; under ``tensor`` each rank's
+        K/V heads are gathered in head order (the logits are whole
+        already).  Rank 0 returns the one-card export, a follower None."""
         logits, ks, vs = _prompt_forward(
             self.params, self.cfg, torch.from_numpy(padded).to(self.device),
-            n, bucket)
+            length, padded.shape[0], layout=self._layout, layers=self._layers)
+        ks, vs = ks[:, 0, :length], vs[:, 0, :length]
+        if self._layout is not None and self._layout.tensor is not None:
+            ks, vs = (collectives.all_gather_list(t, 2, self.mesh,
+                                                  self._layout.tensor)
+                      for t in (ks, vs))
+        if not self._is_rank0:
+            return None
         logits = logits.cpu()
-        return {"ks": ks[:, 0, :n].cpu(), "vs": vs[:, 0, :n].cpu(),
+        return {"ks": ks.cpu(), "vs": vs.cpu(),
                 # the logits let the decode side sample the first token
                 # with the request's own sampling; first_token is the
                 # greedy one for wire formats without logits
                 "logits": logits, "first_token": int(torch.argmax(logits)),
-                "length": n}
+                "length": length}
 
     def _insert_prefilled(self, slot_id: int, req: Request) -> None:
         """Prefill/decode disaggregation, the decode side: install a
-        prefill replica's K/V into the slot and start decoding from its
-        first token."""
+        prefill replica's K/V into the slot (:meth:`_do_install`, on every
+        rank) and start decoding from its first token."""
         self._mark_admitted(req)
         p = req.prefill
         n = int(p["length"])
@@ -1294,24 +1366,45 @@ class InferenceEngine:
         limit = self.max_len - 2
         if n > limit:
             ks, vs, n = ks[:, n - limit:], vs[:, n - limit:], limit
+        logits = p.get("logits")
+        if logits is not None:
+            logits = torch.as_tensor(logits)
+        if self.mesh is not None:
+            # the operation's arguments go to every rank: compact host
+            # copies (a pickled view would carry its whole storage)
+            ks, vs = (t.cpu().clone(memory_format=torch.contiguous_format)
+                      for t in (ks, vs))
+            if logits is not None:
+                logits = logits.cpu()
+        self._op("install", slot=slot_id, ks=ks, vs=vs, logits=logits,
+                 blocks=(list(self._slot_blocks[slot_id])
+                         if self.paged else None))
+        self._activate(
+            slot_id, req, n,
+            self._prompt_tokens(req.tokens, req.max_new_tokens)[:n],
+            None if logits is not None else int(p["first_token"]))
+
+    def _do_install(self, slot: int, ks: torch.Tensor, vs: torch.Tensor,
+                    logits: Optional[torch.Tensor],
+                    blocks: Optional[List[int]]) -> None:
+        """Write a prefill replica's rows [L, n, Hkv, D] at the start of
+        ``slot`` (paged: padded to whole blocks, into ``blocks``); under
+        ``tensor`` this rank's heads of them.  The logits, when given,
+        wait for the slot's first token."""
+        if self._layout is not None and self._layout.tensor is not None:
+            h0 = self.mesh.get_local_rank(self._layout.tensor) * self._hkv
+            ks, vs = ks[:, :, h0:h0 + self._hkv], vs[:, :, h0:h0 + self._hkv]
         ks = ks.to(self.device, self.cfg.dtype)
         vs = vs.to(self.device, self.cfg.dtype)
         if self.paged:
             # pad to whole blocks, scattered into the slot's blocks
-            pad = -n % self._block_size
+            pad = -ks.shape[1] % self._block_size
             ks = F.pad(ks, (0, 0, 0, 0, 0, pad))
             vs = F.pad(vs, (0, 0, 0, 0, 0, pad))
-        self._install_rows(slot_id, ks, vs)
-        first = None
-        if p.get("logits") is not None:
+        self._install_rows(slot, ks, vs, blocks)
+        if logits is not None:
             # the request's own temperature/top_p/top_k
-            self._logits[slot_id] = torch.as_tensor(p["logits"]).to(
-                self.device, torch.float32)
-        else:
-            first = int(p["first_token"])
-        self._activate(
-            slot_id, req, n,
-            self._prompt_tokens(req.tokens, req.max_new_tokens)[:n], first)
+            self._logits[slot] = logits.to(self.device, torch.float32)
 
     def _chunk_forward(self, padded, length: int, positions, kv_pos,
                        insert, gather):
@@ -1678,7 +1771,10 @@ class InferenceEngine:
     def _ragged_blocks(self, window: int) -> int:
         """Block-table columns the NEXT decode window can touch, rounded up
         to a power of two.  Host lengths lag the device by the in-flight
-        window, so its width is added back (this can only over-size)."""
+        window, so its width is added back (this can only over-size).
+        Under ``DSTACK_TPU_RAGGED_DECODE=0``, the full span."""
+        if not self._ragged:
+            return self._blocks_per_slot
         inflight = (self._pending["window"]
                     if self._pending is not None else 0)
         need = 0

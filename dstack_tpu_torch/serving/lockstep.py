@@ -13,7 +13,11 @@ tokens, lengths, block tables, sampling parameters); a follower receives
 them and calls the same method of its engine (``_do_<name>``).  Every
 decision that depends on time or on the host's queues is taken on rank 0
 and reaches the followers as data, so every rank queues the same
-launches and collectives in the same order.
+launches and collectives in the same order.  Rank 0 may send from two
+threads: the scheduler's, and an HTTP handler's for a prefill leg
+(``export``); the engine sends and runs each operation under one lock.
+A decode leg's K/V travel whole in its ``install`` operation, and each
+rank keeps its heads of them.
 
 Sampled tokens come out alike on every rank: after the collectives the
 logits are the same bytes everywhere, and the noise generators are

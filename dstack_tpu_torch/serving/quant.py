@@ -61,7 +61,7 @@ def quantize_params(params: Any, tied_head_copy: bool = False,
     add an int8 copy of ``embed.T`` as "lm_head" (the embedding gather keeps
     the original precision).  ``reduce(name)``: the absmax reduction of
     layer weight ``name`` under a mesh (see :func:`quantize_weight`), or
-    None."""
+    None (the untied head's is ``reduce("lm_head")``)."""
     out = dict(params)
     layers = dict(params["layers"])
     for name in _LAYER_WEIGHTS:
@@ -70,10 +70,23 @@ def quantize_params(params: Any, tied_head_copy: bool = False,
                 layers[name], None if reduce is None else reduce(name))
     out["layers"] = layers
     if "lm_head" in params:
-        out["lm_head"] = quantize_weight(params["lm_head"])
+        out["lm_head"] = quantize_weight(
+            params["lm_head"], None if reduce is None else reduce("lm_head"))
     elif tied_head_copy:
         out["lm_head"] = quantize_weight(params["embed"].T)
     return out
+
+
+def memory_bytes(params: Any) -> int:
+    """Total bytes of a (possibly quantized) param tree: every tensor
+    leaf, both halves of a quantized {"q", "s"} weight."""
+    if isinstance(params, dict):
+        return sum(memory_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(memory_bytes(v) for v in params)
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size()
+    return 0
 
 
 def quantize_kv(x: torch.Tensor):

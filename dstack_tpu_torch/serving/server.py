@@ -17,9 +17,10 @@ Run: python -m dstack_tpu_torch.serving.server --config llama3-8b --paged
 host, one process a card: the command's process is rank 0 (the HTTP
 server and the scheduler) and starts the N - 1 others itself, each a
 follower of rank 0's engine (serving/lockstep.py) on card ``LOCAL_RANK``
-of one NCCL world.  A follower that exits, or a step that fails on rank
-0, fails the replica: /health and /load answer 503, the followers are
-killed and rank 0 exits non-zero.
+of one NCCL world; both prefill/decode legs run there too.  A follower
+that exits, or a step that fails on rank 0, fails the replica: /health
+and /load answer 503, the followers are killed and rank 0 exits
+non-zero.
 
 A replica's cold start (``dstack_tpu_torch/elastic/``): ``--weight-peers``
 with ``--snapshot-dir`` pulls the published snapshot from a live replica
@@ -564,9 +565,6 @@ class ServingApp:
         None), or (None, the engine request: a decode leg installs its
         ``prefill_result``, any other request prefills here)."""
         phase = handler.headers.get(PD_PHASE_HEADER, "")
-        if phase and getattr(self.engine, "mesh", None) is not None:
-            raise BadRequest("prefill/decode legs under --tensor-parallel "
-                             "are not yet ported")
         if phase == "prefill":
             return "prefill", None
         if phase == "decode" and payload.get("prefill_result"):

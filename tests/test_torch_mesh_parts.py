@@ -4,8 +4,9 @@ against the JAX package's, int8 scales of a row-parallel shard, the
 lockstep's wire format and its token check, and ``--tensor-parallel``:
 its parsing, its "only k device(s)" exit, a two-rank server on the CPU
 (gloo) over HTTP whose follower, once killed, takes rank 0 down, a
-two-rank replica serving the weights its rank 0 pulled from a peer, and
-a step that fails on rank 0 alone stopping the replica.
+two-rank server answering both prefill/decode legs, a two-rank replica
+serving the weights its rank 0 pulled from a peer, and a step that fails
+on rank 0 alone stopping the replica.
 
 Mesh parity with JAX is in ``test_torch_mesh_serving.py`` (serving) and
 ``test_torch_moe_parallel.py`` (expert-parallel training).
@@ -39,6 +40,7 @@ from dstack_tpu_torch.serving import lockstep
 from dstack_tpu_torch.serving import server as t_server
 from dstack_tpu_torch.serving.quant import quantize_weight
 from dstack_tpu_torch.serving.tokenizer import ByteTokenizer
+from dstack_tpu_torch.serving.wire import PD_PHASE_HEADER
 
 ROOT = Path(__file__).resolve().parents[1]
 torch.set_num_threads(1)
@@ -61,8 +63,9 @@ class _Mesh:
 def test_engine_refuses_what_the_jax_engine_refuses():
     """A mesh without the policy's tensor axis, head counts the tensor
     degree does not divide, an expert degree that does not divide the
-    experts: ValueErrors with the JAX engine's messages; a sharded batch
-    or fsdp axis is "not yet ported"."""
+    experts: ValueErrors with the JAX engine's messages; a serving policy
+    that shards the sequence (``seq``) or the layers (``stage``), which
+    the JAX engine does not serve either, is "not yet ported"."""
     tiny = llama.LlamaConfig.tiny(dtype=torch.float32)
     kw = dict(batch_size=2, max_len=64)
     with pytest.raises(ValueError, match="lack the policy's tensor axis"):
@@ -78,11 +81,16 @@ def test_engine_refuses_what_the_jax_engine_refuses():
                                          "the expert mesh degree \\(2\\)"):
         t_engine.InferenceEngine(three, mesh=_Mesh.of(
             mesh_lib.MeshSpec(expert=2)), **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_engine.InferenceEngine(
-            tiny, mesh=_Mesh.of(mesh_lib.MeshSpec(data=2)),
-            sharding_policy=llama.ShardingPolicy(batch_axes=("data",),
-                                                 fsdp_axis=None), **kw)
+    for axis, policy in (
+            ("seq", llama.ShardingPolicy(batch_axes=(), fsdp_axis=None,
+                                         seq_axis="seq")),
+            ("stage", llama.ShardingPolicy(batch_axes=(), fsdp_axis=None,
+                                           stage_axis="stage"))):
+        with pytest.raises(NotImplementedError,
+                           match=f"over \\['{axis}'\\] is not yet ported"):
+            t_engine.InferenceEngine(
+                tiny, mesh=_Mesh.of(mesh_lib.MeshSpec(**{axis: 2})),
+                sharding_policy=policy, **kw)
 
 
 @pytest.mark.parametrize("tied", [True, False])
@@ -300,6 +308,68 @@ def _wait_healthy(proc, base, log_path):
         assert proc.poll() is None, log_path.read_text()
         time.sleep(0.5)
     raise AssertionError(f"{base} not healthy:\n{log_path.read_text()}")
+
+
+def _post(url, payload, headers=None):
+    req = urllib.request.Request(
+        url, method="POST", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, json.loads(r.read())
+
+
+def test_tensor_parallel_server_answers_both_pd_legs(tmp_path):
+    """``--tensor-parallel 2 --device cpu`` takes the router's two legs:
+    the prefill leg answers a prefill_result with every KV head (each
+    rank's gathered), and the decode leg carrying it answers 200 with the
+    tokens of the same prompt served colocated.  Prefill legs sent while
+    a completion decodes run between the engine thread's operations (one
+    lock orders what rank 0 sends): all answer alike, and the followers
+    stay in lockstep."""
+    proc, base, log_path = _tp_server(tmp_path, "pd")
+    body = {"prompt": "abcabcabcabc", "max_tokens": 6,
+            "return_token_ids": True}
+    try:
+        _wait_healthy(proc, base, log_path)
+        status, result = _post(base + "/v1/completions", body,
+                               {PD_PHASE_HEADER: "prefill"})
+        cfg = llama.LlamaConfig.tiny()
+        assert status == 200 and result["object"] == "prefill_result"
+        assert result["kv_k"]["shape"] == [
+            cfg.num_layers, result["length"], cfg.num_kv_heads, cfg.head_dim]
+        status, decoded = _post(base + "/v1/completions",
+                                dict(body, prefill_result=result),
+                                {PD_PHASE_HEADER: "decode"})
+        assert status == 200
+        _, colocated = _post(base + "/v1/completions", body)
+        tokens = decoded["choices"][0]["token_ids"]
+        assert len(tokens) == 6
+        assert tokens == colocated["choices"][0]["token_ids"]
+        answers = [None] * 5
+
+        def call(i):
+            headers = {PD_PHASE_HEADER: "prefill"} if i else None
+            answers[i] = _post(base + "/v1/completions",
+                               dict(body, max_tokens=48), headers)
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(5)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert all(a is not None and a[0] == 200 for a in answers)
+        assert len(answers[0][1]["choices"][0]["token_ids"]) == 48
+        assert all(a[1] == answers[1][1] for a in answers[2:])
+        assert _get(base + "/health")[0] == 200
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
 
 
 def test_tensor_parallel_replica_serves_weights_rank_0_pulled(tmp_path):

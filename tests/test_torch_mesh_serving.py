@@ -134,6 +134,26 @@ def _padded(prompt):
 def _drive(engine, prompts):
     reqs = [t_engine.Request(tokens=list(p), max_new_tokens=NEW_TOKENS)
             for p in prompts]
+    _drive_requests(engine, reqs)
+    return [r.output for r in reqs]
+
+
+def _pd_legs(engine) -> dict:
+    """Rank 0's mesh engine takes both prefill/decode legs: the export of
+    a prompt (its keys), and that export installed as a decode leg, whose
+    tokens are then compared with the same prompt's colocated ones."""
+    export = engine.prefill_export([1, 2, 3], max_new_tokens=NEW_TOKENS)
+    installed, colocated = (
+        t_engine.Request(tokens=[1, 2, 3], max_new_tokens=NEW_TOKENS,
+                         prefill=prefill)
+        for prefill in (export, None))
+    _drive_requests(engine, [installed])
+    _drive_requests(engine, [colocated])
+    return {"keys": sorted(export), "installed": installed.output,
+            "colocated": colocated.output}
+
+
+def _drive_requests(engine, reqs):
     for r in reqs:
         engine.submit(r)
     for _ in range(200):
@@ -141,23 +161,6 @@ def _drive(engine, prompts):
             break
         engine.step()
     assert all(r.done.is_set() for r in reqs)
-    return [r.output for r in reqs]
-
-
-def _refusals(engine) -> list:
-    """What rank 0's mesh engine refuses before any device operation:
-    prefill/decode export, and installing a prefill replica's KV."""
-    refused = []
-    try:
-        engine.prefill_export([1, 2, 3])
-    except NotImplementedError as e:
-        refused.append(str(e))
-    try:
-        engine.submit(t_engine.Request(tokens=[1, 2, 3], prefill={
-            "ks": None, "vs": None, "length": 3, "first_token": 0}))
-    except NotImplementedError as e:
-        refused.append(str(e))
-    return refused
 
 
 def _rank_case(rank, name, trees, out):
@@ -174,7 +177,7 @@ def _rank_case(rank, name, trees, out):
         len(prompts[0]), BUCKET, layout=engine._layout)
     if rank == 0:
         if name == "tensor4_dense":
-            out["refused"] = _refusals(engine)
+            out["pd"] = _pd_legs(engine)
         tokens = _drive(engine, prompts)
         leader = engine._leader
         engine.close()
@@ -296,12 +299,15 @@ def test_tensor_parallel_speculation_matches_jax(world):
 
 
 def test_prefill_export_and_install_are_refused_under_a_mesh(world):
-    """Prefill/decode disaggregation is not ported under a mesh: both legs
-    raise "not yet ported" on rank 0, before any device operation (the
+    """Prefill/decode disaggregation under a mesh (the name is the one the
+    test had while both legs were refused): on rank 0 of the tensor=4
+    engine the export returns the one-card export's keys, and the export
+    installed as a decode leg gives the colocated prompt's tokens (the
     engine then serves on, as the tensor4_dense case shows)."""
-    refused = world["ranks"][0]["refused"]
-    assert len(refused) == 2
-    assert all("not yet ported" in r for r in refused), refused
+    pd = world["ranks"][0]["pd"]
+    assert pd["keys"] == ["first_token", "ks", "length", "logits", "vs"]
+    assert len(pd["installed"]) == NEW_TOKENS
+    assert pd["installed"] == pd["colocated"]
 
 
 def test_int4_kv_chunked_prefill_and_prefix_hits_match_jax(world):

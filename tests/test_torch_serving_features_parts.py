@@ -163,8 +163,8 @@ def test_pd_install_keeps_the_newest_rows_that_fit(paged):
     engine = t_engine.InferenceEngine(CFG, **ENGINE_KW, **kw)
     installed = []
     install = engine._install_rows
-    engine._install_rows = lambda slot, ks, vs: (installed.append(ks),
-                                                 install(slot, ks, vs))
+    engine._install_rows = lambda slot, ks, vs, *blocks: (
+        installed.append(ks), install(slot, ks, vs, *blocks))
     req = t_engine.Request(tokens=prompt, max_new_tokens=4, prefill=exp)
     assert engine._prompt_len(req) == 62
     assert _run(engine, [req]) == [[exp["first_token"]]]
