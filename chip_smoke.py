@@ -257,6 +257,34 @@ Phases (any failure stops the run with a non-zero exit and no result):
              N cards phase 13's --tensor-parallel server also takes a
              prefill leg and a decode leg carrying its prefill_result,
              whose tokens must equal a colocated request's.
+17. moe-dispatch — (run right after phase 14) MoE training under the
+             mesh layouts the reference runs and phases 11-12 did not:
+             two rank processes sharing card 0 under gloo (as phase 14's
+             pair), Mixtral-8x7B's width at MOE_TRAIN_LAYERS layers, b4
+             s2048, remat, bf16, SHARDED_STEPS steps of each run from seed
+             0, one run after another: (a) MeshSpec(expert=2) with the
+             batch over ("dcn", "data", "fsdp", "expert"), each rank b2
+             and 4 of the 8 experts, each stripe's dispatch exchanged
+             over expert to the experts' ranks and their outputs back;
+             (b) MeshSpec(seq=2) with seq_axis="seq" and (c)
+             MeshSpec(stage=2) with stage_axis="stage", replicas as in
+             the reference's MoE (each rank the whole batch, sequence and
+             model).  The unsharded run first, in this process (its state
+             after step 1 written leaf by leaf to a temporary directory,
+             its card memory freed before the pair starts).  Fails unless
+             each rank's step 1 loss is within 1e-3 and grad norm within
+             5e-3 of the unsharded step's, every leaf's parameter and
+             first moment after step 1 is within MOE_UPDATE_RTOL_MESH of
+             the rank's block of the unsharded update, run (a)'s expert
+             leaves hold 4 experts a rank, both ranks run gloo, and each
+             rank's flash launches are exactly (2 L S, L S).  Steps 2-3
+             run free: their losses are printed beside the unsharded
+             run's.  Prints each run's median step and tokens/s beside
+             the unsharded run's, the exchange's bytes a layer a rank,
+             the collective.* share of one more traced step and every
+             rank's peak memory.  moe_dispatch_phase(torch,
+             backend="nccl", ranks=4) runs (a) at data=2 x expert=2 and
+             (b), (c) at seq=4 and stage=4, a card a rank.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; exits non-zero without
@@ -2173,7 +2201,7 @@ def sharded_moe(torch, device: str, trained=None) -> dict:
     a second time from the seed's state, whose difference (``repeat``)
     is the reference's own.  Counts the flash kernels' launches on the sharded
     steps (twice a layer a step forward, once backward)."""
-    from dstack_tpu_torch.models import moe, train
+    from dstack_tpu_torch.models import moe
     from dstack_tpu_torch.models.data import rank_tokens
     from dstack_tpu_torch.ops import flash_attention as fa
     from dstack_tpu_torch.parallel import mesh as mesh_lib
@@ -2189,7 +2217,6 @@ def sharded_moe(torch, device: str, trained=None) -> dict:
     spec = (mesh_lib.MeshSpec(expert=world) if cfg.num_experts % world == 0
             else mesh_lib.MeshSpec.auto(world))
     mesh = mesh_lib.build_mesh(spec, device)
-    opt = train.default_optimizer()
     out = {"num_layers": cfg.num_layers, "batch": batch, "seq": seq,
            "steps": SHARDED_STEPS,
            "mesh": {k: v for k, v in spec.sizes.items() if v > 1} or
@@ -2200,13 +2227,7 @@ def sharded_moe(torch, device: str, trained=None) -> dict:
             torch.cuda.synchronize()
 
     def start(**kw):
-        gen = torch.Generator(device=device).manual_seed(0)
-        state = moe.create_state(gen, cfg, opt, unstacked=True,
-                                 device=device, **kw)
-        tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
-                               generator=gen, device=device,
-                               dtype=torch.int32)
-        return state, tokens, moe.make_train_step(cfg, opt, **kw)
+        return moe_start(torch, cfg, batch, seq, device, **kw)
 
     runs = {r: {"losses": [], "aux_losses": [], "grad_norms": [],
                 "step_s": [], "update_rel": []}
@@ -4261,20 +4282,20 @@ def cp_rank(torch, out_dir: str, spec_path: str) -> None:
         dist.destroy_process_group()
 
 
-def cp_world(runs: list, device: str = "cuda", backend: str = "gloo",
-             ranks: int = 2) -> list:
-    """Phase 14's ranks in fresh processes (``chip_smoke.py --cp-rank``):
-    under gloo each a one-card "node" of the control plane's variables,
-    all on card 0 (NCCL refuses two ranks on one device); under NCCL one
-    node of ``ranks`` cards, a card a rank.  Fails unless every rank exits
-    0 within CP_TIMEOUT_S; returns each rank's results."""
+def rank_world(flag: str, spec: dict, label: str, timeout_s: float,
+               backend: str, ranks: int) -> list:
+    """``ranks`` rank processes (``chip_smoke.py FLAG DIR SPEC``) given
+    ``spec``: under gloo each a one-card "node" of the control plane's
+    variables, all on card 0 (NCCL refuses two ranks on one device);
+    under NCCL one node of ``ranks`` cards, a card a rank.  Fails unless
+    every rank exits 0 within ``timeout_s``; returns each rank's
+    ``rank<r>.json``."""
     import shutil
     import tempfile
 
-    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-cp-"))
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-ranks-"))
     spec_path = tmp / "spec.json"
-    spec_path.write_text(json.dumps({"device": device, "backend": backend,
-                                     "runs": runs}))
+    spec_path.write_text(json.dumps(spec))
     port = free_port()
     nodes = 1 if backend == "nccl" else ranks
     procs = []
@@ -4288,25 +4309,33 @@ def cp_world(runs: list, device: str = "cuda", backend: str = "gloo",
                        DSTACK_COORDINATOR_PORT=str(port))
             env.pop("DSTACK_GPUS_NUM", None)
             procs.append(subprocess.Popen(
-                [sys.executable, str(ROOT / "chip_smoke.py"), "--cp-rank",
+                [sys.executable, str(ROOT / "chip_smoke.py"), flag,
                  str(tmp), str(spec_path)], env=env))
-        deadline = time.time() + CP_TIMEOUT_S
+        deadline = time.time() + timeout_s
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.time()))
         codes = [p.returncode for p in procs]
         if any(codes):
-            fail(f"context and pipeline: ranks exited {codes}")
+            fail(f"{label}: ranks exited {codes}")
         return [json.loads((tmp / f"rank{r}.json").read_text())
                 for r in range(ranks)]
     except subprocess.TimeoutExpired:
-        fail(f"context and pipeline: ranks still running after "
-             f"{CP_TIMEOUT_S} s")
+        fail(f"{label}: ranks still running after {timeout_s} s")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cp_world(runs: list, device: str = "cuda", backend: str = "gloo",
+             ranks: int = 2) -> list:
+    """Phase 14's ranks in fresh processes (``chip_smoke.py --cp-rank``,
+    see :func:`rank_world`); returns each rank's results."""
+    return rank_world("--cp-rank", {"device": device, "backend": backend,
+                                    "runs": runs},
+                      "context and pipeline", CP_TIMEOUT_S, backend, ranks)
 
 
 def cp_check(label: str, run: dict, ranks: list, ref: dict,
@@ -4710,6 +4739,393 @@ def elastic_phase(torch, config: str = "llama3-1b",
     return out
 
 
+# -- phase 17: MoE with the tokens over expert, and MoE under seq and stage --
+
+#: phase 17: Mixtral width at MOE_TRAIN_LAYERS layers (b4 s2048, remat,
+#: bf16), SHARDED_STEPS steps on two ranks sharing card 0 under gloo, each
+#: run beside the same seed's unsharded steps in this process; the seconds
+#: the ranks get in all
+MOE_DISPATCH_TIMEOUT_S = 600
+
+
+def moe_dispatch_runs(n: int = 2) -> list:
+    """Phase 17's sharded runs on ``n`` ranks: (a) "expert-batch", the
+    tokens striped over ``expert`` too (MeshSpec(expert=2); data=n/2 x
+    expert=2 on more ranks), each rank its rows and its experts, the
+    stripes' dispatch exchanged over ``expert``; (b) "seq", MeshSpec(seq=n)
+    with seq_axis="seq", and (c) "stage", MeshSpec(stage=n) with
+    stage_axis="stage": replicas, each rank the whole step."""
+    expert = {"expert": 2} if n == 2 else {"data": n // 2, "expert": 2}
+    return [
+        {"name": "expert-batch", "mesh": expert,
+         "policy": {"batch_axes": ["dcn", "data", "fsdp", "expert"]}},
+        {"name": "seq", "mesh": {"seq": n}, "policy": {"seq_axis": "seq"}},
+        {"name": "stage", "mesh": {"stage": n},
+         "policy": {"stage_axis": "stage"}},
+    ]
+
+
+def moe_dispatch_model(torch, small: bool, device: str) -> tuple:
+    """(config, batch, seq) of phase 17: Mixtral-8x7B's width at
+    MOE_TRAIN_LAYERS layers, b4 s2048; ``small``: tiny_moe, b4 s128
+    (f32 off the card)."""
+    from dstack_tpu_torch.models import moe
+
+    if small:
+        cfg, batch, seq = moe.MoEConfig.tiny_moe(), 4, 128
+    else:
+        cfg = dataclasses.replace(moe.MoEConfig.mixtral_8x7b(),
+                                  num_layers=MOE_TRAIN_LAYERS)
+        batch, seq = MOE_TRAIN_BATCH, MOE_TRAIN_SEQ
+    if device != "cuda":
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    return cfg, batch, seq
+
+
+def moe_start(torch, cfg, batch: int, seq: int, device: str, mesh=None,
+              policy=None) -> tuple:
+    """(state, tokens, step): seed 0's unstacked state (on ``mesh``, this
+    rank's blocks of it) and the global batch drawn after it from the same
+    generator, as every rank draws them; the step with remat."""
+    from dstack_tpu_torch.models import moe, train
+
+    opt = train.default_optimizer()
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = moe.create_state(gen, cfg, opt, mesh=mesh, policy=policy,
+                             unstacked=True, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                           generator=gen, device=device, dtype=torch.int32)
+    return state, tokens, moe.make_train_step(cfg, opt, mesh=mesh,
+                                              policy=policy)
+
+
+def moe_step(torch, step_fn, state, tokens, out: dict):
+    """One step of ``step_fn``, its loss, aux loss and grad norm appended
+    to ``out``'s lists; returns when the card has finished the step."""
+    state, metrics = step_fn(state, {"tokens": tokens})
+    for key, name in (("losses", "loss"), ("aux_losses", "aux_loss"),
+                      ("grad_norms", "grad_norm")):
+        out[key].append(metrics[name].item())
+    if tokens.is_cuda:
+        torch.cuda.synchronize()
+    return state
+
+
+def tree_paths(tree, path: str = "params") -> list:
+    """The key paths of a tree's leaves, in :func:`llama.tree_leaves`
+    order."""
+    if isinstance(tree, dict):
+        return [q for k in tree for q in tree_paths(tree[k], f"{path}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, t in enumerate(tree)
+                for q in tree_paths(t, f"{path}[{i}]")]
+    return [path]
+
+
+def leaf_specs(params, cfg) -> list:
+    """Each leaf's spec under moe.param_specs, in tree_leaves order."""
+    from dstack_tpu_torch.models import llama, moe
+
+    out = []
+    llama.map_with_specs(lambda sp, _: out.append(sp), moe.specs_for(
+        params, cfg, llama.ShardingPolicy(), "expert"), params)
+    return out
+
+
+def rank_block(spec, shape, mesh_sizes: dict, rank: int) -> tuple:
+    """The slices of a ``shape`` leaf that rank ``rank`` of a row-major
+    mesh of ``mesh_sizes`` holds under ``spec``."""
+    from dstack_tpu_torch.parallel import mesh as mesh_lib
+
+    sizes = mesh_lib.MeshSpec(**mesh_sizes).sizes
+    coord, rest = {}, rank
+    for axis in reversed(mesh_lib.AXIS_ORDER):
+        rest, coord[axis] = divmod(rest, sizes[axis])
+    return tuple(slice(a, b) for a, b in
+                 mesh_lib.shard_index(spec, shape, sizes, coord))
+
+
+def diff_norm(torch, a, b) -> float:
+    """L2 norm of a - b in f32, in slices of the leading dim of at most
+    2^27 elements (an expert stack's f32 copies whole would take GBs)."""
+    if a.dim() == 0:
+        a, b = a[None], b[None]
+    rows = max(1, (1 << 27) // max(1, a[0].numel()))
+    return math.sqrt(sum(
+        float(torch.linalg.vector_norm(x.float() - y.float()).square())
+        for x, y in zip(a.split(rows), b.split(rows))))
+
+
+def moe_dispatch_reference(torch, small: bool, device: str, runs: list,
+                           ranks: int, after_dir: Path) -> dict:
+    """The unsharded run in this process: SHARDED_STEPS steps from seed 0.
+    After step 1, writes each leaf's parameter and AdamW first moment to
+    ``after_dir`` (one file a leaf, in tree_leaves order) and keeps, for
+    every run and rank, the norm of that rank's block of each leaf's
+    update (the parameter's change, the first moment), which the ranks'
+    differences are held to."""
+    from dstack_tpu_torch.models import llama
+
+    cuda = device == "cuda"
+    cfg, batch, seq = moe_dispatch_model(torch, small, device)
+    state, tokens, step_fn = moe_start(torch, cfg, batch, seq, device)
+    leaves = llama.tree_leaves(state.params)
+    before = [p.detach().clone() for p in leaves]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "aux_losses": [], "grad_norms": []}
+    state = moe_step(torch, step_fn, state, tokens, out)
+    specs = leaf_specs(state.params, cfg)
+    base = {run["name"]: [[] for _ in range(ranks)] for run in runs}
+    with torch.no_grad():
+        for i, (p, p0, spec) in enumerate(zip(leaves, before, specs)):
+            m = state.opt_state.state[p]["exp_avg"]
+            norms = {}  # by block: most ranks of most runs hold the whole
+            for run in runs:
+                for r in range(ranks):
+                    sl = rank_block(spec, p.shape, run["mesh"], r)
+                    key = tuple((x.start, x.stop) for x in sl)
+                    if key not in norms:
+                        norms[key] = (diff_norm(torch, p[sl], p0[sl]),
+                                      diff_norm(torch, m[sl],
+                                                torch.zeros_like(m[sl])))
+                    base[run["name"]][r].append(norms[key])
+            torch.save({"param": p.detach().cpu(), "exp_avg": m.cpu()},
+                       after_dir / f"{i}.pt")
+    del before
+    stamps = [time.perf_counter()]
+    for _ in range(SHARDED_STEPS - 1):
+        state = moe_step(torch, step_fn, state, tokens, out)
+        stamps.append(time.perf_counter())
+    step_s = median_step(stamps)
+    out.update(paths=tree_paths(state.params), base=base,
+               step_median_s=step_s, tokens_per_s=batch * seq / step_s,
+               max_memory_gb=(torch.cuda.max_memory_allocated() / 1e9
+                              if cuda else None))
+    del state, step_fn, leaves
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_dispatch_train(torch, run: dict, spec: dict, mesh) -> dict:
+    """One rank's run of phase 17: SHARDED_STEPS steps of its part on
+    ``mesh`` (its rows of the global batch, whole sequences, under
+    moe.token_policy), step 1 from the seed's state held leaf by leaf
+    against the unsharded state after it (``spec["after_dir"]``): each
+    leaf's parameter and first moment minus this rank's block of the
+    unsharded one.  Returns the losses, grad norms, median step, tokens/s
+    of the global batch, the flash launches over the steps, peak memory,
+    the experts a rank holds in each expert leaf, and the collectives'
+    share of one more step traced by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dstack_tpu_torch.models import llama, moe
+    from dstack_tpu_torch.models.data import rank_tokens
+    from dstack_tpu_torch.ops import flash_attention as fa
+    from dstack_tpu_torch.parallel import mesh as mesh_lib
+
+    device = spec["device"]
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg, batch, seq = moe_dispatch_model(torch, spec["small"], device)
+    policy = llama.ShardingPolicy(**{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in run["policy"].items()})
+    state, tokens, step_fn = moe_start(torch, cfg, batch, seq, device,
+                                       mesh, policy)
+    tokens = rank_tokens(tokens, mesh, moe.token_policy(policy)).contiguous()
+    experts = {k: mesh_lib.local_tensor(state.params["layers"][0][k]).shape[0]
+               for k in ("w_gate", "w_up", "w_down")}
+    out = {"losses": [], "aux_losses": [], "grad_norms": [],
+           "rows": tokens.shape[0], "experts": experts}
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.fwd_launches = fa.flash_attention.bwd_launches = 0
+    state = moe_step(torch, step_fn, state, tokens, out)
+    diffs = []
+    after_dir = Path(spec["after_dir"])
+    with torch.no_grad():
+        leaves = llama.tree_leaves(state.params)
+        for i, (p, sp) in enumerate(zip(leaves, leaf_specs(state.params,
+                                                           cfg))):
+            mine = mesh_lib.local_tensor(p)
+            whole = torch.load(after_dir / f"{i}.pt", mmap=True,
+                               weights_only=True)
+            sl = tuple(slice(a, b) for a, b in mesh_lib.shard_index(
+                sp, whole["param"].shape, mesh_lib.mesh_sizes(mesh),
+                mesh_lib.mesh_coordinate(mesh)))
+            diffs.append(tuple(
+                diff_norm(torch, whole[key][sl].to(device), ours)
+                for key, ours in (("param", mine), ("exp_avg",
+                                  state.opt_state.state[mine]["exp_avg"]))))
+    out["diffs"] = diffs
+    stamps = [time.perf_counter()]
+    for _ in range(SHARDED_STEPS - 1):
+        state = moe_step(torch, step_fn, state, tokens, out)
+        stamps.append(time.perf_counter())
+    out["fwd_launches"] = fa.flash_attention.fwd_launches
+    out["bwd_launches"] = fa.flash_attention.bwd_launches
+    step_s = median_step(stamps)
+    out.update(step_median_s=step_s, tokens_per_s=batch * seq / step_s,
+               max_memory_gb=(torch.cuda.max_memory_allocated() / 1e9
+                              if cuda else None))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, {"tokens": tokens})
+        metrics["loss"].item()
+        sync()
+        wall = time.perf_counter() - t0
+    spans = {e.key: e.cpu_time_total / 1e6 for e in prof.key_averages()
+             if e.key.startswith("collective.")}
+    out.update(traced_step_s=wall, collectives_s=spans,
+               collectives_share=sum(spans.values()) / wall)
+    del state, step_fn
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_dispatch_rank(torch, out_dir: str, spec_path: str) -> None:
+    """One rank of phase 17 in its own process: the process group from the
+    control plane's variables (the spec's backend), then every run of the
+    spec on its mesh, one after the other.  Writes ``rank<r>.json``."""
+    import torch.distributed as dist
+
+    from dstack_tpu_torch.parallel import distributed
+    from dstack_tpu_torch.parallel import mesh as mesh_lib
+
+    spec = json.loads(Path(spec_path).read_text())
+    device, backend = spec["device"], spec["backend"]
+    distributed.initialize(force=True, device=device, backend=backend)
+    try:
+        out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+        for run in spec["runs"]:
+            mesh = mesh_lib.build_mesh(
+                mesh_lib.MeshSpec(**run["mesh"]), device,
+                backend="gloo" if backend == "gloo" else None)
+            out[run["name"]] = moe_dispatch_train(torch, run, spec, mesh)
+        (Path(out_dir) / f"rank{dist.get_rank()}.json").write_text(
+            json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def exchange_bytes(cfg, batch: int, seq: int, n: int) -> dict:
+    """The token exchange of run (a), by arithmetic: the [E, C, D]
+    dispatch (C from the global batch's tokens) in the model dtype, what
+    a rank sends of it in one exchange over ``n`` expert ranks (a
+    reduce-scatter or an all-gather: (n - 1) / n of it), and in one layer
+    of a step under remat (in and out, forward, recompute and backward:
+    six exchanges)."""
+    capacity = max(int(math.ceil(batch * seq * cfg.experts_per_token
+                                 / cfg.num_experts * cfg.capacity_factor)),
+                   1)
+    size = cfg.num_experts * capacity * cfg.hidden_size * cfg.dtype.itemsize
+    per = size * (n - 1) // n
+    return {"capacity": capacity, "dispatch_bytes": size,
+            "exchange_bytes_per_rank": per, "layer_step_bytes_per_rank":
+            6 * per}
+
+
+def moe_dispatch_phase(torch, small: bool = False, device: str = "cuda",
+                       backend: str = "gloo", ranks: int = 2) -> dict:
+    """Phase 17: the unsharded run in this process (its state after step
+    1 written leaf by leaf to a temporary directory, its card memory freed
+    before the ranks start), then moe_dispatch_runs on ``ranks`` ranks,
+    one run after another (the script's own: two gloo ranks sharing the
+    card; ``backend="nccl"`` a card a rank).  Fails unless every rank's
+    step 1 loss is within TRAIN_PLAIN_RTOL["loss"] and grad norm within
+    TRAIN_PLAIN_RTOL["grad_norm"] of the unsharded step's, each leaf's
+    parameter and first moment after step 1 within MOE_UPDATE_RTOL_MESH
+    of the norm of the rank's block of the unsharded update, run (a)'s
+    expert leaves hold E / 2 experts on each rank, the backends are the
+    one asked for, and (on the card) each rank's flash launches are
+    exactly (2 L S, L S).  Steps 2 and on run free and are printed beside
+    the unsharded run's.  ``small`` and ``device="cpu"`` rehearse it at
+    tiny_moe."""
+    import shutil
+    import tempfile
+
+    runs = moe_dispatch_runs(ranks)
+    cuda = device == "cuda"
+    after_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-moe-"))
+    try:
+        t0 = time.time()
+        ref = moe_dispatch_reference(torch, small, device, runs, ranks,
+                                     after_dir)
+        t1 = time.time()
+        results = rank_world("--moe-dispatch-rank", {
+            "device": device, "backend": backend, "small": small,
+            "after_dir": str(after_dir), "runs": runs},
+            "moe dispatch", MOE_DISPATCH_TIMEOUT_S, backend, ranks)
+        t2 = time.time()
+    finally:
+        shutil.rmtree(after_dir, ignore_errors=True)
+    if any(r["backend"] != backend or r["world"] != ranks for r in results):
+        fail(f"moe dispatch: backends "
+             f"{[(r['backend'], r['world']) for r in results]}, want "
+             f"{backend} x {ranks}")
+    cfg, batch, seq = moe_dispatch_model(torch, small, device)
+    want = (2 * cfg.num_layers * SHARDED_STEPS,
+            cfg.num_layers * SHARDED_STEPS)
+    out = {"reference_s": t1 - t0, "ranks_s": t2 - t1,
+           "unsharded": {k: ref[k] for k in (
+               "losses", "aux_losses", "grad_norms", "step_median_s",
+               "tokens_per_s", "max_memory_gb")}}
+    for run in runs:
+        name = run["name"]
+        label = f"moe dispatch {name} {run['mesh']}"
+        got = [r[name] for r in results]
+        res = {"mesh": run["mesh"],
+               "sharded": {k: got[0][k] for k in (
+                   "losses", "aux_losses", "grad_norms", "step_median_s",
+                   "tokens_per_s", "collectives_share", "collectives_s",
+                   "traced_step_s", "rows", "experts")},
+               "rank_max_memory_gb": [g["max_memory_gb"] for g in got],
+               "rank_launches": [[g["fwd_launches"], g["bwd_launches"]]
+                                 for g in got]}
+        for key, plural in (("loss", "losses"), ("grad_norm", "grad_norms")):
+            res[f"{key}_rel_err"] = [
+                check_rel(f"{label} rank {i} step 1 {key}", g[plural][:1],
+                          ref[plural][:1], TRAIN_PLAIN_RTOL[key])[0]
+                for i, g in enumerate(got)]
+        worst = {}
+        for i, g in enumerate(got):
+            for j, (diff, base) in enumerate(zip(g["diffs"],
+                                                 ref["base"][name][i])):
+                for k, key in enumerate(("param", "exp_avg")):
+                    rel = diff[k] / base[k] if base[k] else (
+                        0.0 if diff[k] == 0 else math.inf)
+                    if rel > worst.get(key, (-1.0,))[0]:
+                        worst[key] = (rel, i, ref["paths"][j])
+                    if not rel <= MOE_UPDATE_RTOL_MESH[key]:
+                        fail(f"{label}: rank {i} {ref['paths'][j]} {key} "
+                             f"after step 1 {rel:.4g} of the unsharded "
+                             f"update away (limit "
+                             f"{MOE_UPDATE_RTOL_MESH[key]})")
+        res["update_rel"] = worst
+        if name == "expert-batch":
+            per = cfg.num_experts // run["mesh"]["expert"]
+            if any(set(g["experts"].values()) != {per} for g in got):
+                fail(f"{label}: expert leaves hold "
+                     f"{[g['experts'] for g in got]} experts, want {per}")
+            res["exchange"] = exchange_bytes(cfg, batch, seq,
+                                             run["mesh"]["expert"])
+        if cuda and any(tuple(l) != want for l in res["rank_launches"]):
+            fail(f"{label}: flash launches (fwd, bwd) per rank "
+                 f"{res['rank_launches']}, expected {want} on each")
+        out[name] = res
+        log(f"{label}: " + json.dumps(res))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4717,6 +5133,12 @@ def main() -> int:
         # a rank of phase 14: its spec names the device
         sys.path.insert(0, str(ROOT))
         cp_rank(torch, *sys.argv[2:4])
+        return 0
+
+    if sys.argv[1:2] == ["--moe-dispatch-rank"]:
+        # a rank of phase 17: its spec names the device
+        sys.path.insert(0, str(ROOT))
+        moe_dispatch_rank(torch, *sys.argv[2:4])
         return 0
 
     if sys.argv[1:2] == ["--elastic-train"]:
@@ -4837,6 +5259,14 @@ def main() -> int:
         for i, way in enumerate(("fwd", "bwd")):
             kernels[f"flash_attention_{way}[{row}]"]["launches"] += sum(
                 r[i] for r in context[name]["rank_launches"])
+    dispatch = moe_dispatch_phase(torch)
+    # both ranks' launches: Mixtral's attention has the 8B geometry's
+    # shapes (b2 s2048 a rank under the token exchange, b4 s2048 a replica)
+    for name in ("expert-batch", "seq", "stage"):
+        for i, way in enumerate(("fwd", "bwd")):
+            kernels[f"flash_attention_{way}[llama3-8b-fit,D=128]"][
+                "launches"] += sum(r[i] for r in dispatch[name][
+                    "rank_launches"])
     elastic = elastic_phase(torch)
     kernels["paged_decode_attention[bf16,llama3-1b]"]["launches"] += \
         elastic["launches"]
@@ -4918,6 +5348,7 @@ def main() -> int:
             "unsharded", "sharded", "loss_rel_err", "grad_norm_rel_err",
             "rank_max_memory_gb", "rank_launches")}
         for name, run in context.items()}}))
+    log("moe-dispatch summary: " + json.dumps({"card": card, **dispatch}))
     log("elastic summary: " + json.dumps({"card": card, **{
         k: elastic[k] for k in (
             "snapshot_bytes", "snapshot_write_s", "a_ready_s", "pull_bytes",

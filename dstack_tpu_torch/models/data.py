@@ -102,7 +102,10 @@ def rank_tokens(tokens, mesh, policy=None):
     """This rank's part of a global token batch ``[B, S + 1]`` (a tensor
     or an array): its rows (its coordinate on the policy's batch axes)
     and, when the policy's ``seq_axis`` is on the mesh, its stripe of the
-    sequence (:func:`seq_slice`): what a sharded train step takes."""
+    sequence (:func:`seq_slice`): what a sharded train step takes.  An
+    MoE step takes whole sequences under ``seq`` (its ranks there are
+    replicas): pass it :func:`dstack_tpu_torch.models.moe.token_policy`
+    of its policy."""
     from dstack_tpu_torch.models.llama import ShardingPolicy
     from dstack_tpu_torch.parallel.mesh import (batch_stripe,
                                                 mesh_coordinate, mesh_sizes)
@@ -179,7 +182,9 @@ class DataLoader:
         sharded step shards the batch), not its rank, so ranks that
         differ only in ``tensor`` (or ``stage``) read the same rows; under
         the policy's ``seq_axis`` its coordinate there picks its stripe
-        of the sequence."""
+        of the sequence.  An MoE trainer passes
+        :func:`dstack_tpu_torch.models.moe.token_policy` of its policy:
+        whole sequences, its ``seq`` ranks being replicas."""
         from dstack_tpu_torch.models.llama import ShardingPolicy
         from dstack_tpu_torch.parallel.mesh import (batch_stripe,
                                                     mesh_coordinate,

@@ -500,14 +500,18 @@ class Layout:
         """The weight a rank computes with: gathered over the batch axes
         (under ``serving``, over every axis not kept; and over ``tensor``
         too when ``whole``: the head before the loss, whose gradient every
-        tensor rank computes whole)."""
+        tensor rank computes whole).  A kept axis that also stripes the
+        batch (an MoE's ``expert`` axis, whose tokens travel to the
+        experts' ranks) stays sharded, and the gradient is not summed over
+        it: each rank's block already has every stripe's share."""
         if self.mesh is None:
             return w
-        gathered = set()
+        gathered, held = set(), set()
         for dim, entry in enumerate(spec):
             axes = [a for a in entry_axes(entry) if self.sizes[a] > 1]
             kept = [a for a in axes
-                    if (a in self.kept if self.serving else a not in self.batch)
+                    if (a in self.kept if self.serving else
+                        a not in self.batch or a in self.kept)
                     and not (whole and a == self.tensor)]
             if axes[:len(kept)] != kept:
                 raise NotImplementedError(
@@ -516,12 +520,14 @@ class Layout:
                 raise NotImplementedError(
                     f"spec {spec}: weights sharded over {kept} are not yet "
                     "ported")
+            held.update(kept)
             for a in reversed(axes[len(kept):]):
                 w = collectives.gather(w, dim, self.mesh, a,
                                        reduce=a in self.batch)
                 gathered.add(a)
         return collectives.sum_grad(
-            w, self.mesh, [a for a in self.token_axes if a not in gathered])
+            w, self.mesh, [a for a in self.token_axes
+                           if a not in gathered and a not in held])
 
     def enter(self, h: torch.Tensor) -> torch.Tensor:
         if self.mesh is None or self.tensor is None:

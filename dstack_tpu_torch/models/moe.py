@@ -1,4 +1,4 @@
-"""Sparse mixture-of-experts transformer (Mixtral-style), single device.
+"""Sparse mixture-of-experts transformer (Mixtral-style).
 
 The JAX package's ``models/moe.py`` in PyTorch: the dense stack is the
 Llama one (RMSNorm, GQA attention through the fused causal kernels where
@@ -25,8 +25,21 @@ columns) on them, and the combine sums over ``expert`` and ``tensor``.
 Routing is the global batch's, as the reference's is under ``jit``:
 capacity counts every stripe's tokens, capacity slots are taken in the
 global (choice, stripe, token) order, and the load-balancing statistics
-are global means.  ``expert`` among the batch axes (an all-to-all
-dispatch) is not ported.
+are global means.
+
+With ``expert`` among the policy's batch axes the tokens are striped over
+it too, and they move to the experts instead of the experts' weights to
+them: each rank forms its stripe's dispatch in the global slots, a
+reduce-scatter over ``expert`` leaves each rank its experts' slots of the
+whole ``expert`` group, and an all-gather brings every expert's outputs
+back for the stripe's own combine (what GSPMD makes of the reference's
+``P(expert, None, None)`` constraints).  The expert stacks stay sharded
+over ``expert`` and their gradients are summed over the other token axes
+only.
+
+``seq`` and ``stage`` in the mesh and the policy are replicas, as in the
+reference, whose MoE backbone ignores both (:func:`token_policy`): each
+rank computes the whole step of its batch stripe.
 """
 
 from __future__ import annotations
@@ -51,7 +64,8 @@ from dstack_tpu_torch.ops.rmsnorm import rms_norm
 from dstack_tpu_torch.ops.rotary import apply_rope, rope_frequencies
 from dstack_tpu_torch.parallel import mesh as mesh_lib
 from dstack_tpu_torch.parallel.collectives import (all_reduce_sum, gather,
-                                                    psum, sum_grad)
+                                                    psum, reduce_scatter,
+                                                    sum_grad)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,9 +128,10 @@ def init_params(cfg: MoEConfig, device: Union[str, torch.device],
         full = tuple(slice(0, s) for s in lead + shape)
         sl = full if block is None else block(name, lead + shape)
         if sl[:len(lead)] != full[:len(lead)]:
-            raise NotImplementedError(
-                "MoE layers split over pipeline stages are not yet ported "
-                "to dstack_tpu_torch")
+            # param_specs shard no layer dim: stage ranks are replicas
+            raise ValueError(
+                f"block({name!r}) splits the layer dim; MoE keeps every "
+                "layer on every rank")
         sl = sl[len(lead):]
         return sl, tuple(s.stop - s.start for s in sl)
 
@@ -196,39 +211,54 @@ def specs_for(params: Params, cfg: MoEConfig, policy: ShardingPolicy,
     return specs
 
 
+def token_policy(policy: ShardingPolicy) -> ShardingPolicy:
+    """``policy`` as the MoE step computes and is fed under it: without
+    ``seq_axis`` and ``stage_axis``.  The reference's MoE backbone keeps
+    its activations whole over both axes and shards no layer dim, so
+    their ranks are replicas: each computes the whole step of its batch
+    stripe, whole sequences at positions 0..S-1, and none of its
+    gradients is summed over them.  A sharded MoE step's batch is
+    ``rank_tokens(tokens, mesh, token_policy(policy))`` (or
+    ``DataLoader.on_mesh(..., policy=token_policy(policy))``): its rows,
+    every position."""
+    return dataclasses.replace(policy, seq_axis=None, stage_axis=None)
+
+
 class ExpertLayout(Layout):
     """:class:`Layout` of an MoE model: the expert stacks also stay
-    sharded over ``expert_axis``.  Activations are replicated over it as
-    over ``tensor``, each rank runs its own experts on every token routed
-    to them, and :meth:`combine` sums the experts' outputs.  Routing stays
-    the global batch's (:meth:`slot_offsets`, :meth:`batch_total`).  An
-    expert axis among the batch axes (the all-to-all dispatch) is not
-    ported.  ``serving``: as :class:`Layout`'s (every rank routes all the
+    sharded over ``expert_axis``, and the ``seq`` and ``stage`` axes are
+    replicas (:func:`token_policy`).  Routing stays the global batch's
+    (:meth:`slot_offsets`, :meth:`batch_total`).
+
+    With ``expert_axis`` outside the batch axes the activations are
+    replicated over it as over ``tensor``: each rank runs its own experts
+    on every token routed to them, and :meth:`combine` sums the experts'
+    outputs.  With it among the batch axes (:attr:`exchange`) the tokens
+    move instead: each rank forms its stripe's dispatch in the global
+    slots, :meth:`dispatch` sums the stripes of its ``expert`` group into
+    its experts' slots, and :meth:`collect` gathers every expert's
+    outputs back for the stripe's own combine; the expert stacks are
+    never gathered over ``expert`` and their gradients never summed over
+    it.  ``serving``: as :class:`Layout`'s (every rank routes all the
     rows, so routing is the rows' own)."""
 
     def __init__(self, mesh: Any, policy: ShardingPolicy, cfg: MoEConfig,
                  expert_axis: Optional[str] = None, serving: bool = False):
-        super().__init__(mesh, policy, cfg, serving)
-        if self.seq or self.stage:
-            # the JAX MoE backbone pipelines nothing and keeps its
-            # activations whole over seq
-            raise NotImplementedError(
-                "MoE under sequence (seq) or pipeline (stage) parallelism "
-                "is not yet ported to dstack_tpu_torch")
-        self.expert = None
+        super().__init__(mesh, token_policy(policy), cfg, serving)
+        self.expert, self.exchange = None, False
         if mesh is None or not expert_axis or self.sizes.get(
                 expert_axis, 1) == 1:
             return
-        if expert_axis in self.batch:
-            raise NotImplementedError(
-                f"expert axis {expert_axis!r} among the batch axes (an "
-                "all-to-all token dispatch) is not yet ported to "
-                "dstack_tpu_torch")
         self.expert = expert_axis
+        self.exchange = expert_axis in self.batch
         self.kept = (*self.kept, expert_axis)
 
     def _model_axes(self) -> list:
-        return [a for a in (self.expert, self.tensor) if a is not None]
+        """The axes whose ranks each compute part of the experts' output
+        for the same tokens: ``tensor``, and ``expert`` unless the tokens
+        move to the experts."""
+        expert = None if self.exchange else self.expert
+        return [a for a in (expert, self.tensor) if a is not None]
 
     def experts(self, num_experts: int) -> tuple:
         """``(first, stop)``: the experts this rank holds."""
@@ -243,16 +273,34 @@ class ExpertLayout(Layout):
         return first, first + per
 
     def spread(self, x: torch.Tensor) -> torch.Tensor:
-        """The identity, whose backward sums over ``expert`` and
-        ``tensor``: a replicated input read by this rank's experts (and
+        """The identity, whose backward sums over the model axes
+        (:meth:`_model_axes`): an input read by this rank's experts (and
         ffn columns) alone."""
         return sum_grad(x, self.mesh, self._model_axes())
 
     def combine(self, y: torch.Tensor) -> torch.Tensor:
-        """The experts' outputs summed over ``expert`` and ``tensor``."""
+        """The experts' outputs summed over the model axes."""
         for axis in self._model_axes():
             y = psum(y, self.mesh, axis)
         return y
+
+    def dispatch(self, expert_in: torch.Tensor) -> torch.Tensor:
+        """[E, C, D] -> [E / n, C, D]: the experts' inputs in the global
+        slots of this rank's experts, summed over the stripes of its
+        ``expert`` group (a token's slots are its own, so the sum fills
+        each slot from the one stripe that holds its token).  The
+        identity unless :attr:`exchange`."""
+        if not self.exchange:
+            return expert_in
+        return reduce_scatter(expert_in, 0, self.mesh, self.expert)
+
+    def collect(self, expert_out: torch.Tensor) -> torch.Tensor:
+        """[E / n, C, D] -> [E, C, D]: every expert's outputs, gathered
+        over ``expert`` (backward: summed over the group's stripes, each
+        rank its experts'); the identity unless :attr:`exchange`."""
+        if not self.exchange:
+            return expert_out
+        return gather(expert_out, 0, self.mesh, self.expert, reduce=True)
 
     def batch_total(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the batch axes (the backward passes each
@@ -283,7 +331,8 @@ class ExpertLayout(Layout):
 
 def _layout(mesh: Any, policy: Optional[ShardingPolicy], cfg: MoEConfig,
             expert_axis: Optional[str]) -> ExpertLayout:
-    """The layout of a sharded MoE forward; refuses what is not ported."""
+    """The layout of a sharded MoE forward; the expert degree must divide
+    the experts."""
     layout = ExpertLayout(mesh, policy or ShardingPolicy(), cfg, expert_axis)
     layout.experts(cfg.num_experts)  # the expert degree must divide E
     return layout
@@ -386,8 +435,12 @@ def _moe_mlp(h: torch.Tensor, lp: Params, cfg: MoEConfig,
 
     Under a mesh (``layout``) ``lp``'s expert stacks are this rank's
     experts (and ffn columns); the router is whole.  Routing is the
-    global batch's, and the output is summed over ``expert`` and
-    ``tensor``."""
+    global batch's.  With ``expert`` outside the batch axes each rank
+    dispatches its rows to its own experts and the output is summed over
+    ``expert`` and ``tensor``; with it among them the stripe's dispatch
+    travels to the experts' ranks and their outputs back
+    (:meth:`ExpertLayout.dispatch`, :meth:`ExpertLayout.collect`), and
+    the output is summed over ``tensor``."""
     b, s, d = h.shape
     t = b * s
     x = h.reshape(t, d)
@@ -405,14 +458,20 @@ def _moe_mlp(h: torch.Tensor, lp: Params, cfg: MoEConfig,
         token_mask=None if token_mask is None else token_mask.reshape(t),
         layout=layout if sharded else None)
     if sharded:
-        first, stop = layout.experts(cfg.num_experts)
-        dispatch, combine = dispatch[:, first:stop], combine[:, first:stop]
+        if not layout.exchange:
+            first, stop = layout.experts(cfg.num_experts)
+            dispatch = dispatch[:, first:stop]
+            combine = combine[:, first:stop]
         x = layout.spread(x)
 
     expert_in = torch.einsum("tec,td->ecd", dispatch.to(cfg.dtype), x)
+    if sharded:
+        expert_in = layout.dispatch(expert_in)
     gated = F.silu(_expert_matmul(expert_in, lp["w_gate"], cfg.dtype))
     up = _expert_matmul(expert_in, lp["w_up"], cfg.dtype)
     expert_out = _expert_matmul(gated * up, lp["w_down"], cfg.dtype)
+    if sharded:
+        expert_out = layout.collect(expert_out)
     out = torch.einsum("tec,ecd->td", combine.to(cfg.dtype), expert_out)
     if sharded:
         out = layout.combine(out)
@@ -439,10 +498,12 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: MoEConfig, *,
 
     Under a ``mesh`` the parameters are DTensors placed by
     :func:`param_specs` (or this rank's local shards), ``tokens`` are this
-    rank's stripe of the global batch, and the result is the stripe's
-    hidden states and the global aux loss.  Attention runs through
+    rank's stripe of the global batch (its rows over the policy's batch
+    axes, ``expert`` among them or not; whole sequences: see
+    :func:`token_policy`), and the result is the stripe's hidden states
+    and the global aux loss.  Attention runs through
     :meth:`Layout.attention` (the fused kernels on this rank's rows and
-    heads) where ``supports`` holds."""
+    heads, over the whole sequence) where ``supports`` holds."""
     keep = llama.remat_names(remat)
     if mesh is not None:
         layout = _layout(mesh, policy, cfg, expert_axis)
@@ -523,12 +584,14 @@ def make_train_step(cfg: MoEConfig, optimizer: train.AdamW, mesh: Any = None,
     "grad_norm"}.
 
     Under a ``mesh`` the state is :func:`create_state`'s sharded one and
-    the batch this rank's stripe of the global batch; the cross entropy
-    is the global batch's mean, the aux loss the global routing's, and
-    the gradients and their norm the global ones."""
+    the batch this rank's stripe of the global batch, whole sequences
+    under ``seq`` too (``rank_tokens(tokens, mesh, token_policy(
+    policy))``); the cross entropy is the global batch's mean, the aux
+    loss the global routing's, and the gradients and their norm the
+    global ones."""
     llama.remat_names(remat)  # reject a bad mode before the first step
     if mesh is not None:
-        policy = policy or ShardingPolicy()
+        policy = token_policy(policy or ShardingPolicy())
         _layout(mesh, policy, cfg, expert_axis)
 
     def loss_fn(params, batch):
@@ -569,7 +632,8 @@ def create_state(generator: Union[int, torch.Generator], cfg: MoEConfig,
     Under a ``mesh`` the state goes on the mesh's device as DTensors
     placed by :func:`param_specs`: each rank draws every matrix in turn
     and keeps its block, so it holds exactly its slice of the unsharded
-    state."""
+    state (its experts' slice of the expert stacks, ``expert`` among the
+    batch axes or not; everything, whole, over ``seq`` and ``stage``)."""
     if mesh is None:
         gen = train._generator_on(generator, device)
         return train._fresh_state(init_params(cfg, gen.device, gen),

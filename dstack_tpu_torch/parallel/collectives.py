@@ -10,6 +10,10 @@ them, its whole gradient.
   batch axis (``fsdp``: each rank's rows give part of the gradient) its
   backward reduce-scatters, summing; over an axis whose ranks compute the
   same thing (``tensor`` before the loss) it keeps the rank's own slice.
+- :func:`reduce_scatter` sums a tensor over an axis, each rank keeping
+  its part along one dim (an MoE rank's experts' slots of every stripe's
+  dispatch); its backward all-gathers, the adjoint of :func:`gather`'s
+  reducing backward.
 - :func:`sum_grad` is the identity whose backward all-reduces (a replicated
   input read by rank-local work: the batch axes for a replicated weight,
   ``tensor`` for the input of a column-parallel product).
@@ -69,9 +73,12 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     shape[dim] //= n
     parts = x.reshape(shape[:dim] + [n] + shape[dim:]).movedim(dim, 0)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    # NCCL reads the buffer as if it were contiguous, and along dim 0 this
+    # is a view of x, which may be strided (an einsum's gradient); gloo
+    # copies such a buffer, NCCL sums the wrong elements
+    parts = parts.reshape([n * shape[0]] + shape[1:]).contiguous()
     with record_function("collective.reduce_scatter"):
-        _reduce_scatter_single(
-            out, parts.reshape([n * shape[0]] + shape[1:]), group=group)
+        _reduce_scatter_single(out, parts, group=group)
     return out
 
 
@@ -89,6 +96,17 @@ class _Gather(torch.autograd.Function):
         size = grad.shape[dim] // n
         return (grad.narrow(dim, rank * size, size).contiguous(),
                 *(None,) * 5)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.args = (dim, group, n)
+        return _reduce_scatter(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather(grad, *ctx.args), None, None, None
 
 
 class _SumGrad(torch.autograd.Function):
@@ -181,6 +199,20 @@ def gather(x: torch.Tensor, dim: int, mesh: Any, axis: str,
         return x
     return _Gather.apply(x, dim, mesh.get_group(axis), n,
                          mesh.get_local_rank(axis), reduce)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, mesh: Any,
+                   axis: str) -> torch.Tensor:
+    """``x`` summed over ``axis`` of ``mesh``, rank j keeping part j of
+    the sum split along ``dim`` (which must divide by the axis size); the
+    backward all-gathers the parts' gradients along ``dim``."""
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    return _ReduceScatter.apply(x, dim, mesh.get_group(axis), n)
 
 
 def sum_grad(x: torch.Tensor, mesh: Any, axes: Sequence[str]) -> torch.Tensor:

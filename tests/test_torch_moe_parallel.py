@@ -93,16 +93,17 @@ def _full_leaves(state):
             for path, x in ckpt.state_leaves(state)]
 
 
-def _sharded_state(tree, cfg, opt, mesh):
+def _sharded_state(tree, cfg, opt, mesh, policy=llama.ShardingPolicy()):
     """Step 0 of training the whole numpy ``tree`` on ``mesh``: each rank
     keeps its blocks, placed by ``moe.param_specs``."""
     params = llama.params_from_jax(tree, "cpu", torch.float32)
-    specs = moe.specs_for(params, cfg, llama.ShardingPolicy(), "expert")
+    specs = moe.specs_for(params, cfg, policy, "expert")
     local = llama.map_with_specs(
         lambda sp, p: mesh_lib.local_block(p, sp, mesh).clone(), specs,
         params)
     return train._fresh_state(local, opt, unstacked=False, sharded=(
-        moe.param_specs(cfg), moe.init_params(cfg, "meta", None), mesh))
+        moe.param_specs(cfg, policy), moe.init_params(cfg, "meta", None),
+        mesh))
 
 
 class _KeptCount:

@@ -139,29 +139,65 @@ class _Mesh:
     def get_coordinate(self):
         return [0] * len(self.shape)
 
+    def get_local_rank(self, axis):
+        return 0
 
-def test_sharded_arguments_are_refused():
-    """Under a mesh every entry point refuses what is not ported: an
-    expert axis among the batch axes (the all-to-all dispatch) raises
-    "not yet ported", and an expert degree that does not divide the
-    experts a ValueError."""
+
+class _Accepted(Exception):
+    """Raised by a spy on ``moe._layout`` once the layout is made."""
+
+
+def test_sharded_arguments_are_refused(monkeypatch):
+    """Under a mesh every entry point refuses an expert degree that does
+    not divide the experts (a ValueError), and takes what the reference
+    runs: an expert axis among the batch axes (the layout then moves the
+    tokens and keeps the expert stacks sharded over ``expert``), and
+    ``seq`` or ``stage`` in the mesh and the policy (replicas: the layout
+    has neither, and sums the gradients over the batch axes alone)."""
     opt = train.default_optimizer()
     tokens = torch.zeros((1, 8), dtype=torch.long)
-    batch_expert = dict(mesh=_Mesh(mesh_lib.MeshSpec(expert=2)),
-                        policy=llama.ShardingPolicy(
-                            batch_axes=("data", "expert")))
     three = dict(mesh=_Mesh(mesh_lib.MeshSpec(expert=3)))
-    for kw, err, match in ((batch_expert, NotImplementedError,
-                            "not yet ported"),
-                           (three, ValueError, "expert mesh degree")):
-        with pytest.raises(err, match=match):
-            moe.backbone({"layers": {}}, tokens, TINY, **kw)
-        with pytest.raises(err, match=match):
-            moe.make_train_step(TINY, opt, **kw)
-        with pytest.raises(err, match=match):
-            moe.create_state(0, TINY, opt, device="cpu", **kw)
+
+    def calls(kw):
+        return (lambda: moe.backbone({"layers": {}}, tokens, TINY, **kw),
+                lambda: moe.make_train_step(TINY, opt, **kw),
+                lambda: moe.create_state(0, TINY, opt, device="cpu", **kw))
+
+    for call in calls(three):
+        with pytest.raises(ValueError, match="expert mesh degree"):
+            call()
     with pytest.raises(ValueError, match="remat"):
         moe.make_train_step(TINY, opt, remat="sometimes")
+
+    made, real = [], moe._layout
+
+    def spy(*args):
+        made.append(real(*args))
+        raise _Accepted
+
+    monkeypatch.setattr(moe, "_layout", spy)
+    accepted = {
+        "batch_expert": (mesh_lib.MeshSpec(expert=2),
+                         dict(batch_axes=("data", "expert"))),
+        "seq": (mesh_lib.MeshSpec(seq=2, expert=2), dict(seq_axis="seq")),
+        "stage": (mesh_lib.MeshSpec(stage=2, data=2),
+                  dict(stage_axis="stage")),
+    }
+    for name, (spec, policy) in accepted.items():
+        made.clear()
+        for call in calls(dict(mesh=_Mesh(spec),
+                               policy=llama.ShardingPolicy(**policy))):
+            with pytest.raises(_Accepted):
+                call()
+        assert len(made) == 3
+        for layout in made:
+            assert layout.seq is None and layout.stage is None, name
+            assert layout.token_axes == layout.batch, name
+            if name == "batch_expert":
+                assert layout.batch == ["expert"] and layout.exchange
+                assert "expert" in layout.kept
+            else:
+                assert not layout.exchange, name
 
 
 def test_entry_points_need_cuda_unless_the_cpu_is_named(monkeypatch):

@@ -217,8 +217,9 @@ class _MeshShape:
 def test_not_yet_ported_arguments_raise():
     """Every entry point refuses what stays refused: the JAX package's own
     refusals (seq together with stage; unstacked layers under stage;
-    Ulysses with heads that do not split over seq x tensor) and MoE under
-    seq or stage; remat names must be the layer's."""
+    Ulysses with heads that do not split over seq x tensor); remat names
+    must be the layer's.  MoE under seq or stage is no longer among them:
+    its ranks there are replicas, as in the JAX package's MoE."""
     from dstack_tpu_torch.models import moe
 
     cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
@@ -252,13 +253,10 @@ def test_not_yet_ported_arguments_raise():
     for mesh, policy in ((_MeshShape(seq=2), llama.ShardingPolicy(
             seq_axis="seq")), (_MeshShape(stage=2), llama.ShardingPolicy(
                 stage_axis="stage"))):
-        kw = {"mesh": mesh, "policy": policy}
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            moe.make_train_step(moe_cfg, opt, **kw)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            moe.create_state(0, moe_cfg, opt, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            moe.backbone({"layers": {}}, tokens, moe_cfg, **kw)
+        assert callable(moe.make_train_step(moe_cfg, opt, mesh=mesh,
+                                            policy=policy))
+        layout = moe.ExpertLayout(mesh, policy, moe_cfg, "expert")
+        assert layout.seq is None and layout.stage is None
     for remat in ("sometimes", ("qkv", "logits")):
         with pytest.raises(ValueError, match="remat"):
             train.make_train_step(cfg, opt, remat=remat)
