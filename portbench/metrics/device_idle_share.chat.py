@@ -1,0 +1,9 @@
+"""Device: 1 - time any device operation ran over the traced window."""
+
+from portbench import readers
+
+UNIT = "%"
+
+
+def read(run):
+    return readers.idle_share(run)
