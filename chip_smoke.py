@@ -388,10 +388,9 @@ FLASH_LIMITS = {**FLASH_ATOL, **{f"{n}_row": FLASH_ROW_RTOL
 #: numbers of 64-row blocks
 FLASH_EDGE_SHAPES = ((2, 128, 4, 4, 64), (3, 192, 6, 3, 64),
                      (1, 256, 8, 2, 128), (2, 320, 4, 1, 128))
-#: train phase: steps of each trainer of dstack_tpu_torch.tools.
-#: train_profile.TRAINERS: Llama-3.2-1B at b8 s1024 and the Llama-3-8B
-#: layer geometry at L=6, b4 s2048, both with selective remat (as the JAX
-#: package's bench trains them)
+#: train phase: steps of each trainer of :func:`trainer`: Llama-3.2-1B at
+#: b8 s1024 and the Llama-3-8B layer geometry at L=6, b4 s2048, both with
+#: selective remat (as the JAX package's bench trains them)
 TRAIN_STEPS = {"llama3-1b": 5, "llama3-8b-fit": 4}
 #: train-plain phase: batch of the 1B step held to its plain-attention
 #: twin, and the limits on the relative differences of the two (a sound
@@ -1535,11 +1534,17 @@ def run_engine(torch, cfg, kv_quantize, label: str, device: str = "cuda",
 
 
 def trainer(name: str):
-    """(config, batch, seq, remat) of one of the trainers."""
-    from dstack_tpu_torch.tools.train_profile import TRAINERS
+    """(config, batch, seq, remat) of one of the trainers: Llama-3.2-1B
+    at b8 s1024 ("llama3-1b") and the Llama-3-8B layer geometry at L=6,
+    b4 s2048 ("llama3-8b-fit"), both with selective remat, as the JAX
+    package's bench.py trains them (its ``_measure`` passes remat=True)."""
+    from dstack_tpu_torch.models.llama import LlamaConfig
 
-    make_cfg, batch, seq, remat = TRAINERS[name]
-    return make_cfg(), batch, seq, remat
+    if name == "llama3-1b":
+        return LlamaConfig.llama3_1b(), 8, 1024, True
+    if name == "llama3-8b-fit":
+        return LlamaConfig.llama3_8b_fit(num_layers=6), 4, 2048, True
+    raise KeyError(name)
 
 
 def run_train(torch, cfg_name: str, steps: int) -> dict:
@@ -1683,7 +1688,8 @@ def resume_phase(torch, cfg=None, batch: int = 0, seq: int = 0,
     from dstack_tpu_torch.models import checkpoint as ckpt
     from dstack_tpu_torch.models import train
     from dstack_tpu_torch.ops import flash_attention as fa
-    from dstack_tpu_torch.telemetry.training import TrainTelemetry
+    from dstack_tpu_torch.telemetry.training import (TrainTelemetry,
+                                                     step_flops)
 
     base_cfg, base_batch, base_seq, remat = trainer("llama3-1b")
     if cfg is None:
@@ -1711,9 +1717,10 @@ def resume_phase(torch, cfg=None, batch: int = 0, seq: int = 0,
             super().__init__(log_every=0)
             self.walls, self.state = [], None
 
-        def record_step(self, wall, tokens, n_devices=1, recompiled=False):
+        def record_step(self, wall, tokens, n_devices=1, recompiled=False,
+                        flops=None):
             self.walls.append(wall)
-            super().record_step(wall, tokens, n_devices, recompiled)
+            super().record_step(wall, tokens, n_devices, recompiled, flops)
 
         def wrap(self, step_fn, cfg=None, n_devices=1):
             timed = super().wrap(step_fn, cfg, n_devices)
@@ -1747,10 +1754,10 @@ def resume_phase(torch, cfg=None, batch: int = 0, seq: int = 0,
         tel_s = median(tel.walls[1:])
 
         def mfu(wall):
-            return 6 * cfg.num_params() * tokens / wall / PEAK_BF16_FLOPS
+            return step_flops(cfg, batch, seq) / wall / PEAK_BF16_FLOPS
 
         out.update(losses=base.losses, step_median_s=step_s,
-                   tokens_per_s=tokens / step_s, mfu_6nd=mfu(step_s),
+                   tokens_per_s=tokens / step_s, mfu=mfu(step_s),
                    telemetry_tokens_per_s=tokens / tel_s,
                    telemetry_mfu=mfu(tel_s),
                    telemetry_last_tokens_per_s=tel.tokens_per_sec.value,

@@ -45,6 +45,7 @@ from dstack_tpu_torch.parallel import collectives
 from dstack_tpu_torch.parallel.pipeline import pipeline_layers
 from dstack_tpu_torch.parallel.mesh import (distribute, entry_axes,
                                             mesh_sizes, placements)
+from dstack_tpu_torch.telemetry import spans
 from dstack_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
@@ -627,6 +628,9 @@ def _layer_fn(cfg: LlamaConfig, positions, inv_freqs, routed: bool,
 
     steps = ((qkv, "qkv"), (attn_out, "attn_out"), (proj_attn, "proj"),
              (mlp_mid, "mlp_mid"), (proj_mlp, "proj"))
+    span_of = {qkv: "model.attention", attn_out: "model.attention",
+               proj_attn: "model.attention", mlp_mid: "model.mlp",
+               proj_mlp: "model.mlp"}
     groups, cur = [], []
     for fn, name in steps:
         cur.append(fn)
@@ -639,7 +643,12 @@ def _layer_fn(cfg: LlamaConfig, positions, inv_freqs, routed: bool,
     def run(group, st, lp):
         st = dict(st)
         for fn in group:
-            fn(st, lp)
+            # each step spans its own region: a remat region's recompute
+            # reruns the spans of the steps it holds
+            with spans.region(span_of[fn]) as r:
+                st, lp_ = r.inputs((st, lp))
+                fn(st, lp_)
+                st = r.outputs(st)
         return st
 
     def layer(x, lp):
@@ -720,8 +729,9 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
                       use_flash or layout.seq is not None, keep, layout,
                       layer_specs)
 
-    x = _embed_lookup(params["embed"].to(cfg.dtype), tokens, layout,
-                      specs["embed"])
+    with spans.region("model.embed") as r:
+        x = r.outputs(_embed_lookup(r.inputs(params["embed"]).to(cfg.dtype),
+                                    tokens, layout, specs["embed"]))
     if layout.stage:
         shapes = init_params(cfg, "meta", None)["layers"]
         x = pipeline_layers(
@@ -732,12 +742,25 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
             num_microbatches=layout.policy.num_microbatches)
     else:
         if stacked:
-            layers = [{k: w[l] for k, w in layers.items()}
-                      for l in range(cfg.num_layers)]
+            layers = layer_views(layers, cfg.num_layers)
         for lp in layers:
             x = layer(x, lp)
-    return rms_norm(x, layout.weight(params["final_norm"],
-                                     specs["final_norm"]), cfg.rms_eps)
+    with spans.region("model.head_loss") as r:
+        x, norm = r.inputs((x, params["final_norm"]))
+        return r.outputs(rms_norm(x, layout.weight(norm, specs["final_norm"]),
+                                  cfg.rms_eps))
+
+
+def layer_views(layers: Params, num_layers: int) -> list:
+    """Each layer's ``w[l]`` views of the stacked weights (a tree of
+    dicts: a serving-quantized expert stack's leaves are viewed one by
+    one).  Their backward (for each view, a zero gradient of the whole
+    stack, the layer's slice copied in, the stacks' gradients added up)
+    runs in the ``model.views`` span."""
+    with spans.region("model.views") as r:
+        layers = r.inputs(layers)
+        return r.outputs([tree_map(lambda w: w[l], layers)
+                          for l in range(num_layers)])
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,

@@ -66,6 +66,7 @@ from dstack_tpu_torch.parallel import mesh as mesh_lib
 from dstack_tpu_torch.parallel.collectives import (all_reduce_sum, gather,
                                                     psum, reduce_scatter,
                                                     sum_grad)
+from dstack_tpu_torch.telemetry import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -452,29 +453,41 @@ def _moe_mlp(h: torch.Tensor, lp: Params, cfg: MoEConfig,
         capacity = max(
             int(math.ceil(t_all * cfg.experts_per_token / cfg.num_experts
                           * cfg.capacity_factor)), 1)
-    logits = x.float() @ lp["router"]
-    dispatch, combine, aux = _route(
-        logits, cfg.experts_per_token, capacity,
-        token_mask=None if token_mask is None else token_mask.reshape(t),
-        layout=layout if sharded else None)
-    if sharded:
-        if not layout.exchange:
-            first, stop = layout.experts(cfg.num_experts)
-            dispatch = dispatch[:, first:stop]
-            combine = combine[:, first:stop]
-        x = layout.spread(x)
+    with spans.region("model.moe.route") as r:
+        x, router = r.inputs((x, lp["router"]))
+        logits = x.float() @ router
+        dispatch, combine, aux = r.outputs(_route(
+            logits, cfg.experts_per_token, capacity,
+            token_mask=None if token_mask is None else token_mask.reshape(t),
+            layout=layout if sharded else None))
+    if sharded and not layout.exchange:
+        first, stop = layout.experts(cfg.num_experts)
+        dispatch = dispatch[:, first:stop]
+        combine = combine[:, first:stop]
 
-    expert_in = torch.einsum("tec,td->ecd", dispatch.to(cfg.dtype), x)
-    if sharded:
-        expert_in = layout.dispatch(expert_in)
-    gated = F.silu(_expert_matmul(expert_in, lp["w_gate"], cfg.dtype))
-    up = _expert_matmul(expert_in, lp["w_up"], cfg.dtype)
-    expert_out = _expert_matmul(gated * up, lp["w_down"], cfg.dtype)
-    if sharded:
-        expert_out = layout.collect(expert_out)
-    out = torch.einsum("tec,ecd->td", combine.to(cfg.dtype), expert_out)
-    if sharded:
-        out = layout.combine(out)
+    with spans.region("model.moe.dispatch") as r:
+        x, dispatch = r.inputs((x, dispatch))
+        if sharded:
+            x = layout.spread(x)
+        expert_in = torch.einsum("tec,td->ecd", dispatch.to(cfg.dtype), x)
+        if sharded:
+            expert_in = layout.dispatch(expert_in)
+        expert_in = r.outputs(expert_in)
+    with spans.region("model.moe.experts") as r:
+        expert_in, w = r.inputs((expert_in, {name: lp[name] for name in (
+            "w_gate", "w_up", "w_down")}))
+        gated = F.silu(_expert_matmul(expert_in, w["w_gate"], cfg.dtype))
+        up = _expert_matmul(expert_in, w["w_up"], cfg.dtype)
+        expert_out = r.outputs(
+            _expert_matmul(gated * up, w["w_down"], cfg.dtype))
+    with spans.region("model.moe.combine") as r:
+        combine, expert_out = r.inputs((combine, expert_out))
+        if sharded:
+            expert_out = layout.collect(expert_out)
+        out = torch.einsum("tec,ecd->td", combine.to(cfg.dtype), expert_out)
+        if sharded:
+            out = layout.combine(out)
+        out = r.outputs(out)
     return out.reshape(b, s, d), aux
 
 
@@ -527,40 +540,45 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: MoEConfig, *,
 
     def layer(x, lp):
         def w(name):
-            return layout.weight(lp[name], lspecs[name])
+            return layout.weight(ws[name], lspecs[name])
 
-        h = layout.enter(rms_norm(x, w("attn_norm"), cfg.rms_eps))
-        q, k, v = ((h @ w(name)).reshape(b, s, -1, cfg.head_dim)
-                   for name in ("wq", "wk", "wv"))
-        q = apply_rope(q, positions, inv_freqs)
-        k = apply_rope(k, positions, inv_freqs)
-        if use_flash:
-            attn = layout.attention(q, k, v)
-        else:
-            attn = causal_attention(q, k, v, q_positions=positions,
-                                    kv_positions=positions)
-        x = x + layout.leave(attn.reshape(b, s, -1) @ w("wo"))
-        h = rms_norm(x, w("mlp_norm"), cfg.rms_eps)
-        experts = {name: w(name)
-                   for name in ("router", "w_gate", "w_up", "w_down")}
-        moe_out, layer_aux = _moe_mlp(h, experts, cfg, layout=layout)
-        return x + moe_out, layer_aux
+        with spans.region("model.attention") as r:
+            x, ws = r.inputs((x, lp))
+            h = layout.enter(rms_norm(x, w("attn_norm"), cfg.rms_eps))
+            q, k, v = ((h @ w(name)).reshape(b, s, -1, cfg.head_dim)
+                       for name in ("wq", "wk", "wv"))
+            q = apply_rope(q, positions, inv_freqs)
+            k = apply_rope(k, positions, inv_freqs)
+            if use_flash:
+                attn = layout.attention(q, k, v)
+            else:
+                attn = causal_attention(q, k, v, q_positions=positions,
+                                        kv_positions=positions)
+            x = r.outputs(x + layout.leave(attn.reshape(b, s, -1) @ w("wo")))
+        with spans.region("model.mlp") as r:
+            x, ws = r.inputs((x, lp))
+            h = rms_norm(x, w("mlp_norm"), cfg.rms_eps)
+            experts = {name: w(name)
+                       for name in ("router", "w_gate", "w_up", "w_down")}
+            moe_out, layer_aux = _moe_mlp(h, experts, cfg, layout=layout)
+            return r.outputs((x + moe_out, layer_aux))
 
     layer_fn = layer if keep is None else (
         lambda x, lp: _ckpt(layer, x, lp))
-    x = llama._embed_lookup(params["embed"].to(cfg.dtype), tokens, layout,
-                            specs["embed"])
+    with spans.region("model.embed") as r:
+        x = r.outputs(llama._embed_lookup(
+            r.inputs(params["embed"]).to(cfg.dtype), tokens, layout,
+            specs["embed"]))
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     if stacked:
-        # views of the stacked weights; a serving-quantized expert stack
-        # ({"q", "s"}) is viewed leaf by leaf
-        layers = [llama.tree_map(lambda w: w[l], layers)
-                  for l in range(cfg.num_layers)]
+        layers = llama.layer_views(layers, cfg.num_layers)
     for lp in layers:
         x, layer_aux = layer_fn(x, lp)
         aux = aux + layer_aux
-    x = rms_norm(x, layout.weight(params["final_norm"], specs["final_norm"]),
-                 cfg.rms_eps)
+    with spans.region("model.head_loss") as r:
+        x, norm = r.inputs((x, params["final_norm"]))
+        x = r.outputs(rms_norm(x, layout.weight(norm, specs["final_norm"]),
+                               cfg.rms_eps))
     return x, aux / cfg.num_layers
 
 
@@ -598,21 +616,27 @@ def make_train_step(cfg: MoEConfig, optimizer: train.AdamW, mesh: Any = None,
         tokens = batch["tokens"]
         x, aux = backbone(params, tokens[:, :-1], cfg, mesh=mesh,
                           policy=policy, expert_axis=expert_axis, remat=remat)
-        head = output_head(params, cfg, mesh, policy)
-        if mesh is None:
-            ce = chunked_cross_entropy(x, head, tokens[:, 1:],
-                                       batch.get("mask"))
-            return (ce + cfg.router_aux_weight * aux,
-                    {"loss": ce.detach(), "aux_loss": aux.detach()})
-        # this rank's share of the global mean (see train.make_train_step);
-        # the aux loss is whole on every rank, and its sums over the batch
-        # pass each rank's gradient on, so the shares still add up
-        total, count = chunked_nll_sum(x, head, tokens[:, 1:],
-                                       batch.get("mask"))
-        count = all_reduce_sum(count, mesh, policy.batch_axes).clamp_min(1.0)
-        return total / count + cfg.router_aux_weight * aux, {
-            "loss": all_reduce_sum(total, mesh, policy.batch_axes) / count,
-            "aux_loss": aux.detach()}
+        with spans.region("model.head_loss") as r:
+            x, aux, outer = r.inputs((x, aux, {
+                k: v for k, v in params.items() if k != "layers"}))
+            head = output_head(outer, cfg, mesh, policy)
+            if mesh is None:
+                ce = chunked_cross_entropy(x, head, tokens[:, 1:],
+                                           batch.get("mask"))
+                return (r.outputs(ce + cfg.router_aux_weight * aux),
+                        {"loss": ce.detach(), "aux_loss": aux.detach()})
+            # this rank's share of the global mean (see
+            # train.make_train_step); the aux loss is whole on every rank,
+            # and its sums over the batch pass each rank's gradient on, so
+            # the shares still add up
+            total, count = chunked_nll_sum(x, head, tokens[:, 1:],
+                                           batch.get("mask"))
+            count = all_reduce_sum(count, mesh,
+                                   policy.batch_axes).clamp_min(1.0)
+            return r.outputs(total / count + cfg.router_aux_weight * aux), {
+                "loss": all_reduce_sum(total, mesh, policy.batch_axes)
+                / count,
+                "aux_loss": aux.detach()}
 
     return train._step_from_loss(loss_fn, optimizer, sharded=mesh is not None)
 

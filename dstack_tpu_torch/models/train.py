@@ -29,7 +29,6 @@ from typing import Any, Callable, ClassVar, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from dstack_tpu_torch.models import llama
 from dstack_tpu_torch.models.llama import (LlamaConfig, Params,
@@ -37,6 +36,7 @@ from dstack_tpu_torch.models.llama import (LlamaConfig, Params,
 from dstack_tpu_torch.ops.loss import chunked_cross_entropy, chunked_nll_sum
 from dstack_tpu_torch.parallel import mesh as mesh_lib
 from dstack_tpu_torch.parallel.collectives import all_reduce_sum
+from dstack_tpu_torch.telemetry import spans
 from dstack_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -332,18 +332,23 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
         tokens = batch["tokens"]
         x = llama.backbone(params, tokens[:, :-1], cfg, mesh=mesh,
                            policy=policy, remat=remat)
-        head = llama.output_head(params, cfg, mesh, policy)
-        if mesh is None:
-            loss = chunked_cross_entropy(x, head, tokens[:, 1:],
-                                         batch.get("mask"))
-            return loss, {"loss": loss.detach()}
-        # this rank's share of the global mean: its tokens' sum over the
-        # global count; the weights' collectives sum the gradients
-        total, count = chunked_nll_sum(x, head, tokens[:, 1:],
-                                       batch.get("mask"))
-        count = all_reduce_sum(count, mesh, layout.token_axes).clamp_min(1.0)
-        return total / count, {
-            "loss": all_reduce_sum(total, mesh, layout.token_axes) / count}
+        with spans.region("model.head_loss") as r:
+            x, outer = r.inputs((x, {k: v for k, v in params.items()
+                                     if k != "layers"}))
+            head = llama.output_head(outer, cfg, mesh, policy)
+            if mesh is None:
+                loss = chunked_cross_entropy(x, head, tokens[:, 1:],
+                                             batch.get("mask"))
+                return r.outputs(loss), {"loss": loss.detach()}
+            # this rank's share of the global mean: its tokens' sum over
+            # the global count; the weights' collectives sum the gradients
+            total, count = chunked_nll_sum(x, head, tokens[:, 1:],
+                                           batch.get("mask"))
+            count = all_reduce_sum(count, mesh,
+                                   layout.token_axes).clamp_min(1.0)
+            return r.outputs(total / count), {
+                "loss": all_reduce_sum(total, mesh, layout.token_axes)
+                / count}
 
     step = maybe_cached(
         _step_from_loss(loss_fn, optimizer, sharded=mesh is not None),
@@ -370,12 +375,13 @@ def _step_from_loss(loss_fn: Callable[[Params, dict], tuple],
     def step(state: TrainState, batch) -> tuple:
         params = (llama.tree_map(lambda p: p.to_local(), state.params)
                   if sharded else state.params)
-        # named ranges for torch.profiler (tools/train_profile.py)
-        with record_function("train.forward"):
+        # the step's phases, named while torch.profiler runs
+        # (telemetry/spans.py)
+        with spans.span("train.forward"):
             loss, metrics = loss_fn(params, batch)
-        with record_function("train.backward"):
+        with spans.span("train.backward"):
             grads = torch.autograd.grad(loss, tree_leaves(params))
-        with record_function("train.optimizer"):
+        with spans.span("train.optimizer"):
             norm = optimizer.update(tree_leaves(state.params), grads,
                                     state.opt_state)
         state.step += 1

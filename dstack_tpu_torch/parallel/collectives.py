@@ -37,8 +37,9 @@ one card run under gloo.
 
 No DTensor op runs here: DTensor's sharding propagation over the seven
 axes of a mesh costs seconds per new op signature.  Each collective runs
-in a ``collective.<name>`` range of ``torch.profiler`` (its host time:
-the whole collective under gloo, the launch under NCCL).
+in a ``collective.<name>`` span while ``torch.profiler`` runs
+(:mod:`dstack_tpu_torch.telemetry.spans`; its host time: the whole
+collective under gloo, the launch under NCCL).
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ from typing import Any, Sequence
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
+
+from dstack_tpu_torch.telemetry import spans
 
 # newer torch names the tensor-in, tensor-out collectives *_single
 _all_gather_single = getattr(dist, "all_gather_single",
@@ -60,7 +62,7 @@ def _all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     shape = list(x.shape)
     out = torch.empty([n * shape[0]] + shape[1:], dtype=x.dtype,
                       device=x.device)
-    with record_function("collective.all_gather"):
+    with spans.span("collective.all_gather"):
         _all_gather_single(out, x.contiguous(), group=group)
     if dim == 0:
         return out
@@ -77,7 +79,7 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     # is a view of x, which may be strided (an einsum's gradient); gloo
     # copies such a buffer, NCCL sums the wrong elements
     parts = parts.reshape([n * shape[0]] + shape[1:]).contiguous()
-    with record_function("collective.reduce_scatter"):
+    with spans.span("collective.reduce_scatter"):
         _reduce_scatter_single(out, parts, group=group)
     return out
 
@@ -118,7 +120,7 @@ class _SumGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
-        with record_function("collective.all_reduce"):
+        with spans.span("collective.all_reduce"):
             dist.all_reduce(grad, group=ctx.group)
         return grad, None
 
@@ -127,7 +129,7 @@ class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         out = x.contiguous().clone()
-        with record_function("collective.all_reduce"):
+        with spans.span("collective.all_reduce"):
             dist.all_reduce(out, group=group)
         return out
 
@@ -149,7 +151,7 @@ def _permute(x: torch.Tensor, group, pairs, index: int) -> torch.Tensor:
                       group=group) for s, d in pairs if s == index]
     ops += [dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, s),
                        group=group) for s, d in pairs if d == index]
-    with record_function("collective.ppermute"):
+    with spans.span("collective.ppermute"):
         for req in dist.batch_isend_irecv(ops) if ops else ():
             req.wait()
     return recv.to(x.device) if host else recv
@@ -162,7 +164,7 @@ def _swap(x: torch.Tensor, group, n: int, split_dim: int,
     ``concat_dim`` in rank order."""
     send = torch.stack(x.chunk(n, split_dim))
     recv = torch.empty_like(send)
-    with record_function("collective.all_to_all"):
+    with spans.span("collective.all_to_all"):
         dist.all_to_all_single(recv, send, group=group)
     return torch.cat(recv.unbind(0), dim=concat_dim)
 

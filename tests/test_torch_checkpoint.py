@@ -428,6 +428,21 @@ def test_resume_env_contract_roundtrip(monkeypatch):
 # -- train telemetry ---------------------------------------------------------
 
 
+def _step_flops(cfg, experts=1):
+    """Model operations of a step at [BATCH, SEQ]: 6 per weight a token
+    multiplies (attention, ``experts`` experts' MLPs and the router, the
+    head; not the embedding lookup, not the norms) and causal attention's
+    14 * head_dim per kept (query, key) pair, query head and layer."""
+    d = cfg.hidden_size
+    per_layer = (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
+                 + 3 * d * cfg.intermediate_size * experts
+                 + d * getattr(cfg, "num_experts", 0))
+    weights = cfg.num_layers * per_layer + d * cfg.vocab_size
+    pairs = BATCH * SEQ * (SEQ + 1) // 2
+    return (6 * weights * BATCH * SEQ
+            + 14 * cfg.head_dim * pairs * cfg.num_heads * cfg.num_layers)
+
+
 def test_train_telemetry_counts_times_and_exposes_strictly():
     cfg, opt = _cfg_opt()
     tel = TrainTelemetry(log_every=0)
@@ -440,9 +455,8 @@ def test_train_telemetry_counts_times_and_exposes_strictly():
     assert tel.recompiles_total.value == 0  # no compile cache in the port
     assert tel.step_seconds.count == 3
     assert tel.tokens_per_sec.value > 0
-    assert tel.num_params == cfg.num_params()
     assert tel.mfu.value == pytest.approx(
-        6 * cfg.num_params() * tel.tokens_per_sec.value / 989e12)
+        _step_flops(cfg) * tel.tokens_per_sec.value / (BATCH * SEQ) / 989e12)
     assert losses[-1] < losses[0]
     text = "\n".join(render(tel.prometheus_samples()))
     names = {s.name for s in parse(text, strict=True)}
@@ -452,6 +466,29 @@ def test_train_telemetry_counts_times_and_exposes_strictly():
                      "dstack_train_tokens_per_sec", "dstack_train_mfu"):
         assert required in names, required
     assert tel.stats()
+
+
+def test_train_telemetry_mfu_counts_the_active_experts_and_attention():
+    """An MoE step's MFU counts the ``experts_per_token`` experts a token
+    passes through and causal attention, not every expert."""
+    from dstack_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig.tiny_moe(dtype=torch.float32)
+    opt = train.default_optimizer(lr=1e-3)
+    tel = TrainTelemetry(log_every=0)
+    step = tel.wrap(moe.make_train_step(cfg, opt), cfg)
+    state = moe.create_state(0, cfg, opt, device="cpu")
+    batch_fn = _batch_fn(cfg)
+    for i in range(2):
+        step(state, batch_fn(i))
+    tokens = BATCH * SEQ
+    flops = _step_flops(cfg, experts=cfg.experts_per_token)
+    assert tel.mfu.value == pytest.approx(
+        flops * tel.tokens_per_sec.value / tokens / 989e12)
+    # all four experts' weights, as 6 * num_params() counted them, are
+    # more than the two a token passes through and attention's pairs
+    assert flops < 6 * cfg.num_params() * tokens
+    assert tel.steps_total.value == 2
 
 
 # -- Hugging Face import -----------------------------------------------------
