@@ -31,6 +31,7 @@ from typing import Any, Callable, Optional, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree
 from torch.utils.checkpoint import checkpoint
 
 from dstack_tpu_torch.ops import flash_attention as flash
@@ -308,10 +309,8 @@ def tree_leaves(tree) -> list:
 
 def unstack_params(params: Params) -> Params:
     """Stacked [L, ...] layer weights -> a list of per-layer dicts, each
-    weight its own buffer (a copy).  Training takes unstacked trees: the
-    backward of a ``w[l]`` view of a stacked weight allocates a whole
-    [L, ...] gradient for every layer, while a per-layer weight gets its
-    own gradient."""
+    weight its own buffer (a copy) and, in training, its own gradient
+    (stacked weights get one stacked gradient, see :func:`layer_views`)."""
     layers = params["layers"]
     if isinstance(layers, (list, tuple)):
         return params
@@ -674,7 +673,7 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     :func:`causal_attention` over ``positions``.  ``remat`` is one of
     False/"none", True/"selective", "wide", "full" or a tuple of
     checkpoint names (see :func:`remat_names`).  Layers may be stacked
-    (walked as ``w[l]`` views) or unstacked (a list, see
+    (walked as :func:`layer_views`) or unstacked (a list, see
     :func:`unstack_params`).
 
     Under a ``mesh`` (a DeviceMesh over :data:`dstack_tpu_torch.parallel.
@@ -752,15 +751,19 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
 
 
 def layer_views(layers: Params, num_layers: int) -> list:
-    """Each layer's ``w[l]`` views of the stacked weights (a tree of
-    dicts: a serving-quantized expert stack's leaves are viewed one by
-    one).  Their backward (for each view, a zero gradient of the whole
-    stack, the layer's slice copied in, the stacks' gradients added up)
-    runs in the ``model.views`` span."""
+    """Each layer's views of the stacked weights (a tree of dicts: a
+    serving-quantized expert stack's leaves are viewed one by one), made
+    by one ``unbind(0)`` per stacked leaf and regrouped into per-layer
+    trees.  Their backward waits for every layer's gradient of a leaf and
+    writes the leaf's stacked gradient once, one ``stack`` per leaf,
+    inside the ``model.views`` span.  Nothing may write into a view in
+    place (it is one output of several)."""
     with spans.region("model.views") as r:
-        layers = r.inputs(layers)
-        return r.outputs([tree_map(lambda w: w[l], layers)
-                          for l in range(num_layers)])
+        stacks, tree = _pytree.tree_flatten(r.inputs(layers))
+        rows = [w.unbind(0) for w in stacks]
+        return r.outputs([
+            _pytree.tree_unflatten([row[l] for row in rows], tree)
+            for l in range(num_layers)])
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,

@@ -1,9 +1,9 @@
 """The port's spans (``dstack_tpu_torch/telemetry/spans.py``) on tiny train
 steps on the CPU: under ``torch.profiler`` every model layer's span shows,
 each backward node runs inside the span its forward op ran in (remat's
-recompute included), and the views' backward, with the engine's adds
-that accumulate it, runs inside ``model.views``; with the profiler off
-the graph holds no marker and the step is bit for bit the profiled one.
+recompute included), and the views' backward, one ``stack`` a stacked
+leaf, runs inside ``model.views``; with the profiler off the graph holds
+no marker and the step is bit for bit the profiled one.
 
 On the CPU autograd runs the backward on the calling thread; on a card
 it runs on a device thread of its own, which the markers name the same
@@ -96,15 +96,13 @@ def test_backward_runs_inside_its_regions_span(kind, remat):
                     "model.moe.experts", "model.moe.combine"}
     assert set(checked) == regions, checked
 
-    # every view's backward and the adds that accumulate the stacks'
-    # gradients: one per layer after the first, for each stacked leaf
-    views = [e for e in events if e.name == "aten::select_backward"
-             and _innermost(spans_, e) == "model.views"]
-    leaves = len(state.params["layers"])
-    assert len(views) == cfg.num_layers * leaves
-    adds = [e for e in events if e.name in ("aten::add", "aten::add_")
-            and _innermost(spans_, e) == "model.views"]
-    assert len(adds) == (cfg.num_layers - 1) * leaves
+    # the views' backward: one stack a stacked leaf, and no select's
+    # backward or add of whole stacks
+    in_views = collections.Counter(
+        e.name for e in events if _innermost(spans_, e) == "model.views")
+    assert in_views["aten::stack"] == len(state.params["layers"])
+    assert not (in_views["aten::select_backward"] + in_views["aten::add"]
+                + in_views["aten::add_"]), in_views
 
 
 def _graph_nodes(root):
