@@ -90,25 +90,21 @@ def bounds(args) -> None:
             "bound": max(0.01, 5 * max(spreads)) if spreads else None}))
 
 
-def _half_batch():
-    """The train step fed half of each batch (the mean over the rest)."""
-    from dstack_tpu_torch.models import moe, train
+def _half_batch(family):
+    """The family's train step fed half of each batch (the mean over the
+    rest); returns what puts it back."""
+    make = family.train_program
 
-    undo = []
-    for module in (train, moe):
-        make = module.make_train_step
-
-        def halved(*a, _make=make, **k):
-            step = _make(*a, **k)
-            return lambda state, batch: step(
-                state, {"tokens": batch["tokens"][:batch["tokens"].shape[0]
-                                                  // 2]})
-        module.make_train_step = halved
-        undo.append((module, make))
-    return undo
+    def halved(*a, **k):
+        state, step = make(*a, **k)
+        return state, lambda state, batch: step(
+            state, {"tokens": batch["tokens"][:batch["tokens"].shape[0]
+                                              // 2]})
+    family.train_program = halved
+    return lambda: setattr(family, "train_program", make)
 
 
-def training_control(cfg, seed: int, compared, device,
+def training_control(family, cfg, seed: int, compared, device,
                      precision: str = "fp8"):
     """The reference at ``precision`` in the program's place on the same
     batches: its numbers against the float32 reference following its
@@ -116,13 +112,12 @@ def training_control(cfg, seed: int, compared, device,
     from portbench.reference import judge
     from portbench.reference.training import Reference
 
-    low = Reference(cfg, seed, device, precision=precision)
+    low = Reference(family, cfg, seed, device, precision=precision)
     ctrl = low.steps(compared["batches"], compared["optimizer"])
-    follow = None
-    if hasattr(cfg, "num_experts"):
-        follow = [[(logits, None) for logits in step] for step in low.routes]
+    follow = [[None if logits is None else (logits, None) for logits in step]
+              for step in low.routes]
     del low
-    ref = Reference(cfg, seed, device).steps(
+    ref = Reference(family, cfg, seed, device).steps(
         compared["batches"], compared["optimizer"], follow=follow)
     return judge.training(ctrl, ref), ctrl["loss"]
 
@@ -146,21 +141,21 @@ def limits(args) -> None:
         if i < args.control:
             if "batches" in (out.compared or {}):
                 line["control"], line["losses"]["control"] = training_control(
-                    cell.model_config(), seed, out.compared, device,
-                    args.precision)
+                    cell.family, cell.model_config(), seed, out.compared,
+                    device, args.precision)
             else:
                 line["control"] = judge.served_control(
-                    cell.model_config(), seed, out.compared, device)
+                    cell.family, cell.model_config(), seed, out.compared,
+                    device)
         del out
         gc.collect()
         torch.cuda.empty_cache()
         if i < args.faults:
-            undo = _half_batch()
+            undo = _half_batch(cell.family)
             try:
                 bad = harness.run_cell(cell, seed, 0.0, False)
             finally:
-                for module, make in undo:
-                    module.make_train_step = make
+                undo()
             line["half_batch"] = bad.readings
             line["losses"]["half_batch"] = bad.compared["program"]["loss"]
             del bad

@@ -12,7 +12,7 @@ import re
 from typing import Optional
 
 from portbench import stats
-from portbench.frozen import bounds, flops
+from portbench.frozen import bounds
 
 FLASH_FWD = re.compile(r"flash.*\bfwd_kernel")
 FLASH_BWD = re.compile(r"flash.*\b(bwd|prep|post)_kernel")
@@ -76,16 +76,12 @@ def range_share(run, label: str) -> Optional[float]:
 
 
 def flash_roofline(run) -> Optional[float]:
-    """Least time of every traced K1 and K2 launch at the cell's shape over
-    their kernels' device time (the backward's pre- and post-pass with
-    it), in %."""
+    """Least time of every traced K1 and K2 launch at the cell's shape (the
+    family's count) over their kernels' device time (the backward's pre-
+    and post-pass with it), in %."""
     tr = run.trace
     if tr is None:
         return None
-    cfg = run.cfg
-    shape = (run.batch, run.seq, cfg.num_heads, cfg.num_kv_heads,
-             cfg.head_dim)
-    least = bounds.flash_bounds(shape)
     n_fwd = n_bwd = 0
     fwd_s = bwd_s = 0.0
     for name, _ts, dur, _ in tr.ops:
@@ -97,7 +93,8 @@ def flash_roofline(run) -> Optional[float]:
             n_bwd += bool(FLASH_BWD_MAIN.search(name))
     if fwd_s + bwd_s <= 0:
         return None
-    least_s = (n_fwd * least["fwd"][0] + n_bwd * least["bwd"][0]) / 1e3
+    least_s = run.cell.family.flash_least_s(run.cfg, run.batch, run.seq,
+                                            n_fwd, n_bwd)
     return 100.0 * least_s / (fwd_s + bwd_s)
 
 
@@ -106,5 +103,8 @@ def train_tokens_per_s(run) -> float:
 
 
 def train_mfu(run) -> float:
-    total = flops.train_step_flops(run.cfg, run.batch, run.seq) * run.steps
+    """The family's model operations of every step in the window over the
+    window, against the bf16 peak, in %."""
+    total = run.cell.family.train_flops(run.cfg, run.batch,
+                                        run.seq) * run.steps
     return 100.0 * total / (run.seconds * bounds.PEAK_BF16_FLOPS)

@@ -187,39 +187,33 @@ def _paths(sample):
     return seqs, spans
 
 
-def served(cfg, seed: int, sample, calls, device) -> Dict[str, Optional[float]]:
-    """The program's numbers: ``token_gap_mean`` and, for MoE,
-    ``router_gap_mean`` (then the widest gaps, not compared)."""
-    moe = hasattr(cfg, "num_experts")
+def served(family, cfg, seed: int, sample, calls, device
+           ) -> Dict[str, Optional[float]]:
+    """The program's numbers: ``token_gap_mean`` and, for a family that
+    routes, ``router_gap_mean`` (then the widest gaps, not compared)."""
+    follow = family.served_routes(cfg, calls, device)
     if not sample:
         return _numbers({"mean": None, "widest": None},
-                        None if moe else False)
+                        False if follow is False else None)
     seqs, spans = _paths(sample)
-    follow = False
-    if moe:
-        try:
-            follow = ProgramRoutes(calls, cfg.num_layers,
-                                   cfg.experts_per_token, device)
-        except ValueError:  # no whole forwards tapped: nothing to follow
-            follow = None
-    logits, _ = model.forward(cfg, seed, seqs, spans, device,
+    logits, _ = model.forward(family, cfg, seed, seqs, spans, device,
                               route=follow.route if follow else None)
     return _numbers(token_gaps(logits, [s.request.output for s in sample]),
                     follow)
 
 
-def served_control(cfg, seed: int, sample, device) -> Dict[str, float]:
+def served_control(family, cfg, seed: int, sample, device
+                   ) -> Dict[str, float]:
     """The control's numbers on the same prompts and served tokens: the
     int8 reference's first choice at each position, judged by the float32
     reference following the control's routing."""
-    moe = hasattr(cfg, "num_experts")
     seqs, spans = _paths(sample)
-    low, routes = model.forward(cfg, seed, seqs, spans, device,
-                                precision="int8", keep_routes=moe)
+    low, routes = model.forward(family, cfg, seed, seqs, spans, device,
+                                precision="int8")
     picks = [lg.argmax(-1).tolist() for lg in low]
     del low
-    follow = ReplayRoutes(routes, cfg.experts_per_token) if moe else False
-    ref, _ = model.forward(cfg, seed, seqs, spans, device,
+    follow = family.replayed_routes(cfg, routes)
+    ref, _ = model.forward(family, cfg, seed, seqs, spans, device,
                            route=follow.route if follow else None)
     return _numbers(token_gaps(ref, picks), follow)
 

@@ -1,19 +1,19 @@
-"""The plain reference of the served models: Llama/Mistral and Mixtral in
-float32 PyTorch, one sequence at a time, no cache, no batching, nothing of
-the port.
+"""The plain reference of the served models: the model of the cell's
+family (``families/``: its embedding, layers and head) in float32
+PyTorch, one sequence at a time, no cache, no batching, nothing of the
+port; and the pieces the families build their references from.
 
 Layer ``l`` is drawn again from the seed (``weights.reference_layer``)
 when the forward reaches it, and every sequence passes through it before
 the next layer is drawn, so one layer's float32 weights are on the card
-at a time.  Attention is causal GQA over blocks of queries.  An MoE layer
-routes each token to its ``k`` experts by a stable descending sort of its
-router logits, with the gates renormalised over the k chosen (Mixtral);
-``route`` may give the experts and which of them the token keeps instead
-(the judge replays the program's routing there: ``judge.py``).
+at a time.  A routed layer takes ``route``'s experts, and which of them
+the token keeps, where given (the judge replays the program's routing
+there: ``judge.py``).
 
-``precision="int8"`` is the control: every matrix but the router rounded
-to int8 with one scale per output channel (the step below bf16 that a
-later change would be tempted to take), the arithmetic still float32.
+``precision="int8"`` is the control: the matrices rounded to int8 as the
+family's ``int8_control`` says (one scale per output channel; the step
+below bf16 that a later change would be tempted to take), the arithmetic
+still float32.
 """
 
 from __future__ import annotations
@@ -21,11 +21,8 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from portbench import weights
-
-ROUTER = "router"
 
 
 def use_exact_matmuls() -> None:
@@ -42,21 +39,13 @@ def int8_rounded(w: torch.Tensor) -> torch.Tensor:
     return torch.round(w / scale).clamp_(-127, 127) * scale
 
 
-def _precision(tree: Dict[str, torch.Tensor], precision: str
+def _precision(family, tree: Dict[str, torch.Tensor], precision: str
                ) -> Dict[str, torch.Tensor]:
     if precision == "f32":
         return tree
     if precision != "int8":
         raise ValueError(f"unknown precision {precision!r}")
-    out = {}
-    for name, w in tree.items():
-        if w.dim() < 2 or name == ROUTER:
-            out[name] = w
-        elif name == "embed":
-            out[name] = int8_rounded(w.T).T
-        else:
-            out[name] = int8_rounded(w)
-    return out
+    return {name: family.int8_control(name, w) for name, w in tree.items()}
 
 
 def rms_norm(x, w, eps: float):
@@ -101,67 +90,28 @@ def top_k(logits, k: int):
 Route = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 
-def moe(h, w, k: int, route: Optional[Route] = None):
-    """Routed SwiGLU experts on h [n, D]; returns (out, router logits)."""
-    logits = h @ w[ROUTER]
-    probs = torch.softmax(logits, dim=-1)
-    if route is None:
-        experts = top_k(logits, k)
-        kept = torch.ones_like(experts, dtype=torch.bool)
-    else:
-        experts, kept = route(logits)
-    gates = probs.gather(1, experts)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-    gates = gates * kept
-    out = torch.zeros_like(h)
-    for e in range(w["w_gate"].shape[0]):
-        rows, slot = (experts == e).nonzero(as_tuple=True)
-        if rows.numel() == 0:
-            continue
-        x = h[rows]
-        y = (F.silu(x @ w["w_gate"][e]) * (x @ w["w_up"][e])) @ w["w_down"][e]
-        out.index_add_(0, rows, y * gates[rows, slot, None])
-    return out, logits
-
-
-def layer(cfg, x, w, route: Optional[Route] = None):
-    """One decoder layer on x [n, D]; returns (x, router logits or None)."""
-    n = x.shape[0]
-    h = rms_norm(x, w["attn_norm"], cfg.rms_eps)
-    q = rope((h @ w["wq"]).view(n, cfg.num_heads, cfg.head_dim), cfg.rope_theta)
-    kk = rope((h @ w["wk"]).view(n, cfg.num_kv_heads, cfg.head_dim),
-              cfg.rope_theta)
-    v = (h @ w["wv"]).view(n, cfg.num_kv_heads, cfg.head_dim)
-    x = x + attention(q, kk, v).reshape(n, -1) @ w["wo"]
-    h = rms_norm(x, w["mlp_norm"], cfg.rms_eps)
-    if ROUTER in w:
-        out, logits = moe(h, w, cfg.experts_per_token, route)
-        return x + out, logits
-    return x + (F.silu(h @ w["w_gate"]) * (h @ w["w_up"])) @ w["w_down"], None
-
-
-def forward(cfg, seed: int, seqs: List[List[int]],
+def forward(family, cfg, seed: int, seqs: List[List[int]],
             spans: List[Tuple[int, int]], device, precision: str = "f32",
-            route: Optional[Callable[[int, int], Route]] = None,
-            keep_routes: bool = False):
+            route: Optional[Callable[[int, int], Route]] = None):
     """Logits [stop - start, V] at each sequence's positions
-    ``spans[i]``, and (``keep_routes``) each sequence's router logits a
-    layer.  ``route(layer, i)`` gives sequence i's routing at a layer."""
+    ``spans[i]``, and each sequence's router logits a layer (None: not
+    routed).  ``route(layer, i)`` gives sequence i's routing at a
+    layer."""
     use_exact_matmuls()
-    g = _precision(weights.reference_globals(cfg, seed, device), precision)
+    g = _precision(family, weights.reference_globals(family, cfg, seed,
+                                                     device), precision)
     with torch.no_grad():
-        xs = [g["embed"][torch.tensor(s, device=device)] for s in seqs]
+        xs = [family.ref_embed(cfg, g, torch.tensor(s, device=device))
+              for s in seqs]
         routes: List[List[torch.Tensor]] = [[] for _ in seqs]
         for l in range(cfg.num_layers):
-            w = _precision(weights.reference_layer(cfg, seed, l, device),
-                           precision)
+            w = _precision(family, weights.reference_layer(
+                family, cfg, seed, l, device), precision)
             for i, x in enumerate(xs):
-                xs[i], logits = layer(cfg, x, w,
-                                      None if route is None else route(l, i))
-                if keep_routes and logits is not None:
-                    routes[i].append(logits)
+                xs[i], logits = family.ref_serve_layer(
+                    cfg, l, x, w, None if route is None else route(l, i))
+                routes[i].append(logits)
             del w
-        head = g["lm_head"] if "lm_head" in g else g["embed"].T
-        out = [rms_norm(x[a:b], g["final_norm"], cfg.rms_eps) @ head
+        out = [family.ref_head(cfg, g, x[a:b], torch.matmul)
                for x, (a, b) in zip(xs, spans)]
     return out, routes

@@ -21,14 +21,14 @@ import threading
 import time
 from typing import Any, List, Optional
 
-from portbench import harness, taps, tracing, weights
+from portbench import harness, taps, tracing
 from portbench.traffic import lengths
 
 #: ranges the traced stretch opens around the program's functions, by the
-#: names under which the engine calls them (module attributes), and its
-#: scheduler's methods (the engine's own attributes)
+#: names under which the engine calls them (module attributes; the
+#: family's own in its ``SERVE_RANGES``), and its scheduler's methods (the
+#: engine's own attributes)
 MODULE_RANGES = (
-    ("dstack_tpu_torch.models.moe", "_moe_mlp", "portbench.moe"),
     ("dstack_tpu_torch.serving.engine", "_masked_attention",
      "portbench.prefill_attention"),
 )
@@ -80,8 +80,9 @@ class _Control:
     tap, start and stop the profiler, attach and detach the traced
     stretch's ranges."""
 
-    def __init__(self, engine, route_tap: taps.RouteTap):
+    def __init__(self, engine, route_tap, module_ranges):
         self.engine, self.route_tap = engine, route_tap
+        self.module_ranges = module_ranges
         self.record_routes = False
         self.want = None            # "start" or "stop"
         self.changed = threading.Event()
@@ -91,7 +92,8 @@ class _Control:
         self.ranging = False
 
     def boundary(self) -> None:
-        self.route_tap.enabled = self.record_routes
+        if self.route_tap is not None:
+            self.route_tap.enabled = self.record_routes
         if self.want == "start":
             self.want = None
             self._attach()
@@ -109,7 +111,7 @@ class _Control:
         import importlib
 
         p = self._patches = taps.Patches()
-        for module, name, label in MODULE_RANGES:
+        for module, name, label in self.module_ranges:
             p.wrap(importlib.import_module(module), name, taps.ranged(label))
         for name, label in ENGINE_RANGES:
             p.wrap(self.engine, name, taps.ranged(label))
@@ -148,27 +150,26 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
         clock0: float) -> harness.Outcome:
     import torch
 
-    from dstack_tpu_torch.serving.engine import InferenceEngine, Request
+    from dstack_tpu_torch.serving.engine import Request
     from portbench import readers
     from portbench.reference import judge
 
+    family = cell.family
     cfg = cell.model_config()
     mix, conf, kind = cell.traffic, cell.cell, cell.generator
-    e = conf["engine"]
     plan = kind.schedule(mix, conf, seed, seconds, cfg.vocab_size)
-    params = weights.program_params(cfg, seed, device)
-    engine = InferenceEngine(
-        cfg, params=params, batch_size=e["batch_size"], max_len=e["max_len"],
-        paged=e["paged"], kv_block_size=e["kv_block_size"], device=device,
-        compile_cache=(harness.compile_cache() if device.type == "cuda"
-                       else None))
+    params = family.program_params(cfg, seed, device)
+    engine = family.engine(
+        cfg, params, conf["engine"], device,
+        harness.compile_cache() if device.type == "cuda" else None)
     _warm(engine, plan, cfg, seed)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    route_tap = taps.RouteTap()
+    route_tap = family.route_tap(cfg)
     patches = taps.Patches()
-    route_tap.install(patches)
-    ctl = _Control(engine, route_tap)
+    if route_tap is not None:
+        route_tap.install(patches)
+    ctl = _Control(engine, route_tap, family.SERVE_RANGES + MODULE_RANGES)
 
     def make_step(step):
         from torch.profiler import record_function
@@ -242,12 +243,12 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
                  f"{readers.tpot_ms(result, 90)}")
     window_reqs, failed = kind.account(result)
     sample = judge.pick(served, seed, conf["check"])
-    calls = route_tap.calls
+    calls = route_tap.calls if route_tap is not None else []
     del engine, params, ctl, loop, feeders
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    numbers = judge.served(cfg, seed, sample, calls, device)
+    numbers = judge.served(family, cfg, seed, sample, calls, device)
     limits = conf.get("limits", {})
     checks = harness.checks(numbers, limits, notes)
     notes.append(f"checked {len(sample)} requests, "

@@ -12,10 +12,12 @@ or one metric sits in a file of its own, named after it:
 - ``traffic/<name>.json``: the parameters of one traffic mix, read by the
   module its ``kind`` names (``traffic/<kind>.py``, which also sends its
   requests and says which of them count; see ``traffic/__init__.py``);
-- ``metrics/<name>.py``: one reader a metric.
+- ``metrics/<name>.py``: one reader a metric;
+- ``families/<model_type>.py``: one model family, chosen by the
+  configuration's published ``model_type`` (see ``families/__init__.py``).
 
-A cell, configuration, mix, kind or metric is added by adding its file
-(and a manifest entry); no file that is there changes.
+A cell, configuration, mix, kind, metric or family is added by adding its
+file (and a manifest entry); no file that is there changes.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from pathlib import Path
 from typing import Any, Dict
 
 HERE = Path(__file__).resolve().parent
+#: the family of a configuration that names no ``model_type``
+UNTYPED = "llama"
 
 
 def _load(kind: str, name: str, root: Path = HERE) -> Dict[str, Any]:
@@ -70,8 +74,16 @@ class Cell:
     #: the folder the cell's files were found in
     root: Path = HERE
 
+    @functools.cached_property
+    def family(self):
+        """The module of the configuration's family:
+        ``families/<model_type>.py``."""
+        return _module(self.root, "families",
+                       self.config.get("model_type", UNTYPED))
+
     def model_config(self):
-        return port_config(self.config)
+        """The port's configuration, as the family maps it."""
+        return self.family.port_config(self.config)
 
     @functools.cached_property
     def generator(self):
@@ -87,39 +99,3 @@ def find(name: str, root: Path = HERE) -> Cell:
     return Cell(name=name, cell=cell, config=_load("configs", cell["config"],
                                                    root),
                 traffic=_load("traffic", cell["traffic"], root), root=root)
-
-
-def port_config(hf: Dict[str, Any]):
-    """The port's ``LlamaConfig`` or ``MoEConfig`` of a published
-    ``config.json`` (Llama, Mistral or Mixtral keys).  A key the port has
-    no counterpart for must hold the value the port computes."""
-    import torch
-
-    from dstack_tpu_torch.models.llama import LlamaConfig
-    from dstack_tpu_torch.models.moe import MoEConfig
-
-    if hf.get("hidden_act", "silu") != "silu":
-        raise ValueError("the port's MLP is SwiGLU (silu)")
-    if hf.get("sliding_window") is not None:
-        raise ValueError("the port has no sliding-window attention")
-    if hf.get("rope_scaling") is not None:
-        raise ValueError("rope scaling is not mapped")
-    heads = hf["num_attention_heads"]
-    kw = dict(
-        vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
-        intermediate_size=hf["intermediate_size"],
-        num_layers=hf["num_hidden_layers"], num_heads=heads,
-        num_kv_heads=hf["num_key_value_heads"],
-        head_dim=hf.get("head_dim") or hf["hidden_size"] // heads,
-        rope_theta=float(hf["rope_theta"]), rms_eps=float(hf["rms_norm_eps"]),
-        max_seq_len=hf["max_position_embeddings"],
-        dtype=getattr(torch, hf.get("torch_dtype", "bfloat16")),
-        tie_embeddings=bool(hf.get("tie_word_embeddings", False)))
-    if "num_local_experts" not in hf:
-        return LlamaConfig(**kw)
-    assumed = hf.get("assumed", {})
-    return MoEConfig(num_experts=hf["num_local_experts"],
-                     experts_per_token=hf["num_experts_per_tok"],
-                     capacity_factor=float(assumed["capacity_factor"]),
-                     router_aux_weight=float(hf["router_aux_loss_coef"]),
-                     **kw)

@@ -10,7 +10,7 @@ result line), and the program runs as it is.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Tuple
 
 
 class Patches:
@@ -51,28 +51,3 @@ def ranged(label: str) -> Callable[[Callable], Callable]:
                 return fn(*args, **kwargs)
         return inner
     return make
-
-
-class RouteTap:
-    """The router logits of every ``moe._route`` call while
-    :attr:`enabled`, with the call's capacity and token mask: what the
-    served-token check replays where the program and the reference route
-    a token differently (see ``reference/judge.py``)."""
-
-    def __init__(self):
-        self.enabled = False
-        self.calls: List[Tuple[Any, int, Optional[Any]]] = []
-
-    def install(self, patches: Patches) -> bool:
-        from dstack_tpu_torch.models import moe
-
-        def make(route):
-            def tap(logits, k, capacity, *args, **kwargs):
-                if self.enabled:
-                    mask = kwargs.get("token_mask", args[0] if args else None)
-                    self.calls.append((logits.detach(), int(capacity),
-                                       None if mask is None
-                                       else mask.detach()))
-                return route(logits, k, capacity, *args, **kwargs)
-            return tap
-        return patches.wrap(moe, "_route", make)

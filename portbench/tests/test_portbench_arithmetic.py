@@ -6,8 +6,9 @@ import types
 
 import pytest
 
-from portbench import readers, stats
+from portbench import readers, spec, stats
 from portbench.frozen import bounds, flops
+from portbench.tests.conftest import DATA
 
 
 def test_percentile_nearest_rank():
@@ -66,7 +67,8 @@ def test_train_rate_and_mfu():
                                 intermediate_size=16, num_layers=2,
                                 vocab_size=10, num_heads=2, head_dim=4)
     run = types.SimpleNamespace(steps=10, batch=2, seq=4, seconds=2.0,
-                                cfg=cfg)
+                                cfg=cfg, cell=spec.find("tiny-dense-train",
+                                                        DATA))
     assert readers.train_tokens_per_s(run) == 40.0
     assert readers.train_mfu(run) == pytest.approx(
         100 * 10 * flops.train_step_flops(cfg, 2, 4)

@@ -29,8 +29,8 @@ def test_serving_program_passes_and_its_control_fails():
     cell, out = _run("tiny-chat")
     assert _correct(out), out.checks
     limits = cell.cell["limits"]
-    ctrl = judge.served_control(cell.model_config(), BIG_SEED, out.compared,
-                                CPU)
+    ctrl = judge.served_control(cell.family, cell.model_config(), BIG_SEED,
+                                out.compared, CPU)
     assert any(v > limits[k] for k, v in ctrl.items()), ctrl
 
 
@@ -38,8 +38,8 @@ def test_serving_program_passes_and_its_control_fails():
 def test_training_program_passes_and_its_control_fails(name):
     cell, out = _run(name, seconds=0.0)
     assert _correct(out), out.checks
-    numbers, _ = calibrate.training_control(cell.model_config(), BIG_SEED,
-                                            out.compared, CPU)
+    numbers, _ = calibrate.training_control(cell.family, cell.model_config(),
+                                            BIG_SEED, out.compared, CPU)
     limits = cell.cell["limits"]
     assert any(v > limits[k] for k, v in numbers.items()), numbers
 
@@ -47,8 +47,9 @@ def test_training_program_passes_and_its_control_fails(name):
 def test_the_experts_only_control_fails_the_moe_cell():
     """A program that took only the expert matmuls to fp8 still fails."""
     cell, out = _run("tiny-moe-train", seconds=0.0)
-    numbers, _ = calibrate.training_control(cell.model_config(), BIG_SEED,
-                                            out.compared, CPU, "fp8_experts")
+    numbers, _ = calibrate.training_control(cell.family, cell.model_config(),
+                                            BIG_SEED, out.compared, CPU,
+                                            "fp8_experts")
     limits = cell.cell["limits"]
     assert any(v > limits[k] for k, v in numbers.items()), numbers
 

@@ -1,13 +1,17 @@
 """The harness finds every piece by name: a cell, a configuration, a
-traffic mix, a traffic kind or a metric is added as new files (and a
-manifest entry), and the manifest and the files agree."""
+traffic mix, a traffic kind, a metric or a model family is added as new
+files (and a manifest entry), and the manifest and the files agree."""
 
+import inspect
 import json
 import shutil
 import textwrap
 from pathlib import Path
 
+import pytest
+
 from portbench import harness, spec
+from portbench.frozen import bounds, flops
 from portbench.tests.conftest import BIG_SEED, DATA
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -51,6 +55,48 @@ BURSTS = textwrap.dedent('''
     def account(run):
         return run.served, sum(1 for s in run.served if not s.finished)
 ''')
+
+
+#: a model family the harness has never seen: the port's dense step, a
+#: reference of its own, and twice the model operations
+TOY = textwrap.dedent('''
+    import torch
+    import torch.nn.functional as F
+
+    from portbench.families.llama import (
+        flash_least_s, globals_table, layer_table, port_config,
+        program_params, program_slice, ref_aux_weight, ref_embed,
+        ref_embed_grads, ref_head, train_program)
+    from portbench.frozen import flops
+    from portbench.reference.model import rms_norm, rope
+    from portbench.reference.training import causal_attention
+
+
+    def route_tap(cfg):
+        return None
+
+
+    def train_flops(cfg, batch, seq):
+        return 2 * flops.train_step_flops(cfg, batch, seq)
+
+
+    def ref_layer(cfg, layer, x, w, mms, follow=None):
+        mm = mms[0]
+        b, s, _ = x.shape
+        h = rms_norm(x, w["attn_norm"], cfg.rms_eps)
+        q = mm(h, w["wq"]).view(b, s, cfg.num_heads, cfg.head_dim)
+        k = mm(h, w["wk"]).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = mm(h, w["wv"]).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = torch.stack([rope(q[r], cfg.rope_theta) for r in range(b)])
+        k = torch.stack([rope(k[r], cfg.rope_theta) for r in range(b)])
+        x = x + mm(causal_attention(q, k, v).reshape(b, s, -1), w["wo"])
+        h = rms_norm(x, w["mlp_norm"], cfg.rms_eps)
+        y = mm(F.silu(mm(h, w["w_gate"])) * mm(h, w["w_up"]), w["w_down"])
+        return x + y, None, None
+''')
+#: the toy cell's files
+TOY_FILES = {"families/toy.py", "configs/toy-tiny.json",
+             "traffic/toy-train.json", "cells/toy-train.json"}
 
 
 def _copy(tmp_path):
@@ -107,6 +153,76 @@ def test_a_new_traffic_kind_runs_as_new_files(tmp_path):
     assert out.checks and all(c.ok for c in out.checks), out.checks
     line = harness.result_line(cell, out, False, harness.device_of("cpu"))
     assert set(line["metrics"]) == {"tpot_p50_ms", "setup_s"}
+
+
+def _toy(root, source=TOY):
+    """The toy family's cell: a tiny dense configuration of its
+    ``model_type``, a training mix and the cell, as new files."""
+    (root / "families" / "toy.py").write_text(source)
+    config = json.loads((DATA / "configs" / "tiny-dense.json").read_text())
+    (root / "configs" / "toy-tiny.json").write_text(json.dumps(
+        dict(config, model_type="toy")))
+    shutil.copy(DATA / "traffic" / "train-tiny.json",
+                root / "traffic" / "toy-train.json")
+    cell = json.loads((DATA / "cells" / "tiny-dense-train.json").read_text())
+    (root / "cells" / "toy-train.json").write_text(json.dumps(
+        dict(cell, config="toy-tiny", traffic="toy-train")))
+    return spec.find("toy-train", root)
+
+
+def _files(root):
+    return {p.relative_to(root).as_posix(): p.read_bytes()
+            for p in root.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts
+            and p.relative_to(root).parts[0] != "tests"}
+
+
+def test_a_new_model_family_trains_as_new_files(tmp_path):
+    """A family the harness has never seen trains its cell end to end with
+    every check ok, and ``mfu.train`` reads the family's count."""
+    root = _copy(tmp_path)
+    cell = _toy(root)
+    assert Path(cell.family.__file__) == root / "families" / "toy.py"
+    out = harness.run_cell(cell, BIG_SEED, 0.0, False, device="cpu")
+    assert out.checks and all(c.ok for c in out.checks), out.checks
+    run = out.run
+    mfu = harness.read_metrics(cell, out, True)["mfu.train"]["value"]
+    assert mfu == pytest.approx(
+        2 * 100 * flops.train_step_flops(run.cfg, run.batch, run.seq)
+        * run.steps / (run.seconds * bounds.PEAK_BF16_FLOPS))
+    original, copy = _files(spec.HERE), _files(root)
+    assert set(copy) - set(original) == TOY_FILES
+    assert {name: copy.get(name) for name in original} == original
+
+
+def test_a_family_whose_reference_drops_a_norm_fails_its_check(tmp_path):
+    """The check runs the family's reference, not one of its own."""
+    norm = 'h = rms_norm(x, w["mlp_norm"], cfg.rms_eps)'
+    assert norm in TOY
+    cell = _toy(_copy(tmp_path), TOY.replace(norm, "h = x"))
+    out = harness.run_cell(cell, BIG_SEED, 0.0, False, device="cpu")
+    assert out.checks and not all(c.ok for c in out.checks), out.checks
+
+
+@pytest.mark.parametrize("name", ["mixtral-train-s4096",
+                                  "mistral7b-train-s4096",
+                                  "tiny-moe-train"])
+def test_mistral_mixtral_and_untyped_configs_are_the_llama_family(name):
+    cell = spec.find(name, spec.HERE if "s4096" in name else DATA)
+    assert (inspect.getsourcefile(cell.family.port_config)
+            == str(spec.HERE / "families" / "llama.py"))
+
+
+def test_an_unknown_model_type_names_the_missing_file(tmp_path):
+    root = _copy(tmp_path)
+    config = json.loads((DATA / "configs" / "tiny-dense.json").read_text())
+    (root / "configs" / "odd.json").write_text(json.dumps(
+        dict(config, model_type="odd")))
+    cell = json.loads((DATA / "cells" / "tiny-dense-train.json").read_text())
+    (root / "cells" / "odd-train.json").write_text(json.dumps(
+        dict(cell, config="odd", traffic="train-b2-s4096")))
+    with pytest.raises(FileNotFoundError, match="families/odd.py"):
+        spec.find("odd-train", root).model_config()
 
 
 def test_manifest_and_files_agree():

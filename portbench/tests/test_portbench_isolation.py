@@ -32,7 +32,8 @@ def test_forbidden_modules_by_whole_top_level_name(monkeypatch):
 def test_the_drivers_import_nothing_of_jax():
     code = ("import sys; from portbench import harness, serve, train, "
             "calibrate, readers; from portbench.reference import judge, "
-            "model, training; import dstack_tpu_torch.serving.engine, "
+            "model, training; from portbench.families import llama; "
+            "import dstack_tpu_torch.serving.engine, "
             "dstack_tpu_torch.models.moe, dstack_tpu_torch.models.train; "
             "print(harness.forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1,7 +1,6 @@
-"""Training cells: the port's train step (``models/train.py`` or
-``models/moe.py`` ``make_train_step``, remat and AdamW at their
-defaults), fed by the port's ``DataLoader`` over a corpus drawn from the
-seed.
+"""Training cells: the port's train step as the cell's model family
+builds it (``families/``; remat and AdamW at their defaults), fed by the
+port's ``DataLoader`` over a corpus drawn from the seed.
 
 Set-up builds the one state the window trains, and drives it through its
 first three steps with the window's own call and feed; those steps are
@@ -42,35 +41,36 @@ class TrainRun:
     trace: Optional[tracing.Trace] = None
 
 
-def _slices(cfg, params) -> Dict[str, Any]:
-    """Each (leaf, layer) slice of the program's tree, by check key."""
+def _slices(family, cfg, params) -> Dict[str, Any]:
+    """Each (leaf, layer) slice of the program's tree, by check key: its
+    leaf, layer, the tensor that holds it and its index there."""
     out = {}
-    for name, l in weights.leaf_slices(cfg):
-        t = params[name] if l < 0 else params["layers"][name][l]
-        out[leaf_key(name, l)] = (t, name, l)
+    for name, l in weights.leaf_slices(family, cfg):
+        whole, i = family.program_slice(params, name, l)
+        out[leaf_key(name, l)] = (name, l, whole, i)
     return out
 
 
-def _first_grad(state, params, cfg, b1: float) -> Dict[str, float]:
+def _first_grad(state, params, family, cfg, b1: float) -> Dict[str, float]:
     """The first gradient as the optimizer got it, a slice: AdamW's first
     moment after one step is (1 - b1) times it."""
     opt = state.opt_state
     out = {}
-    for key, (_t, name, l) in _slices(cfg, params).items():
-        whole = params[name] if l < 0 else params["layers"][name]
+    for key, (_name, _l, whole, i) in _slices(family, cfg, params).items():
         m = opt.state[whole].get("exp_avg")
         if m is None:  # the optimizer was never given a gradient
             out[key] = 0.0
             continue
-        out[key] = float((m if l < 0 else m[l]).float().norm()) / (1 - b1)
+        out[key] = float((m if i is None else m[i]).float().norm()) / (1 - b1)
     return out
 
 
-def _update(params, cfg, seed: int, device) -> Dict[str, float]:
+def _update(params, family, cfg, seed: int, device) -> Dict[str, float]:
     """Each slice's change from its drawn start."""
     out = {}
-    for key, (t, name, l) in _slices(cfg, params).items():
-        start = weights.initial(cfg, seed, name, l, device)
+    for key, (name, l, whole, i) in _slices(family, cfg, params).items():
+        t = whole if i is None else whole[i]
+        start = weights.initial(family, cfg, seed, name, l, device)
         out[key] = float((t.detach().float() - start.float()).norm())
     return out
 
@@ -80,26 +80,19 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     import torch
     from torch.profiler import record_function
 
-    from dstack_tpu_torch.models import data, moe, train
+    from dstack_tpu_torch.models import data, train
     from portbench.reference import judge
     from portbench.reference.training import Reference
 
+    family = cell.family
     cfg = cell.model_config()
     mix = cell.traffic
     b, s = int(mix["batch"]), int(mix["seq_len"])
-    is_moe = hasattr(cfg, "num_experts")
-    params = weights.program_params(cfg, seed, device)
+    params = family.program_params(cfg, seed, device)
     opt = train.default_optimizer()
-    state = train.state_from_params(params, cfg, opt)
-    if device.type == "cuda":
-        cache = harness.compile_cache()
-        for name in ("flash_fwd", "flash_bwd"):
-            cache.ensure(name)
-        step = (moe.make_train_step(cfg, opt) if is_moe
-                else train.make_train_step(cfg, opt, compile_cache=cache))
-    else:
-        step = (moe.make_train_step(cfg, opt) if is_moe
-                else train.make_train_step(cfg, opt))
+    state, step = family.train_program(
+        cfg, params, opt,
+        harness.compile_cache() if device.type == "cuda" else None)
     gen = cell.generator
     corpus = gen.corpus(mix, seed, cfg.vocab_size)
     loader = data.DataLoader(
@@ -116,24 +109,26 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     check_s = 0.0
     # the first steps' router logits (the forward's, not remat's second
     # pass), which the reference follows
-    route_tap, patches = taps.RouteTap(), taps.Patches()
-    if is_moe:
+    route_tap, patches = family.route_tap(cfg), taps.Patches()
+    routes = None
+    if route_tap is not None:
         route_tap.install(patches)
-    routes = []
+        routes = []
     for i in range(CHECK_STEPS):
         batch = next(feed)
         fed.append(batch["tokens"].cpu())
-        route_tap.enabled, first = True, len(route_tap.calls)
+        if route_tap is not None:
+            route_tap.enabled, first = True, len(route_tap.calls)
         state, metrics = step(state, batch)
-        route_tap.enabled = False
-        routes.append([(logits, capacity) for logits, capacity, _ in
-                       route_tap.calls[first:first + cfg.num_layers]])
+        if route_tap is not None:
+            route_tap.enabled = False
+            routes.append(route_tap.by_layer(route_tap.calls[first:]))
         prog["loss"].append(float(metrics["loss"]))
         t = time.time()
         if i == 0:
-            prog["grad"] = _first_grad(state, params, cfg, opt.b1)
+            prog["grad"] = _first_grad(state, params, family, cfg, opt.b1)
         if i == CHECK_STEPS - 1:
-            prog["update"] = _update(params, cfg, seed, device)
+            prog["update"] = _update(params, family, cfg, seed, device)
         check_s += time.time() - t
     patches.close()
     sync()
@@ -165,8 +160,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    ref = Reference(cfg, seed, device).steps(
-        fed, opt, follow=routes if is_moe else None)
+    ref = Reference(family, cfg, seed, device).steps(fed, opt, follow=routes)
     numbers = judge.training(prog, ref)
     limits = cell.cell.get("limits", {})
     notes = [f"losses {prog['loss']} against {ref['loss']}"]

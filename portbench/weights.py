@@ -1,10 +1,10 @@
 """Weights drawn from the run's seed, on the device, in the served dtype.
 
 Each (leaf, layer) is one draw from a generator of its own, seeded from
-(seed, leaf, layer): the program gets the port's tree (stacked ``[L, ...]``
-leaves, ``[in, out]`` matrices, a float32 router), and the plain reference
-draws any one layer again, alone, when it needs it, so it never reads a
-tensor the program held.
+(seed, leaf, layer), of the shape, fan-in and dtype its model family's
+table gives (``families/``): the family lays the draws out as the
+program's tree, and the plain reference draws any one layer again, alone,
+when it needs it, so it never reads a tensor the program held.
 
 Scales follow the port's initialisation (a matrix's entries ~ N(0, 1 /
 fan_in)); the norm weights are 1 + N(0, 0.1^2) rather than ones, so that a
@@ -26,38 +26,6 @@ def leaf_seed(seed: int, name: str, layer: int) -> int:
     return int.from_bytes(digest[:8], "little") & (2 ** 63 - 1)
 
 
-def _shapes(cfg) -> Dict[str, Tuple[tuple, int, torch.dtype]]:
-    """Each layer leaf's per-layer shape, fan-in (0: a norm) and dtype."""
-    d, f = cfg.hidden_size, cfg.intermediate_size
-    out = {
-        "attn_norm": ((d,), 0, cfg.dtype),
-        "wq": ((d, cfg.q_dim), d, cfg.dtype),
-        "wk": ((d, cfg.kv_dim), d, cfg.dtype),
-        "wv": ((d, cfg.kv_dim), d, cfg.dtype),
-        "wo": ((cfg.q_dim, d), cfg.q_dim, cfg.dtype),
-        "mlp_norm": ((d,), 0, cfg.dtype),
-    }
-    e = getattr(cfg, "num_experts", 0)
-    if e:
-        out["router"] = ((d, e), d, torch.float32)
-        out.update(w_gate=((e, d, f), d, cfg.dtype),
-                   w_up=((e, d, f), d, cfg.dtype),
-                   w_down=((e, f, d), f, cfg.dtype))
-    else:
-        out.update(w_gate=((d, f), d, cfg.dtype), w_up=((d, f), d, cfg.dtype),
-                   w_down=((f, d), f, cfg.dtype))
-    return out
-
-
-def _globals(cfg) -> Dict[str, Tuple[tuple, int, torch.dtype]]:
-    d = cfg.hidden_size
-    out = {"embed": ((cfg.vocab_size, d), d, cfg.dtype),
-           "final_norm": ((d,), 0, cfg.dtype)}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = ((d, cfg.vocab_size), d, cfg.dtype)
-    return out
-
-
 def draw(seed: int, name: str, layer: int, shape: tuple, fan_in: int,
          dtype: torch.dtype, device) -> torch.Tensor:
     """One leaf of one layer (``layer`` -1 for the embedding, the final
@@ -70,54 +38,44 @@ def draw(seed: int, name: str, layer: int, shape: tuple, fan_in: int,
     return t.mul_(fan_in ** -0.5)
 
 
-def program_params(cfg, seed: int, device) -> dict:
-    """The port's parameter tree, every leaf drawn on ``device``."""
-    params = {name: draw(seed, name, -1, *spec, device)
-              for name, spec in _globals(cfg).items()}
-    layers = {}
-    for name, (shape, fan_in, dtype) in _shapes(cfg).items():
-        stacked = torch.empty((cfg.num_layers,) + shape, dtype=dtype,
-                              device=device)
-        for l in range(cfg.num_layers):
-            stacked[l].copy_(draw(seed, name, l, shape, fan_in, dtype, device))
-        layers[name] = stacked
-    params["layers"] = layers
-    return params
+def stack(seed: int, name: str, layers, spec, device) -> torch.Tensor:
+    """Leaf ``name`` of each of ``layers``, stacked ``[len(layers), ...]``
+    (``spec``: its table entry)."""
+    shape, fan_in, dtype = spec
+    layers = list(layers)
+    out = torch.empty((len(layers),) + shape, dtype=dtype, device=device)
+    for i, l in enumerate(layers):
+        out[i].copy_(draw(seed, name, l, shape, fan_in, dtype, device))
+    return out
 
 
-def initial(cfg, seed: int, name: str, layer: int, device) -> torch.Tensor:
-    """Leaf ``name``'s slice of layer ``layer`` (-1: an unstacked leaf) as
-    it was drawn, in its stored dtype."""
-    spec = (_globals(cfg) if layer < 0 else _shapes(cfg))[name]
-    return draw(seed, name, layer, *spec, device)
+def initial(family, cfg, seed: int, name: str, layer: int, device
+            ) -> torch.Tensor:
+    """Leaf ``name``'s slice of layer ``layer`` (-1: a global leaf) as it
+    was drawn, in its stored dtype."""
+    table = (family.globals_table(cfg) if layer < 0
+             else family.layer_table(cfg, layer))
+    return draw(seed, name, layer, *table[name], device)
 
 
-def reference_layer(cfg, seed: int, layer: int, device) -> Dict[str, torch.Tensor]:
+def reference_layer(family, cfg, seed: int, layer: int, device
+                    ) -> Dict[str, torch.Tensor]:
     """Layer ``layer``'s leaves drawn again, in float32."""
-    return {name: draw(seed, name, layer, shape, fan_in, dtype,
-                       device).float()
-            for name, (shape, fan_in, dtype) in _shapes(cfg).items()}
+    return {name: draw(seed, name, layer, *spec, device).float()
+            for name, spec in family.layer_table(cfg, layer).items()}
 
 
-def reference_globals(cfg, seed: int, device) -> Dict[str, torch.Tensor]:
+def reference_globals(family, cfg, seed: int, device
+                      ) -> Dict[str, torch.Tensor]:
     return {name: draw(seed, name, -1, *spec, device).float()
-            for name, spec in _globals(cfg).items()}
+            for name, spec in family.globals_table(cfg).items()}
 
 
-def stored_dtype(cfg, name: str) -> torch.dtype:
-    """The dtype the program stores leaf ``name`` in."""
-    spec = _globals(cfg).get(name) or _shapes(cfg)[name]
-    return spec[2]
-
-
-def leaf_slices(cfg) -> Iterator[Tuple[str, int]]:
-    """(leaf, layer) of every slice the checks compare, in the port's
-    order (``layer`` -1 for the unstacked leaves)."""
-    for name in _globals(cfg):
-        if name != "lm_head":
-            yield name, -1
-    for name in _shapes(cfg):
-        for l in range(cfg.num_layers):
+def leaf_slices(family, cfg) -> Iterator[Tuple[str, int]]:
+    """(leaf, layer) of every slice the checks compare (``layer`` -1 for
+    the global leaves)."""
+    for name in family.globals_table(cfg):
+        yield name, -1
+    for l in range(cfg.num_layers):
+        for name in family.layer_table(cfg, l):
             yield name, l
-    if not cfg.tie_embeddings:
-        yield "lm_head", -1
