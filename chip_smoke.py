@@ -30,8 +30,13 @@ Phases (any failure stops the run with a non-zero exit and no result):
              kernel, its
              plain version and, as a yardstick only,
              scaled_dot_product_attention, beside the card's least time
-             (bound).  Then the loss's f32 logits from bf16 inputs against
-             an f32 matmul.
+             (bound).  Then the windowed forward and backward kernels
+             (a sliding window) held to the windowed plain versions at
+             edge shapes and at Trinity-Mini's launch (b8 s8192, Hq 32,
+             Hkv 4, D=128, window 2048; two batch rows held), timed
+             beside the causal kernels at that shape, their bound and
+             SDPA given the window as a mask.  Then the loss's f32
+             logits from bf16 inputs against an f32 matmul.
 3. server  — serves Llama-3-8B (full width and depth, random weights from a
              seed) with `python -m dstack_tpu_torch.serving.server --paged`
              and sends concurrent /v1/completions (one streaming) and a
@@ -285,6 +290,18 @@ Phases (any failure stops the run with a non-zero exit and no result):
              rank's peak memory.  moe_dispatch_phase(torch,
              backend="nccl", ranks=4) runs (a) at data=2 x expert=2 and
              (b), (c) at seq=4 and stage=4, a card a rank.
+18. trinity — (run right after phase 11) Trinity-Mini (afmoe) at its
+             published widths, cut as the benchmark's cell cuts it
+             (AFMOE_CUT: 8 layers, two dense, then two periods of three
+             windowed and one full; 16 of the router's 128 experts held;
+             a vocabulary of 25,024), AFMOE_STEPS steps at b8 s8192 from
+             seed 0 through afmoe.make_train_step, selective remat.  Fails
+             unless the loss falls, the expert bias moves with a zero
+             mean, and a step launches the windowed kernels exactly
+             (2 x 6, 6) times and the causal ones (2 x 2, 2); the
+             windowed launches are the windowed rows' counts in the
+             kernels' record.  Prints the step, tokens/s, dropped tokens
+             and peak memory.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Needs one CUDA card; exits non-zero without
@@ -1024,6 +1041,262 @@ def check_flash_kernels(torch) -> dict:
             f"{(times['fwd'] + times['bwd']) * 1e3:.1f} us, sdpa "
             f"{times['fwd_bwd_sdpa'] * 1e3:.1f} us")
         del q, k, v, do, o, lse, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
+
+
+#: the windowed kernels' shapes, (B, S, Hq, Hkv, D, window): edge shapes
+#: for correctness (a window inside one block, across two, not a multiple
+#: of the block, MQA, D=64), then Trinity-Mini's training launch (b8
+#: s8192, window 2048), held and timed
+WINDOW_EDGE_SHAPES = ((2, 384, 4, 2, 128, 64), (1, 512, 8, 1, 128, 200),
+                      (2, 640, 4, 4, 64, 130), (1, 256, 4, 2, 64, 2))
+WINDOW_ROWS = {"trinity-mini": (8, 8192, 32, 4, 128, 2048)}
+#: batch rows of a timed windowed launch held to the plain versions (the
+#: plain scores of one row are 8.6 GB in f32 at s8192, Hq 32)
+WINDOW_CHECK_ROWS = (0, 7)
+
+
+def window_flash_bounds(shape, window: int) -> dict:
+    """:func:`flash_bounds` under a sliding window: the same bytes, the
+    operations over the (query, key) pairs the window keeps, each query i
+    min(i + 1, window) of them."""
+    b, s, hq, hkv, d = shape
+    w = min(window, s)
+    pairs = b * hq * (w * (w + 1) // 2 + (s - w) * w)
+    out = {}
+    for part, (nbytes, _flops), mul in (
+            ("fwd", flash_bounds(shape)["fwd"][2:], 4),
+            ("bwd", flash_bounds(shape)["bwd"][2:], 10)):
+        flops = mul * d * pairs
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+        out[part] = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations", nbytes,
+                     flops)
+    return out
+
+
+def window_errors(torch, fa, shape, window: int, rows=None):
+    """Both windowed kernels once at ``shape``, held to the plain versions
+    (batch ``rows`` of it only, when given): (inputs, (o, lse), errors)
+    as :func:`flash_errors` gives them."""
+    q, k, v, do = flash_case(torch, shape, seed=shape[4] + window)
+    scale = shape[4] ** -0.5
+    o, lse = fa._flash_fwd_kernel(q, k, v, scale, window)
+    grads = fa._flash_bwd_kernel(q, k, v, o, lse, do, scale, window)
+    torch.cuda.synchronize()
+    errs = {}
+    for r in (range(shape[0]) if rows is None else rows):
+        one = [t[r:r + 1] for t in (q, k, v, o, do)]
+        want_o, want_lse = fa.flash_attention_fwd_plain(*one[:3], scale,
+                                                        window)
+        want_grads = fa.flash_attention_bwd_plain(
+            *one[:3], one[3], lse[r:r + 1], one[4], scale, window)
+        got = {"lse": lse[r:r + 1], "o": one[3]}
+        got.update(zip(("dq", "dk", "dv"), (g[r:r + 1] for g in grads)))
+        want = {"lse": want_lse, "o": want_o}
+        want.update(zip(("dq", "dk", "dv"), want_grads))
+        for n in got:
+            e = (got[n].float() - want[n].float()).abs().max().item()
+            errs[n] = max(errs.get(n, 0.0), e)
+            if n != "lse":
+                errs[n + "_row"] = max(errs.get(n + "_row", 0.0),
+                                       row_rel_err(torch, got[n], want[n]))
+        del want_o, want_lse, want_grads, want
+        torch.cuda.empty_cache()
+    return (q, k, v, do), (o, lse), errs
+
+
+def checked_window_errors(torch, fa, shape, window: int, rows=None):
+    out = window_errors(torch, fa, shape, window, rows)
+    bad = flash_violations(out[2])
+    if bad:
+        fail(f"windowed flash kernels at (B, S, Hq, Hkv, D) = {shape}, "
+             f"window {window} disagree with the plain versions: {bad} "
+             f"(limits {FLASH_LIMITS})")
+    return out
+
+
+def check_window_kernels(torch) -> dict:
+    """Hold the windowed forward and backward kernels to their plain
+    versions at WINDOW_EDGE_SHAPES and WINDOW_ROWS, then time each
+    WINDOW_ROWS launch beside its bound (:func:`window_flash_bounds`),
+    the causal kernels at the same shape, and
+    ``scaled_dot_product_attention`` given the window as a mask (the
+    heads repeated for the grouped-query read, so a masked backend takes
+    it; "not measured" where none does).  Checks the wrapper's windowed
+    launch counters."""
+    import torch.nn.functional as F
+
+    from dstack_tpu_torch.ops import flash_attention as fa
+
+    for *shape, window in WINDOW_EDGE_SHAPES:
+        shape = tuple(shape)
+        errs = checked_window_errors(torch, fa, shape, window)[2]
+        log(f"kernel flash window {window} (B, S, Hq, Hkv, D) = {shape}: "
+            f"max err " + " ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    before = (fa.flash_attention.window_fwd_launches,
+              fa.flash_attention.window_bwd_launches,
+              fa.flash_attention.fwd_launches, fa.flash_attention.bwd_launches)
+    out = {}
+    for row, (*shape, window) in WINDOW_ROWS.items():
+        shape = tuple(shape)
+        d = shape[4]
+        scale = d ** -0.5
+        (q, k, v, do), (o, lse), errs = checked_window_errors(
+            torch, fa, shape, window, WINDOW_CHECK_ROWS)
+        times = {
+            "fwd": time_ms(torch, lambda: fa._flash_fwd_kernel(
+                q, k, v, scale, window), 20),
+            "bwd": time_ms(torch, lambda: fa._flash_bwd_kernel(
+                q, k, v, o, lse, do, scale, window), 20),
+            "fwd_causal": time_ms(torch, lambda: fa._flash_fwd_kernel(
+                q, k, v, scale), 20),
+        }
+        _, causal_lse = fa._flash_fwd_kernel(q, k, v, scale)
+        times["bwd_causal"] = time_ms(torch, lambda: fa._flash_bwd_kernel(
+            q, k, v, o, causal_lse, do, scale), 20)
+        group = shape[2] // shape[3]
+        qt, kt, vt = (x.transpose(1, 2).repeat_interleave(
+            group if x is not q else 1, dim=1).detach().requires_grad_()
+            for x in (q, k, v))
+        pos = torch.arange(shape[1], device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (
+            pos[:, None] - pos[None, :] < window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=mask, scale=scale)
+
+        try:
+            with torch.no_grad():
+                times["fwd_sdpa"] = time_ms(torch, sdpa, 5)
+            ref = sdpa()
+            times["bwd_sdpa"] = time_ms(torch, lambda: torch.autograd.grad(
+                ref, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 5)
+            del ref
+        except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+            log(f"kernel flash window sdpa: not measured ({e})"[:300])
+        del qt, kt, vt, mask
+        torch.cuda.empty_cache()
+        bounds = window_flash_bounds(shape, window)
+        for part, errs_shown in (("fwd", ("o", "lse", "o_row")),
+                                 ("bwd", ("dq", "dk", "dv", "dq_row",
+                                          "dk_row", "dv_row"))):
+            name = f"flash_attention_{part}[{row},D={d},window={window}]"
+            bound_ms, bound_by, nbytes, flops = bounds[part]
+            sdpa_ms = times.get(part + "_sdpa")
+            out[name] = {
+                "name": name, "route": "cuda", "source": FLASH_SOURCES[part],
+                "replaces": "(new: Trinity's sliding-window layers)",
+                "launches": 0,
+                "max_abs_err": max(errs[n] for n in errs_shown
+                                   if not n.endswith("_row")),
+                "ms": times[part], "causal_ms": times[part + "_causal"],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": sdpa_ms,
+            }
+            log(f"kernel {name}: max err " + " ".join(
+                f"{n} {errs[n]:.3e}" for n in errs_shown)
+                + f"  kernel {times[part] * 1e3:.1f} us  causal "
+                f"{times[part + '_causal'] * 1e3:.1f} us  bound "
+                f"{bound_ms * 1e3:.1f} us by {bound_by} ({nbytes} B, "
+                f"{flops} flop)  {flops / times[part] / 1e9:.1f} TFLOP/s, "
+                f"{bound_ms / times[part]:.3f} of the bound, sdpa "
+                + (f"{sdpa_ms * 1e3:.1f} us, "
+                   f"{times[part] / sdpa_ms:.2f}x sdpa" if sdpa_ms
+                   else "not measured"))
+        del q, k, v, do, o, lse, causal_lse
+        torch.cuda.empty_cache()
+    after = (fa.flash_attention.window_fwd_launches,
+             fa.flash_attention.window_bwd_launches,
+             fa.flash_attention.fwd_launches, fa.flash_attention.bwd_launches)
+    counted = [a - b for a, b in zip(after, before)]
+    if counted[0] == 0 or counted[1] == 0:
+        fail(f"flash window: the wrapper counted no windowed launch "
+             f"({counted})")
+    log(f"kernel flash window launches counted: windowed fwd/bwd "
+        f"{counted[0]}/{counted[1]}, causal {counted[2]}/{counted[3]}")
+    return out
+
+
+#: Trinity-Mini's training cut as the benchmark's cell runs it: the first
+#: 8 layers (both dense ones, then two periods of three windowed and one
+#: full), 16 of the router's 128 experts held, an eighth of the vocabulary;
+#: b8 s8192, the windowed rows' launch shape
+AFMOE_CUT = dict(num_layers=8, held_experts=(0, 16), vocab_size=25_024)
+AFMOE_BATCH, AFMOE_SEQ, AFMOE_STEPS = 8, 8192, 4
+
+
+def afmoe_phase(torch, cfg=None, device: str = "cuda", batch: int = AFMOE_BATCH,
+                seq: int = AFMOE_SEQ, steps: int = AFMOE_STEPS) -> dict:
+    """Trinity-Mini at its published widths (``AFMOE_CUT``) trained
+    ``steps`` steps through ``afmoe.make_train_step`` at the port's default
+    remat, on one repeated batch of random tokens from seed 0.  Checks the
+    loss is finite and falls, the expert bias moved with a zero mean, and,
+    on the card, that the windowed kernels ran once a sliding layer a step
+    backward and twice forward (selective remat recomputes the layer) and
+    the causal ones so on the full layers."""
+    from dstack_tpu_torch.models import afmoe, train
+    from dstack_tpu_torch.ops import flash_attention as fa
+
+    cfg = cfg or afmoe.AfmoeConfig.trinity_mini(**AFMOE_CUT)
+    gen = torch.Generator(device=device).manual_seed(0)
+    opt = train.default_optimizer()
+    t0 = time.time()
+    state = afmoe.create_state(gen, cfg, opt, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                           device=device, dtype=torch.int32)
+    step_fn = afmoe.make_train_step(cfg, opt)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    init_s = time.time() - t0
+    counters = ("fwd_launches", "bwd_launches", "window_fwd_launches",
+                "window_bwd_launches")
+    for name in counters:
+        setattr(fa.flash_attention, name, 0)
+    losses, norms, dropped, times = [], [], [], []
+    for _ in range(steps):
+        t = time.time()
+        state, metrics = step_fn(state, {"tokens": tokens})
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        dropped.append(metrics["dropped_tokens"].sum().item())
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.time() - t)
+    launches = {name: getattr(fa.flash_attention, name) for name in counters}
+    sliding = sum(map(cfg.sliding, range(cfg.num_layers)))
+    full = cfg.num_layers - sliding
+    want = {"fwd_launches": 2 * full * steps, "bwd_launches": full * steps,
+            "window_fwd_launches": 2 * sliding * steps,
+            "window_bwd_launches": sliding * steps}
+    if device == "cuda" and launches != want:
+        fail(f"train trinity-mini: flash launches {launches}, expected "
+             f"{want}")
+    if not all(map(math.isfinite, losses + norms)):
+        fail(f"train trinity-mini: non-finite loss or grad norm: {losses} "
+             f"{norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"train trinity-mini: loss did not fall: {losses}")
+    bias = state.buffers["expert_bias"]
+    if not (bias.abs().amax() > 0
+            and bias.sum(-1).abs().amax() < 1e-6 * cfg.num_experts):
+        fail(f"train trinity-mini: the expert bias did not move with a "
+             f"zero mean: {bias.sum(-1).tolist()}")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    out = {"config": "trinity-mini", "num_layers": cfg.num_layers,
+           "held_experts": cfg.held_experts, "batch": batch,
+           "seq": seq, "steps": steps, "init_s": init_s, "losses": losses,
+           "grad_norms": norms, "dropped_tokens": dropped, "step_s": times,
+           "step_median_s": step_s, "tokens_per_s": batch * seq / step_s,
+           "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                       if device == "cuda" else None),
+           **launches}
+    log("train: " + json.dumps(out))
+    del state, step_fn
+    if device == "cuda":
         torch.cuda.empty_cache()
     return out
 
@@ -5196,6 +5469,7 @@ def main() -> int:
     kernels, paged = check_kernels(torch,
                                    mesh_k5_rows(torch.cuda.device_count()))
     kernels.update(check_flash_kernels(torch))
+    kernels.update(check_window_kernels(torch))
     check_f32_logits(torch)
     served = serve_8b()
     kernels["paged_decode_attention[bf16,llama3-8b]"]["launches"] = \
@@ -5246,6 +5520,11 @@ def main() -> int:
     for way in ("fwd", "bwd"):
         kernels[f"flash_attention_{way}[llama3-8b-fit,D=128]"][
             "launches"] += mixtral["train"][f"{way}_launches"]
+    trinity = afmoe_phase(torch)
+    window = WINDOW_ROWS["trinity-mini"][-1]
+    for way in ("fwd", "bwd"):
+        kernels[f"flash_attention_{way}[trinity-mini,D=128,window={window}]"][
+            "launches"] = trinity[f"window_{way}_launches"]
     meshed = mesh_serving_phase(torch)
     for run in meshed.values():
         # every rank's launches, each on its Hkv / tensor kv heads (its
@@ -5292,6 +5571,11 @@ def main() -> int:
                                  "step_median_s", "max_memory_allocated_gb",
                                  "losses")}))
     log("train-plain summary: " + json.dumps(plain))
+    log("trinity summary: " + json.dumps(
+        {k: trinity[k] for k in ("tokens_per_s", "step_median_s", "losses",
+                                 "dropped_tokens", "max_memory_allocated_gb",
+                                 "window_fwd_launches",
+                                 "window_bwd_launches")}))
     log("resume summary: " + json.dumps(
         {k: resumed[k] for k in ("snapshot_bytes", "copy_s", "write_s",
                                  "restore_s", "step_median_s",

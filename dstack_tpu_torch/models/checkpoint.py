@@ -144,8 +144,10 @@ def state_leaves(state: Any) -> List[Tuple[str, torch.Tensor]]:
     """(key path, tensor) of every leaf a snapshot holds, in the JAX
     ``TrainState``'s flatten order: the params, AdamW's step count
     (``count``, int32) and moments (``mu``/``nu``, in the params' dtype,
-    from torch's ``exp_avg``/``exp_avg_sq``), then ``step`` (int32).  A
-    plain tree of dicts and lists of tensors is flattened as it is."""
+    from torch's ``exp_avg``/``exp_avg_sq``), then ``step`` (int32), then
+    the ``buffers`` where the state has them (an MoE's expert bias; the
+    JAX ``TrainState`` has none).  A plain tree of dicts and lists of
+    tensors is flattened as it is."""
     if not isinstance(state, TrainState):
         return _tree_items(state, "")
     params = _tree_items(state.params, ".params")
@@ -168,7 +170,13 @@ def state_leaves(state: Any) -> List[Tuple[str, torch.Tensor]]:
                in zip(mu_paths, per_param, params)]
             + [(path, moment(s, "exp_avg_sq", p)) for path, s, (_, p)
                in zip(nu_paths, per_param, params)]
-            + [(".step", torch.tensor(int(state.step), dtype=torch.int32))])
+            + [(".step", torch.tensor(int(state.step), dtype=torch.int32))]
+            + _buffer_items(state))
+
+
+def _buffer_items(state: TrainState) -> List[Tuple[str, Any]]:
+    return ([] if state.buffers is None
+            else _tree_items(state.buffers, ".buffers"))
 
 
 def _like(local: torch.Tensor, p: Any) -> Any:
@@ -532,7 +540,8 @@ def _read_step_dir(step_dir: Path, verify: bool
 
 def _template_items(template: Any) -> List[Tuple[str, Any]]:
     """(path, template leaf) in snapshot order; a TrainState template's
-    moments mirror its params and its counters are int32 scalars."""
+    moments mirror its params, its counters are int32 scalars and its
+    ``buffers`` come last."""
     if not isinstance(template, TrainState):
         return _tree_items(template, "")
     params = _tree_items(template.params, ".params")
@@ -541,7 +550,7 @@ def _template_items(template: Any) -> List[Tuple[str, Any]]:
     return (params + [(f"{_ADAM_PATH}.count", scalar)]
             + list(zip(mu_paths, [t for _, t in params]))
             + list(zip(nu_paths, [t for _, t in params]))
-            + [(".step", scalar)])
+            + [(".step", scalar)] + _buffer_items(template))
 
 
 def _restore(template: Any, leaves_meta: List[dict],
@@ -600,8 +609,10 @@ def _restore(template: Any, leaves_meta: List[dict],
                 by_path[f"{_ADAM_PATH}.mu{tail}"]),
             "exp_avg_sq": mesh_lib.local_tensor(
                 by_path[f"{_ADAM_PATH}.nu{tail}"])}
+    buffers = (None if template.buffers is None
+               else _rebuild(template.buffers, ".buffers", by_path))
     return TrainState(params=params, opt_state=opt,
-                      step=int(by_path[".step"]))
+                      step=int(by_path[".step"]), buffers=buffers)
 
 
 def _rebuild(tree, prefix: str, by_path: dict):

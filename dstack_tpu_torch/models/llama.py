@@ -539,13 +539,18 @@ class Layout:
             return y
         return collectives.psum(y, self.mesh, self.tensor)
 
-    def attention(self, q, k, v):
+    def attention(self, q, k, v, window: Optional[int] = None):
         """Causal attention of this rank's rows, heads and (under ``seq``)
         stripe: the fused kernels, whole or through
         :func:`flash.flash_attention_sharded`; under ``seq``, Ulysses or
-        ring attention as the policy's ``seq_scheme`` says."""
+        ring attention as the policy's ``seq_scheme`` says.  ``window``:
+        a sliding window (see :func:`flash.flash_attention`), not ported
+        under a mesh."""
         if self.mesh is None:
-            return flash.flash_attention(q, k, v)
+            return flash.flash_attention(q, k, v, window=window)
+        if window is not None:
+            raise NotImplementedError(
+                "a sliding window under a device mesh is not ported")
         p = self.policy
         spec = (tuple(p.batch_axes), self.seq, p.tensor_axis, None)
 
@@ -581,19 +586,47 @@ def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
     return layout.leave(torch.where(valid[..., None], x, 0))
 
 
+@dataclasses.dataclass(frozen=True)
+class LayerKind:
+    """What one transformer layer computes beyond Llama's, each at its
+    default leaving the Llama layer's operations and their order.
+
+    - ``window``: a sliding window W (query i sees keys i - W < j <= i);
+    - ``rope``: RoPE on q and k (False: no positional encoding);
+    - ``qk_norm``: an RMSNorm over each head of q and of k (weights
+      ``q_norm``, ``k_norm`` [head_dim]) before RoPE;
+    - ``gate``: the attention's output times sigmoid(h @ ``w_attn_gate``)
+      ([D, Hq * head_dim], h the normed input) before ``wo``;
+    - ``sandwich``: an RMSNorm on the attention's and the MLP's outputs
+      (``post_attn_norm``, ``post_mlp_norm``) before their residual adds;
+    - ``mlp``: ``(h, lp) -> out``, the MLP branch's output from the normed
+      h (a routed MLP), in place of the SwiGLU through ``w_gate``,
+      ``w_up``, ``w_down`` (None)."""
+
+    window: Optional[int] = None
+    rope: bool = True
+    qk_norm: bool = False
+    gate: bool = False
+    sandwich: bool = False
+    mlp: Optional[Callable] = None
+
+
 def _layer_fn(cfg: LlamaConfig, positions, inv_freqs, routed: bool,
-              keep: Optional[tuple], layout: Layout, specs: dict):
+              keep: Optional[tuple], layout: Layout, specs: dict,
+              kind: LayerKind = LayerKind()):
     """One transformer layer ``(x, lp) -> x``; its attention is
     :meth:`Layout.attention` when ``routed`` (the fused kernels, or ring
     or Ulysses under ``seq``), else :func:`causal_attention` over
-    ``positions``.  The layer is five steps,
+    ``positions``.  ``kind`` says what the layer adds to Llama's
+    (:class:`LayerKind`).  The layer is five steps,
     each making one named tensor (:data:`REMAT_NAMES`); under remat the
     steps between two kept tensors run as one checkpointed region, so the
     backward recomputes exactly what the JAX policy recomputes.  The
     attention always sits in a region (its logsumexp is not a kept
     tensor); a lone product whose input is kept runs outside one, except
     under a mesh: there every region gathers its own weights, so remat
-    gathers them again rather than keeping them."""
+    gathers them again rather than keeping them.  The output gate's
+    projection is made with q, k and v and kept with them."""
 
     def w(lp, name):
         return layout.weight(lp[name], specs[name])
@@ -603,27 +636,46 @@ def _layer_fn(cfg: LlamaConfig, positions, inv_freqs, routed: bool,
         b, s = h.shape[:2]
         st["qkv"] = tuple((h @ w(lp, name)).reshape(b, s, -1, cfg.head_dim)
                           for name in ("wq", "wk", "wv"))
+        if kind.gate:
+            st["gate"] = h @ w(lp, "w_attn_gate")
 
     def attn_out(st, lp):
         q, k, v = st.pop("qkv")
-        q = apply_rope(q, positions, inv_freqs)
-        k = apply_rope(k, positions, inv_freqs)
+        if kind.qk_norm:
+            q = rms_norm(q, w(lp, "q_norm"), cfg.rms_eps)
+            k = rms_norm(k, w(lp, "k_norm"), cfg.rms_eps)
+        if kind.rope:
+            q = apply_rope(q, positions, inv_freqs)
+            k = apply_rope(k, positions, inv_freqs)
         if routed:
-            out = layout.attention(q, k, v)
+            out = layout.attention(q, k, v, window=kind.window)
         else:
             out = causal_attention(q, k, v, q_positions=positions,
-                                   kv_positions=positions)
+                                   kv_positions=positions,
+                                   window=kind.window)
         st["attn"] = out.reshape(*out.shape[:2], -1)
+        if kind.gate:
+            st["attn"] = st["attn"] * torch.sigmoid(st.pop("gate"))
 
     def proj_attn(st, lp):
-        st["x"] = st["x"] + layout.leave(st.pop("attn") @ w(lp, "wo"))
+        y = layout.leave(st.pop("attn") @ w(lp, "wo"))
+        if kind.sandwich:
+            y = rms_norm(y, w(lp, "post_attn_norm"), cfg.rms_eps)
+        st["x"] = st["x"] + y
 
     def mlp_mid(st, lp):
         h = layout.enter(rms_norm(st["x"], w(lp, "mlp_norm"), cfg.rms_eps))
+        if kind.mlp is not None:
+            st["mid"] = kind.mlp(h, lp)
+            return
         st["mid"] = F.silu(h @ w(lp, "w_gate")) * (h @ w(lp, "w_up"))
 
     def proj_mlp(st, lp):
-        st["x"] = st["x"] + layout.leave(st.pop("mid") @ w(lp, "w_down"))
+        y = (st.pop("mid") if kind.mlp is not None
+             else layout.leave(st.pop("mid") @ w(lp, "w_down")))
+        if kind.sandwich:
+            y = rms_norm(y, w(lp, "post_mlp_norm"), cfg.rms_eps)
+        st["x"] = st["x"] + y
 
     steps = ((qkv, "qkv"), (attn_out, "attn_out"), (proj_attn, "proj"),
              (mlp_mid, "mlp_mid"), (proj_mlp, "proj"))

@@ -3,15 +3,25 @@
 The JAX package's ``models/moe.py`` in PyTorch: the dense stack is the
 Llama one (RMSNorm, GQA attention through the fused causal kernels where
 :func:`dstack_tpu_torch.ops.flash_attention.supports` says so, RoPE), and
-every MLP is a top-k routed expert layer in the GShard "einsum dispatch"
-form:
+every MLP is a top-k routed expert layer with GShard's static capacity:
 
-- routing gives a static-capacity dispatch tensor [T, E, C], so every
-  shape is known before the data is;
+- routing gives each (token, choice) its expert and its slot in that
+  expert's buffer of ``C`` rows, so every shape is known before the data
+  is; dispatch gathers the kept rows into the ``[E, C, D]`` buffers by
+  those indices, and combine adds the gated outputs back by them (the
+  reference's one-hot ``[T, E, C]`` einsums, without the tensor);
 - experts are stacked ``[L, E, ...]`` (``w_gate``/``w_up`` ``[L, E, D, F]``,
   ``w_down`` ``[L, E, F, D]``) and the router is float32 ``[L, D, E]``;
 - tokens over capacity are dropped (their residual stream passes through);
   ``capacity_factor`` sets the slack.
+
+The configuration may also say (Trinity's ``afmoe``, models/afmoe.py):
+the router scores by a sigmoid and chooses by the scores plus an expert
+bias that the step moves by the token counts (no aux loss); a shared
+expert runs on every token; and the layer holds only a range of the
+routed experts (one card's share under expert parallelism): it routes
+over all of them, with the capacity of the routed width, and computes
+the held experts' part of the output.
 
 Routing, dispatch and the expert products are plain torch, as they are
 plain ``jnp`` in the reference.
@@ -47,7 +57,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -75,6 +85,30 @@ class MoEConfig(LlamaConfig):
     experts_per_token: int = 2
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01  # load-balancing loss weight
+    #: "softmax" (the top k of the logits, their probabilities renormalised
+    #: over the k) or "sigmoid" (scores s = sigmoid(logits) in f32, the top
+    #: k of s plus the expert bias, gates the chosen s over their sum
+    #: + 1e-20, times ``route_scale``; no aux loss)
+    score_func: str = "softmax"
+    route_scale: float = 1.0
+    #: ``[first, stop)``: the routed experts this card holds (None: all
+    #: ``num_experts``, the router's width)
+    held_experts: Optional[Tuple[int, int]] = None
+    #: width of the shared SwiGLU expert every token passes (0: none)
+    shared_intermediate_size: int = 0
+    #: the expert bias's step a train step (0: no bias), torchtitan's
+    #: aux-loss-free balancing: b += r * sign(mean(n) - n), less its mean
+    bias_update_rate: float = 0.0
+
+    def __post_init__(self):
+        if self.score_func not in ("softmax", "sigmoid"):
+            raise ValueError(f"score_func must be 'softmax' or 'sigmoid', "
+                             f"got {self.score_func!r}")
+
+    @property
+    def held(self) -> Tuple[int, int]:
+        """``[first, stop)`` of the routed experts held here."""
+        return self.held_experts or (0, self.num_experts)
 
     @classmethod
     def mixtral_8x7b(cls, **kw) -> "MoEConfig":
@@ -339,78 +373,228 @@ def _layout(mesh: Any, policy: Optional[ShardingPolicy], cfg: MoEConfig,
     return layout
 
 
+class Routing(NamedTuple):
+    """What :func:`_route` decides for each of T tokens' k choices."""
+
+    #: [T, k] long: the experts chosen, best first
+    expert: torch.Tensor
+    #: [T, k] long: each choice's place in its expert's buffer (counted
+    #: among the choices of the experts in ``cols``; 0 elsewhere)
+    slot: torch.Tensor
+    #: [T, k] float32: each choice's gate, before the capacity's drops
+    gate: torch.Tensor
+    #: [T, k] bool: the choice is a real token's, its expert is in
+    #: ``cols``, and its slot is within the capacity
+    kept: torch.Tensor
+    #: the load-balancing loss (0 for sigmoid scores)
+    aux: torch.Tensor
+    #: [E] float32: the real tokens' choices of each expert, before the
+    #: capacity (the expert bias's rule reads them)
+    counts: torch.Tensor
+
+
 def _route(logits: torch.Tensor, k: int, capacity: int,
            token_mask: Optional[torch.Tensor] = None,
-           layout: Optional[ExpertLayout] = None):
+           layout: Optional[ExpertLayout] = None, *,
+           score: str = "softmax", bias: Optional[torch.Tensor] = None,
+           scale: float = 1.0,
+           cols: Optional[Tuple[int, int]] = None) -> Routing:
     """GShard top-k routing with static capacity.
 
-    logits: [T, E] float32.  Returns (dispatch [T, E, C] of 0/1 floats,
-    combine [T, E, C] float32, aux_loss scalar).  ``token_mask`` [T] (1 =
-    real token) keeps tokens out of routing entirely: they claim no
-    capacity slot and get zero output (the serving engine masks bucket
+    logits: [T, E] float32.  Returns a :class:`Routing`.  ``token_mask``
+    [T] (1 = real token) keeps tokens out of routing entirely: they claim
+    no capacity slot and get zero output (the serving engine masks bucket
     padding so that pads cannot take real tokens' slots).
 
-    The top k are taken by a stable descending sort, so that equal logits
-    go to the lower expert first, as ``lax.top_k`` orders them.
+    ``score`` "softmax": the top k of the logits, gates their softmax
+    probabilities renormalised over the k (Mixtral).  "sigmoid": scores
+    s = sigmoid(logits), the top k of s + ``bias`` [E] (the expert bias,
+    no gradient), gates the chosen s over their sum + 1e-20, times
+    ``scale`` (Trinity); no aux loss.  The top k are taken
+    by a stable descending sort, so that equal values go to the lower
+    expert first, as ``lax.top_k`` orders them.
+
+    Slots are counted for the experts ``cols`` = ``[first, stop)`` (None:
+    all): a choice's slot depends only on the choices of its own expert,
+    so a layer that holds some of the experts counts theirs alone.
 
     Under a mesh ``layout`` makes the routing the global batch's: the
     slots and the load-balancing means count every stripe (``logits``
     are this stripe's tokens), and the gates' gradient is summed over the
     ranks whose experts read them (:meth:`ExpertLayout.spread`)."""
     t, e = logits.shape
-    probs = torch.softmax(logits, dim=-1)                       # [T, E]
-    topi = torch.sort(logits, dim=-1, descending=True,
+    if score == "softmax":
+        probs = torch.softmax(logits, dim=-1)                   # [T, E]
+        ranked = logits
+    elif score == "sigmoid":
+        probs = torch.sigmoid(logits)
+        ranked = probs if bias is None else probs + bias
+    else:
+        raise ValueError(f"unknown score {score!r}")
+    topi = torch.sort(ranked, dim=-1, descending=True,
                       stable=True).indices[:, :k]               # [T, k]
+    real = None if token_mask is None else token_mask.float()
 
-    chosen = F.one_hot(topi, e).float()                         # [T, k, E]
-    if token_mask is not None:
-        # zero BEFORE the capacity cumsum: masked tokens must not occupy
-        # expert slots, not merely have their output dropped
-        chosen = chosen * token_mask.float()[:, None, None]
-    gates = torch.einsum("tke,te->tk", chosen, probs)           # [T, k]
-    # renormalize the k gates per token (Mixtral convention)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    gates = probs.gather(1, topi)                               # [T, k]
+    if real is not None:
+        gates = gates * real[:, None]
+    if score == "softmax":
+        # renormalize the k gates per token (Mixtral convention)
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    else:
+        gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+    if scale != 1.0:
+        gates = gates * scale
     if layout is not None:
         gates = layout.spread(gates)
 
     # each (token, choice)'s place in its expert's buffer: the assignments
-    # before it, counted in (choice-major, token-minor) order so that
-    # choice 0 wins slots before choice 1; under a mesh the other stripes'
-    # assignments come first where the global order puts them
-    flat = chosen.transpose(0, 1).reshape(k * t, e)             # [k*T, E]
-    pos = (torch.cumsum(flat, dim=0) - flat).reshape(k, t, e)
+    # to its expert before it, counted in (choice-major, token-minor)
+    # order so that choice 0 wins slots before choice 1 (a stable sort by
+    # expert keeps that order within each expert); under a mesh the other
+    # stripes' assignments come first where the global order puts them
+    first, stop = (0, e) if cols is None else cols
+    order_e = topi.t().reshape(-1)                              # [k*T]
+    counted = (order_e >= first) & (order_e < stop)
+    if real is not None:
+        # masked tokens must not occupy expert slots, not merely have
+        # their output dropped
+        counted = counted & (real.repeat(k) > 0)
+    key = torch.where(counted, order_e, e)                      # e: none
+    by_key = torch.sort(key, stable=True).indices
+    n_key = torch.bincount(key, minlength=e + 1)
+    rank = torch.empty_like(by_key).scatter_(
+        0, by_key, torch.arange(k * t, device=logits.device))
+    slot = rank - (torch.cumsum(n_key, 0) - n_key)[key]         # [k*T]
     if layout is not None:
-        pos = pos + layout.slot_offsets(chosen.sum(0))[:, None, :]
-    pos = pos.transpose(0, 1)                                   # [T, k, E]
-    slot = (pos * chosen).sum(-1)                               # [T, k]
-    fits = (slot < capacity).float()
+        choice = torch.arange(k, device=logits.device).repeat_interleave(t)
+        per_choice = torch.bincount(choice * (e + 1) + key,
+                                    minlength=k * (e + 1)).view(k, e + 1)
+        offsets = layout.slot_offsets(per_choice[:, :e].float())
+        slot = slot + F.pad(offsets, (0, 1)).long()[choice, key]
+    slot = slot.view(k, t).t()                                  # [T, k]
+    kept = counted.view(k, t).t() & (slot < capacity)
 
-    # one_hot of a slot past the capacity is all zeros in the reference;
-    # clamped here, it is zeroed by ``fits`` in both products below
-    slot_oh = F.one_hot(slot.long().clamp_max(capacity - 1),
-                        capacity).float()                       # [T, k, C]
-    # [T, E, C]: for each kept choice, a 1 at (its expert, its slot)
-    dispatch = torch.einsum("tke,tkc->tec", chosen * fits[..., None],
-                            slot_oh)
-    combine = torch.einsum("tke,tkc->tec",
-                           chosen * (gates * fits)[..., None], slot_oh)
+    flat_choices = topi.reshape(-1)
+    counts = (torch.bincount(flat_choices, minlength=e).float()
+              if real is None else torch.bincount(
+                  flat_choices, weights=real.repeat_interleave(k),
+                  minlength=e).float())
 
-    # Switch-style load-balancing loss: E * sum_e(frac_tokens_e * mean_prob_e)
-    if token_mask is None and layout is None:
-        frac = chosen[:, 0, :].mean(0)  # fraction routed (first choice)
-        mean_prob = probs.mean(0)
+    if score != "softmax":
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     else:
-        # masked means: padding must not dilute the balance statistics
-        # (chosen is already zeroed for it, probs is not); under a mesh,
-        # sums over the whole batch before the product
-        mask = (torch.ones(t, device=logits.device) if token_mask is None
-                else token_mask.float())
-        total = layout.batch_total if layout is not None else (lambda x: x)
-        denom = total(mask.sum()).clamp_min(1.0)
-        frac = total(chosen[:, 0, :].sum(0)) / denom
-        mean_prob = total((probs * mask[:, None]).sum(0)) / denom
-    aux = e * torch.sum(frac * mean_prob)
-    return dispatch, combine, aux
+        # Switch-style load-balancing loss:
+        # E * sum_e(frac_tokens_e * mean_prob_e)
+        top1 = F.one_hot(topi[:, 0], e).float()                 # [T, E]
+        if real is not None:
+            top1 = top1 * real[:, None]
+        if token_mask is None and layout is None:
+            frac = top1.mean(0)  # fraction routed (first choice)
+            mean_prob = probs.mean(0)
+        else:
+            # masked means: padding must not dilute the balance statistics
+            # (top1 is already zeroed for it, probs is not); under a mesh,
+            # sums over the whole batch before the product
+            mask = (torch.ones(t, device=logits.device) if real is None
+                    else real)
+            total = layout.batch_total if layout is not None else (
+                lambda x: x)
+            denom = total(mask.sum()).clamp_min(1.0)
+            frac = total(top1.sum(0)) / denom
+            mean_prob = total((probs * mask[:, None]).sum(0)) / denom
+        aux = e * torch.sum(frac * mean_prob)
+    return Routing(expert=topi, slot=slot, gate=gates, kept=kept, aux=aux,
+                   counts=counts)
+
+
+def _route_options(cfg: MoEConfig, lp: Params,
+                   cols: Optional[Tuple[int, int]]) -> dict:
+    """The keywords of :func:`_route` that the configuration sets beyond
+    Mixtral's defaults (none for Mixtral)."""
+    kw = {} if cols is None else {"cols": cols}
+    if cfg.score_func != "softmax":
+        kw.update(score=cfg.score_func, bias=lp.get("expert_bias"),
+                  scale=cfg.route_scale)
+    return kw
+
+
+class _GatherRows(torch.autograd.Function):
+    """``x[index]`` with rows where ``valid`` is False read as zeros; the
+    backward adds each row's gradients in float32 and rounds once, as a
+    one-hot product accumulates them."""
+
+    @staticmethod
+    def forward(ctx, x, index, valid):
+        ctx.save_for_backward(index, valid)
+        ctx.rows = x.shape[0]
+        return torch.where(valid[:, None], x.index_select(0, index),
+                           x.new_zeros(()))
+
+    @staticmethod
+    def backward(ctx, g):
+        index, valid = ctx.saved_tensors
+        gx = torch.zeros((ctx.rows, g.shape[1]), dtype=torch.float32,
+                         device=g.device)
+        gx.index_add_(0, index, torch.where(valid[:, None], g, 0).float())
+        return gx.to(g.dtype), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """``out [rows, D]``: each valid slot's output row ``y`` [n, D] times
+    its gate ``w`` [n] (both in the model's dtype) added into its token's
+    row in float32, rounded once to the dtype: the one-hot combine product
+    by index.  The backward's gate gradient, each slot's row of the output
+    gradient dotted with its output row, is taken as the diagonal of
+    block products of :data:`_DOT_BLOCK` slots, so each dot is summed as
+    a matrix product sums it (as the one-hot product's backward did)."""
+
+    @staticmethod
+    def forward(ctx, y, w, token, valid, rows):
+        ctx.save_for_backward(y, w, token, valid)
+        weighted = y.float() * w.float()[:, None]
+        into = torch.where(valid, token, rows)  # an empty slot: a spare row
+        out = torch.zeros((rows + 1, y.shape[1]), dtype=torch.float32,
+                          device=y.device).index_add_(0, into, weighted)
+        return out[:rows].to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w, token, valid = ctx.saved_tensors
+        g_rows = torch.where(valid[:, None], g.index_select(0, token),
+                             g.new_zeros(()))
+        dy = (g_rows.float() * w.float()[:, None]).to(y.dtype)
+        n, d = y.shape
+        pad = -n % _DOT_BLOCK
+        a, b = (F.pad(t, (0, 0, 0, pad)).view(-1, _DOT_BLOCK, d)
+                for t in (g_rows, y))
+        dw = torch.bmm(a, b.transpose(1, 2)).diagonal(
+            dim1=1, dim2=2).reshape(-1)[:n]
+        return dy, dw.to(w.dtype), None, None, None
+
+
+#: slots a block product of :class:`_Combine`'s backward takes
+_DOT_BLOCK = 64
+
+
+def _slots(route: Routing, first: int, stop: int, capacity: int):
+    """``(token, valid, gate)`` of each slot of the held experts' buffers
+    ``[(stop - first) * capacity]``: the token whose kept choice fills it,
+    whether any does, and that choice's gate (0 where none)."""
+    t, k = route.expert.shape
+    n = (stop - first) * capacity
+    held = route.kept & (route.expert >= first) & (route.expert < stop)
+    index = torch.where(held, (route.expert - first) * capacity
+                        + route.slot, n).reshape(-1)            # n: no slot
+    dev = index.device
+    owner = torch.arange(t, device=dev).repeat_interleave(k)
+    token = torch.zeros(n + 1, dtype=torch.long, device=dev).scatter_(
+        0, index, owner)[:n]
+    valid = torch.zeros(n + 1, dtype=torch.bool, device=dev).scatter_(
+        0, index, torch.ones_like(index, dtype=torch.bool))[:n]
+    gate = torch.zeros(n + 1, dtype=route.gate.dtype, device=dev).scatter(
+        0, index, route.gate.reshape(-1))[:n]
+    return token, valid, gate
 
 
 def _expert_matmul(a: torch.Tensor, w: Any, dtype: torch.dtype):
@@ -427,12 +611,26 @@ def _expert_matmul(a: torch.Tensor, w: Any, dtype: torch.dtype):
 def _moe_mlp(h: torch.Tensor, lp: Params, cfg: MoEConfig,
              capacity: Optional[int] = None,
              token_mask: Optional[torch.Tensor] = None,
-             layout: Optional[ExpertLayout] = None):
+             layout: Optional[ExpertLayout] = None,
+             stats: Optional[list] = None):
     """h: [B, S, D] normed hidden -> (out [B, S, D], aux loss scalar).
 
     ``capacity`` overrides the config-derived expert capacity; ``t`` (= B*S)
     makes routing dropless (the serving engine's decode passes it).
     ``token_mask`` [B, S] keeps padding out of routing (see _route).
+
+    Dispatch gathers each kept (token, choice)'s row into its slot of the
+    held experts' ``[E, C, D]`` buffers by index, and combine adds each
+    slot's output, times its gate cast to ``cfg.dtype``, back into its
+    token's row in float32, rounded once.  The held experts are
+    ``cfg.held`` (``lp``'s expert stacks are theirs); capacity is counted
+    over the routed width, ``cfg.num_experts``.  With
+    ``cfg.shared_intermediate_size`` a shared SwiGLU expert (``lp``'s
+    ``shared_gate``, ``shared_up``, ``shared_down``) runs on every token
+    and is added to the routed output.  ``stats``, when given, gets one
+    ``(counts [E], dropped)`` entry a call: the tokens' choices of each
+    expert before the capacity, and the kept-out choices of the held
+    experts.
 
     Under a mesh (``layout``) ``lp``'s expert stacks are this rank's
     experts (and ffn columns); the router is whole.  Routing is the
@@ -453,23 +651,36 @@ def _moe_mlp(h: torch.Tensor, lp: Params, cfg: MoEConfig,
         capacity = max(
             int(math.ceil(t_all * cfg.experts_per_token / cfg.num_experts
                           * cfg.capacity_factor)), 1)
+    if not sharded:
+        first, stop = cfg.held
+        cols = cfg.held_experts
+    elif cfg.held_experts is not None or cfg.shared_intermediate_size:
+        raise NotImplementedError(
+            "held experts and a shared expert are not sharded yet")
+    else:
+        # slots over every expert: the mesh's offsets count them all
+        first, stop = ((0, cfg.num_experts) if layout.exchange
+                       else layout.experts(cfg.num_experts))
+        cols = None
     with spans.region("model.moe.route") as r:
         x, router = r.inputs((x, lp["router"]))
         logits = x.float() @ router
-        dispatch, combine, aux = r.outputs(_route(
+        route = r.outputs(_route(
             logits, cfg.experts_per_token, capacity,
             token_mask=None if token_mask is None else token_mask.reshape(t),
-            layout=layout if sharded else None))
-    if sharded and not layout.exchange:
-        first, stop = layout.experts(cfg.num_experts)
-        dispatch = dispatch[:, first:stop]
-        combine = combine[:, first:stop]
+            layout=layout if sharded else None,
+            **_route_options(cfg, lp, cols)))
+        if stats is not None:
+            stats.append((route.counts, (route.counts[first:stop]
+                                         - capacity).clamp_min(0).sum()))
+        token, valid, gate = _slots(route, first, stop, capacity)
 
     with spans.region("model.moe.dispatch") as r:
-        x, dispatch = r.inputs((x, dispatch))
+        x = r.inputs(x)
         if sharded:
             x = layout.spread(x)
-        expert_in = torch.einsum("tec,td->ecd", dispatch.to(cfg.dtype), x)
+        expert_in = _GatherRows.apply(x, token, valid).view(
+            stop - first, capacity, d)
         if sharded:
             expert_in = layout.dispatch(expert_in)
         expert_in = r.outputs(expert_in)
@@ -481,14 +692,22 @@ def _moe_mlp(h: torch.Tensor, lp: Params, cfg: MoEConfig,
         expert_out = r.outputs(
             _expert_matmul(gated * up, w["w_down"], cfg.dtype))
     with spans.region("model.moe.combine") as r:
-        combine, expert_out = r.inputs((combine, expert_out))
+        gate, expert_out = r.inputs((gate, expert_out))
         if sharded:
             expert_out = layout.collect(expert_out)
-        out = torch.einsum("tec,ecd->td", combine.to(cfg.dtype), expert_out)
+        out = _Combine.apply(expert_out.reshape(-1, d), gate.to(cfg.dtype),
+                             token, valid, t)
         if sharded:
             out = layout.combine(out)
         out = r.outputs(out)
-    return out.reshape(b, s, d), aux
+    if cfg.shared_intermediate_size:
+        with spans.region("model.moe.shared") as r:
+            x, w = r.inputs((h.reshape(t, d), {name: lp[name] for name in (
+                "shared_gate", "shared_up", "shared_down")}))
+            shared = (F.silu(x @ w["shared_gate"]) * (x @ w["shared_up"])
+                      ) @ w["shared_down"]
+            out = r.outputs(out + shared)
+    return out.reshape(b, s, d), route.aux
 
 
 _ckpt = functools.partial(checkpoint, use_reentrant=False,

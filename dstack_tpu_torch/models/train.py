@@ -47,6 +47,9 @@ class TrainState:
     params: Params
     opt_state: Any
     step: int
+    #: state the step moves without a gradient (an MoE's expert bias), a
+    #: tree of tensors; None for a model that has none
+    buffers: Optional[Params] = None
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -362,15 +365,18 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
                           layout.tsize * layout.stage_count)
 
 
-def _step_from_loss(loss_fn: Callable[[Params, dict], tuple],
-                    optimizer: AdamW, sharded: bool = False
-                    ) -> Callable[[TrainState, dict], tuple]:
+def _step_from_loss(loss_fn: Callable[..., tuple],
+                    optimizer: AdamW, sharded: bool = False,
+                    after: Optional[Callable[[TrainState, dict], None]]
+                    = None) -> Callable[[TrainState, dict], tuple]:
     """``step(state, batch)`` from ``loss_fn(params, batch) -> (loss,
     metrics)``: the gradients of ``loss`` through autograd, the AdamW
     update in place; the step's metrics are ``metrics`` with "step" and
     "grad_norm" added.  ``sharded``: the params are DTensors, and
     ``loss_fn`` gets one local view of each (so a tied embedding's two
-    reads add plain gradients) whose gradients are the shards'."""
+    reads add plain gradients) whose gradients are the shards'.  A state
+    with ``buffers`` gives them to ``loss_fn`` as a third argument, and
+    ``after(state, metrics)`` moves them once AdamW has stepped."""
 
     def step(state: TrainState, batch) -> tuple:
         params = (llama.tree_map(lambda p: p.to_local(), state.params)
@@ -378,12 +384,15 @@ def _step_from_loss(loss_fn: Callable[[Params, dict], tuple],
         # the step's phases, named while torch.profiler runs
         # (telemetry/spans.py)
         with spans.span("train.forward"):
-            loss, metrics = loss_fn(params, batch)
+            loss, metrics = (loss_fn(params, batch) if state.buffers is None
+                             else loss_fn(params, batch, state.buffers))
         with spans.span("train.backward"):
             grads = torch.autograd.grad(loss, tree_leaves(params))
         with spans.span("train.optimizer"):
             norm = optimizer.update(tree_leaves(state.params), grads,
                                     state.opt_state)
+            if after is not None:
+                after(state, metrics)
         state.step += 1
         return state, {**metrics, "step": state.step, "grad_norm": norm}
 

@@ -36,8 +36,8 @@ SIGNATURES = {
     "paged_decode": ("dstack_paged_decode",
                      [_P] * 6 + [_LL] + [_P] * 5 + [_I] * 7
                      + [_F, _I, _P]),
-    "flash_fwd": ("dstack_flash_fwd", [_P] * 5 + [_I] * 5 + [_F, _P]),
-    "flash_bwd": ("dstack_flash_bwd", [_P] * 11 + [_I] * 5 + [_F, _P]),
+    "flash_fwd": ("dstack_flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _P]),
+    "flash_bwd": ("dstack_flash_bwd", [_P] * 11 + [_I] * 6 + [_F, _P]),
 }
 
 _bound: Dict[str, Callable[..., int]] = {}

@@ -22,12 +22,14 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      q_positions: Optional[torch.Tensor] = None,
                      kv_positions: Optional[torch.Tensor] = None,
                      kv_valid_length: Optional[torch.Tensor] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     window: Optional[int] = None) -> torch.Tensor:
     """Causal GQA attention.
 
     q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D].  Positions ([B or 1, S])
     default to 0..S-1; ``kv_valid_length`` [B] masks cache rows at or past
-    it.  ``q * scale`` goes into the dot, scores and softmax are f32 with
+    it; a ``window`` W masks the keys W or more positions behind the
+    query (a sliding-window layer).  ``q * scale`` goes into the dot, scores and softmax are f32 with
     -1e30 where masked, and the probabilities are cast to v's dtype before
     the PV product.  Returns [B, Sq, Hq, D] in q's dtype.
     """
@@ -45,6 +47,9 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = (q * scale).reshape(b, sq, hkv, hq // hkv, d)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
     mask = q_positions[:, None, None, :, None] >= kv_positions[:, None, None, None, :]
+    if window is not None:
+        mask = mask & (q_positions[:, None, None, :, None]
+                       - kv_positions[:, None, None, None, :] < window)
     if kv_valid_length is not None:
         valid = (torch.arange(skv, device=dev)[None, :]
                  < kv_valid_length[:, None])

@@ -1,4 +1,5 @@
-// Causal GQA flash-attention backward for Hopper (sm_90a), head_dim 64 or 128.
+// Causal GQA flash-attention backward for Hopper (sm_90a), head_dim 64 or 128,
+// and its sliding-window form (query i sees key j iff 0 <= i - j < W).
 //
 // Replaces two Pallas TPU kernels of dstack_tpu/ops/flash_attention.py:
 // _bwd_merged_kernel (head_dim 128, launched by _bwd_merged) and
@@ -36,6 +37,12 @@
 //   * post_kernel: dq = bf16(dq_accum * scale).
 // dq is summed by reduce-adds in an order that changes from run to run, so
 // it is not bitwise repeatable (dk and dv are).
+//
+// The windowed form is its own instantiation, bwd_kernel<D, true> (the
+// causal one keeps its name, bwd_kernel<D>): a key tile walks only the
+// query tiles whose rows see some of its keys, from the diagonal up to
+// the tile of the last query that sees its last key, and masks, besides
+// the diagonal and ragged tiles, each pair that some row's window cuts.
 //
 // Numerics held to the JAX kernels: s = (q . k) * scale in f32, -1e30
 // above the diagonal; p = exp(s - lse) in f32 (as exp2 of base-2 values);
@@ -98,13 +105,14 @@ __device__ __forceinline__ void reduce_dq(const float (&dq)[32], unsigned char* 
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-           const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
-           const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ lse,
-           const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int seq,
-           int hq, int hkv, float scale, float scale_log2) {
+// The kernel's body: kWindow false is the causal kernel (window unused)
+template <int D, bool kWindow>
+__device__ __forceinline__ void bwd_body(const CUtensorMap* q_map, const CUtensorMap* k_map,
+                                         const CUtensorMap* v_map, const CUtensorMap* do_map,
+                                         const CUtensorMap* dq_map, const float* __restrict__ lse,
+                                         const float* __restrict__ delta, bf16* __restrict__ dk,
+                                         bf16* __restrict__ dv, int seq, int hq, int hkv,
+                                         float scale, float scale_log2, int window) {
   using C = Bwd<D>;
   constexpr int kBM = C::kBM, kQN = C::kQN;
   extern __shared__ unsigned char smem_raw[];
@@ -125,6 +133,9 @@ bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   const int hk = blockIdx.y, b = blockIdx.z;
   const int group = hq / hkv, nq = (seq + kBM - 1) / kBM;
   const int first = jk * kBN / kBM;  // the first query tile that sees this key tile
+  // one past the last query tile that sees it: every tile when causal, else
+  // up to the tile of the last query whose window holds the tile's last key
+  const int stop = kWindow ? min(nq, (jk * kBN + kBN - 1 + window - 1) / kBM + 1) : nq;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -141,12 +152,12 @@ bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     regs_dec<kProducerRegs>();
     if (threadIdx.x == 256) {
       mbar_expect_tx(kv_full, 2 * C::kKVBytes);
-      tma_load_tile<D>(k_s, kBN, &k_map, kv_full, hk, jk * kBN, b);
-      tma_load_tile<D>(v_s, kBN, &v_map, kv_full, hk, jk * kBN, b);
+      tma_load_tile<D>(k_s, kBN, k_map, kv_full, hk, jk * kBN, b);
+      tma_load_tile<D>(v_s, kBN, v_map, kv_full, hk, jk * kBN, b);
       int n = 0;
       for (int g = 0; g < group; ++g) {
         const int h = hk * group + g;
-        for (int it = first; it < nq; ++it, ++n) {
+        for (int it = first; it < stop; ++it, ++n) {
           const int st = n % kStages;
           // lse and delta rows of this tile inside the sequence (a ragged
           // last tile's Q and dO rows past S read as zero)
@@ -154,8 +165,8 @@ bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
           mbar_wait(empty + st, ((n / kStages) & 1) ^ 1);
           mbar_expect_tx(full + st, 2 * C::kQBytes + 2 * rows * 4);
           bf16* q_st = qdo_s + st * 2 * kBM * D;
-          tma_load_tile<D>(q_st, kBM, &q_map, full + st, h, it * kBM, b);
-          tma_load_tile<D>(q_st + kBM * D, kBM, &do_map, full + st, h, it * kBM, b);
+          tma_load_tile<D>(q_st, kBM, q_map, full + st, h, it * kBM, b);
+          tma_load_tile<D>(q_st + kBM * D, kBM, do_map, full + st, h, it * kBM, b);
           const long long row_off = ((long long)b * hq + h) * seq + it * kBM;
           float* r_st = rows_s + st * 2 * kBM;
           bulk_load(r_st, lse + row_off, rows * 4, full + st);
@@ -183,7 +194,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     int n = 0;
     for (int g = 0; g < group; ++g) {
       const int h = hk * group + g;
-      for (int it = first; it < nq; ++it, ++n) {
+      for (int it = first; it < stop; ++it, ++n) {
         const int st = n % kStages;
         const bf16* q_st = qdo_s + st * 2 * kBM * D;
         const bf16* do_st = q_st + kBM * D;
@@ -191,7 +202,10 @@ bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
         const float* delta_st = lse_st + kBM;
         unsigned char* ds_buf = ds_s + (n & 1) * C::kDsBytes;
         const bool diag = it * kBM < (jk + 1) * kBN;  // the pair straddles the diagonal
-        const bool edge = diag || (it + 1) * kBM > seq;  // some pair is masked
+        // a pair some row's window cuts: its last query and first key
+        // window or more apart
+        const bool cut = kWindow && it * kBM + kBM - 1 - jk * kBN >= window;
+        const bool edge = diag || cut || (it + 1) * kBM > seq;  // some pair is masked
         mbar_wait(full + st, (n / kStages) & 1);
 
 #pragma unroll
@@ -221,6 +235,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
           auto qcol = [&](int i) { return hf * kQN + (i / 4) * 8 + c0 + (i & 1); };
           auto masked = [&](int i) {
             const int qpos = it * kBM + qcol(i);
+            if (cut && qpos - (kpos + 8 * ((i >> 1) & 1)) >= window) return true;
             return qpos >= seq || (diag && kpos + 8 * ((i >> 1) & 1) > qpos);
           };
           wgmma_wait<1>();
@@ -291,7 +306,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
                                  kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
-        reduce_dq(dq, dq_w, &dq_map, t, wg, row, c0, dcol0, h, it * kBM + qrow0, b);
+        reduce_dq(dq, dq_w, dq_map, t, wg, row, c0, dcol0, h, it * kBM + qrow0, b);
       }
     }
     if (t == 0) bulk_wait();
@@ -357,9 +372,33 @@ post_kernel(const float* __restrict__ dq_accum, bf16* __restrict__ dq, long long
 }
 
 template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+           const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+           const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ lse,
+           const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int seq,
+           int hq, int hkv, float scale, float scale_log2) {
+  bwd_body<D, false>(&q_map, &k_map, &v_map, &do_map, &dq_map, lse, delta, dk, dv, seq, hq, hkv,
+                     scale, scale_log2, 0);
+}
+
+// the windowed instantiation: kWindow is true (its own name in a trace)
+template <int D, bool kWindow>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+           const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+           const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ lse,
+           const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int seq,
+           int hq, int hkv, float scale, float scale_log2, int window) {
+  bwd_body<D, kWindow>(&q_map, &k_map, &v_map, &do_map, &dq_map, lse, delta, dk, dv, seq, hq,
+                       hkv, scale, scale_log2, window);
+}
+
+template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const void* lse, void* delta, void* dq_accum, void* dq, void* dk, void* dv,
-               int batch, int seq, int hq, int hkv, float scale, cudaStream_t stream) {
+               int batch, int seq, int hq, int hkv, int window, float scale,
+               cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map, do_map, dq_map;
   if (!make_map(&q_map, q, batch, seq, hq, D, Bwd<D>::kBM) ||
       !make_map(&dq_map, dq_accum, batch, seq, hq, D, 64, true) ||
@@ -368,8 +407,16 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
       !make_map(&do_map, dout, batch, seq, hq, D, Bwd<D>::kBM)) {
     return (int)cudaErrorInvalidValue;
   }
-  auto kernel = bwd_kernel<D>;
-  cudaError_t err = allow_smem(kernel, Bwd<D>::kSmem);
+  using Causal = void (*)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                          const CUtensorMap, const CUtensorMap, const float*, const float*, bf16*,
+                          bf16*, int, int, int, float, float);
+  using Windowed = void (*)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                            const CUtensorMap, const CUtensorMap, const float*, const float*,
+                            bf16*, bf16*, int, int, int, float, float, int);
+  Causal causal = bwd_kernel<D>;
+  Windowed windowed = bwd_kernel<D, true>;
+  cudaError_t err = window > 0 ? allow_smem(windowed, Bwd<D>::kSmem)
+                               : allow_smem(causal, Bwd<D>::kSmem);
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)batch * seq * hq;
   float* acc = static_cast<float*>(dq_accum);
@@ -378,10 +425,18 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
       acc, rows, seq, hq);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((seq + kBN - 1) / kBN, hkv, batch), kThreads, Bwd<D>::kSmem, stream>>>(
-      q_map, k_map, v_map, do_map, dq_map, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq,
-      hq, hkv, scale, scale * kLog2e);
+  const dim3 grid((seq + kBN - 1) / kBN, hkv, batch);
+  if (window > 0) {
+    windowed<<<grid, kThreads, Bwd<D>::kSmem, stream>>>(
+        q_map, k_map, v_map, do_map, dq_map, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq,
+        hq, hkv, scale, scale * kLog2e, window);
+  } else {
+    causal<<<grid, kThreads, Bwd<D>::kSmem, stream>>>(
+        q_map, k_map, v_map, do_map, dq_map, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq,
+        hq, hkv, scale, scale * kLog2e);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long n = rows * D;
@@ -397,23 +452,26 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 // [B, S, Hkv, D] bf16, lse [B, Hq, S] f32, all contiguous and 16-byte
 // aligned, S a multiple of 64; delta [B, Hq, S] and dq_accum [B, S, Hq, D]
 // are f32 scratch the caller allocates.  Writes dq [B, S, Hq, D] and dk/dv
-// [B, S, Hkv, D] bf16.  Launches the three kernels on `stream` and returns
+// [B, S, Hkv, D] bf16.  window 0 is causal, a window W in [1, S) the
+// sliding-window instantiation (the forward's lse must be of the same
+// window).  Launches the three kernels on `stream` and returns
 // cudaGetLastError() after them.
 extern "C" int dstack_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                                 const void* dout, const void* lse, void* delta, void* dq_accum,
                                 void* dq, void* dk, void* dv, int batch, int seq, int hq, int hkv,
-                                int head_dim, float scale, void* stream) {
-  if (seq <= 0 || seq % 64 || hkv <= 0 || hq % hkv || batch <= 0) {
+                                int head_dim, int window, float scale, void* stream) {
+  if (seq <= 0 || seq % 64 || hkv <= 0 || hq % hkv || batch <= 0 || window < 0) {
     return (int)cudaErrorInvalidValue;
   }
+  if (window >= seq) window = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) {
     return flash::launch_bwd<64>(q, k, v, o, dout, lse, delta, dq_accum, dq, dk, dv, batch, seq,
-                                 hq, hkv, scale, s);
+                                 hq, hkv, window, scale, s);
   }
   if (head_dim == 128) {
     return flash::launch_bwd<128>(q, k, v, o, dout, lse, delta, dq_accum, dq, dk, dv, batch, seq,
-                                  hq, hkv, scale, s);
+                                  hq, hkv, window, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,5 @@
-// Causal GQA flash-attention forward for Hopper (sm_90a), head_dim 64 or 128.
+// Causal GQA flash-attention forward for Hopper (sm_90a), head_dim 64 or 128,
+// and its sliding-window form (query i sees key j iff 0 <= i - j < W).
 //
 // Replaces two Pallas TPU kernels of dstack_tpu/ops/flash_attention.py:
 // _fwd_kernel (head_dim 128, launched by _fwd) and _fwd_packed_kernel (head
@@ -32,6 +33,12 @@
 //     shared memory; the two consumer warpgroups overlap one another's
 //     softmax with their products.
 //
+// The windowed form is its own instantiation, fwd_kernel<D, true> (the
+// causal one keeps its name, fwd_kernel<D>): a query tile walks only the
+// key tiles that meet its rows' windows, from the diagonal down to the
+// tile that holds its first row's oldest key, and masks, besides the
+// diagonal tile, each tile that some row's window cuts.
+//
 // Numerics held to the JAX kernels: s = (q . k) * scale in f32 (exp taken
 // as one exp2 of (q . k - m) * scale * log2(e), an FFMA); -1e30 above the
 // diagonal (only the diagonal tile is masked); p = exp(s - m_new) in f32,
@@ -56,11 +63,12 @@ struct Fwd {
                                   (1 + 2 * kStages) * sizeof(uint64_t);
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-           const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
-           float* __restrict__ lse, int seq, int hq, int hkv, float scale, float scale_log2) {
+// The kernel's body: kWindow false is the causal kernel (window unused)
+template <int D, bool kWindow>
+__device__ __forceinline__ void fwd_body(const CUtensorMap* q_map, const CUtensorMap* k_map,
+                                         const CUtensorMap* v_map, bf16* __restrict__ o,
+                                         float* __restrict__ lse, int seq, int hq, int hkv,
+                                         float scale, float scale_log2, int window) {
   using C = Fwd<D>;
   constexpr int S = C::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -77,6 +85,13 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (hq / hkv);
   const int wg = threadIdx.x / 128;
+  // key tiles walked: the diagonal one and those below it down to the tile
+  // of the first row's oldest key in the window (tile 0 when causal)
+  int tiles = iq + 1;
+  if (kWindow) {
+    const int oldest = iq * kBM - window + 1;
+    tiles = iq + 1 - (oldest > 0 ? oldest / kBN : 0);
+  }
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -92,14 +107,14 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     regs_dec<kProducerRegs>();
     if (threadIdx.x == 256) {
       mbar_expect_tx(q_full, C::kQBytes);
-      tma_load_tile<D>(q_s, kBM, &q_map, q_full, h, iq * kBM, b);
-      for (int n = 0; n <= iq; ++n) {
+      tma_load_tile<D>(q_s, kBM, q_map, q_full, h, iq * kBM, b);
+      for (int n = 0; n < tiles; ++n) {
         const int st = n % S, j = iq - n;
         mbar_wait(empty + st, ((n / S) & 1) ^ 1);
         mbar_expect_tx(full + st, 2 * C::kKVBytes);
         bf16* k_st = kv_s + st * 2 * kBN * D;
-        tma_load_tile<D>(k_st, kBN, &k_map, full + st, hk, j * kBN, b);
-        tma_load_tile<D>(k_st + kBN * D, kBN, &v_map, full + st, hk, j * kBN, b);
+        tma_load_tile<D>(k_st, kBN, k_map, full + st, hk, j * kBN, b);
+        tma_load_tile<D>(k_st + kBN * D, kBN, v_map, full + st, hk, j * kBN, b);
       }
     }
   } else {  // consumer warpgroup wg: query rows 64 * wg .. + 63 of the tile
@@ -114,7 +129,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     mbar_wait(q_full, 0);
 
-    for (int n = 0; n <= iq; ++n) {
+    for (int n = 0; n < tiles; ++n) {
       const int st = n % S, j = iq - n;
       const bf16* k_st = kv_s + st * 2 * kBN * D;
       const bf16* v_st = k_st + kBN * D;
@@ -142,6 +157,14 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
           if (key > qpos + 8 * ((i >> 1) & 1)) s[i] = kNegInf;
         }
       }
+      // a tile the window cuts: the keys window or more behind a row
+      if (kWindow && j * kBN < iq * kBM + kBM - window) {
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) {
+          const int behind = qpos + 8 * ((i >> 1) & 1) - (j * kBN + (i / 4) * 8 + c0 + (i & 1));
+          if (behind >= window) s[i] = kNegInf;
+        }
+      }
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
@@ -152,7 +175,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
         mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
         // the diagonal tile comes first and holds each row's own key, so
         // the new max is finite from the first tile on and the first
-        // alpha = exp2((-1e30 - m_new) * scale) is 0
+        // alpha = exp2((-1e30 - m_new) * scale) is 0 (a row the window
+        // masks whole in a later tile keeps its max: p = 0 there)
         const float m_new = fmaxf(m[e], mx[e]);
         alpha[e] = ex2((m[e] - m_new) * scale_log2);
         m[e] = m_new;
@@ -203,21 +227,51 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
 }
 
 template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+           const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+           float* __restrict__ lse, int seq, int hq, int hkv, float scale, float scale_log2) {
+  fwd_body<D, false>(&q_map, &k_map, &v_map, o, lse, seq, hq, hkv, scale, scale_log2, 0);
+}
+
+// the windowed instantiation: kWindow is true (its own name in a trace)
+template <int D, bool kWindow>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+           const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+           float* __restrict__ lse, int seq, int hq, int hkv, float scale, float scale_log2,
+           int window) {
+  fwd_body<D, kWindow>(&q_map, &k_map, &v_map, o, lse, seq, hq, hkv, scale, scale_log2, window);
+}
+
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
-               int seq, int hq, int hkv, float scale, cudaStream_t stream) {
+               int seq, int hq, int hkv, int window, float scale, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
   if (!make_map(&q_map, q, batch, seq, hq, D, kBM) ||
       !make_map(&k_map, k, batch, seq, hkv, D, kBN) ||
       !make_map(&v_map, v, batch, seq, hkv, D, kBN)) {
     return (int)cudaErrorInvalidValue;
   }
-  auto kernel = fwd_kernel<D>;
-  cudaError_t err = allow_smem(kernel, Fwd<D>::kSmem);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((seq + kBM - 1) / kBM, hq, batch);
-  kernel<<<grid, kThreads, Fwd<D>::kSmem, stream>>>(q_map, k_map, v_map, static_cast<bf16*>(o),
-                                                     static_cast<float*>(lse), seq, hq, hkv, scale,
-                                                     scale * kLog2e);
+  cudaError_t err;
+  if (window > 0) {
+    void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, bf16*, float*, int,
+                   int, int, float, float, int) = fwd_kernel<D, true>;
+    err = allow_smem(kernel, Fwd<D>::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, kThreads, Fwd<D>::kSmem, stream>>>(
+        q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), seq, hq, hkv,
+        scale, scale * kLog2e, window);
+  } else {
+    void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, bf16*, float*, int,
+                   int, int, float, float) = fwd_kernel<D>;
+    err = allow_smem(kernel, Fwd<D>::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, kThreads, Fwd<D>::kSmem, stream>>>(
+        q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), seq, hq, hkv,
+        scale, scale * kLog2e);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -226,18 +280,22 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
 
 // Plain C entry point (loaded with ctypes).  q [B, S, Hq, D], k/v
 // [B, S, Hkv, D] bf16, contiguous, 16-byte aligned, S a multiple of 64;
-// writes o [B, S, Hq, D] bf16 and lse [B, Hq, S] f32.  Launches on `stream`
-// and returns cudaGetLastError() after the launch (0 = launched).
+// writes o [B, S, Hq, D] bf16 and lse [B, Hq, S] f32.  window 0 is causal,
+// a window W in [1, S) the sliding-window instantiation.  Launches on
+// `stream` and returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int dstack_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                                int batch, int seq, int hq, int hkv, int head_dim, float scale,
-                                void* stream) {
-  if (seq <= 0 || seq % 64 || hkv <= 0 || hq % hkv || batch <= 0) {
+                                int batch, int seq, int hq, int hkv, int head_dim, int window,
+                                float scale, void* stream) {
+  if (seq <= 0 || seq % 64 || hkv <= 0 || hq % hkv || batch <= 0 || window < 0) {
     return (int)cudaErrorInvalidValue;
   }
+  if (window >= seq) window = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return flash::launch_fwd<64>(q, k, v, o, lse, batch, seq, hq, hkv, scale, s);
+  if (head_dim == 64) {
+    return flash::launch_fwd<64>(q, k, v, o, lse, batch, seq, hq, hkv, window, scale, s);
+  }
   if (head_dim == 128) {
-    return flash::launch_fwd<128>(q, k, v, o, lse, batch, seq, hq, hkv, scale, s);
+    return flash::launch_fwd<128>(q, k, v, o, lse, batch, seq, hq, hkv, window, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -9,6 +9,9 @@ GQA attention over [B, S, H, D], differentiable through a
 ``torch.autograd.Function`` whose forward is ``csrc/flash_fwd.cu`` and
 whose backward is ``csrc/flash_bwd.cu``.  The forward keeps only o and the
 softmax logsumexp; the backward recomputes the probabilities from them.
+With a ``window`` W each query i sees the keys j with 0 <= i - j < W (a
+sliding-window layer): the kernels then walk only the key tiles that meet
+the window, in an instantiation of their own.
 :func:`flash_attention_sharded` runs the same on each rank's rows and heads
 of DTensors over a device mesh (the JAX package's ``shard_map`` wrapper).
 
@@ -71,28 +74,42 @@ def _heads_first(x: torch.Tensor, group: int = 1) -> torch.Tensor:
     return x.repeat_interleave(group, dim=1) if group > 1 else x
 
 
-def _causal_scores(q, k, scale):
-    """f32 [B, Hq, S, S] scores (q . k) * scale, -1e30 above the diagonal."""
+def _window(window: Optional[int], seq: int) -> Optional[int]:
+    """The window that masks anything at ``seq``: None (causal) when it
+    covers the whole sequence."""
+    if window is None or window >= seq:
+        return None
+    if window < 1:
+        raise ValueError(f"window must be at least 1, got {window}")
+    return int(window)
+
+
+def _causal_scores(q, k, scale, window: Optional[int] = None):
+    """f32 [B, Hq, S, S] scores (q . k) * scale, -1e30 above the diagonal
+    (and, with a ``window``, where i - j >= window)."""
     group = q.shape[2] // k.shape[2]
     s = torch.matmul(_heads_first(q), _heads_first(k, group).transpose(-1, -2))
     s = s * scale
     seq = q.shape[1]
     keep = torch.ones(seq, seq, dtype=torch.bool, device=q.device).tril()
+    if window is not None:
+        keep = keep.triu(1 - window)
     return torch.where(keep, s, _NEG_INF)
 
 
-def flash_attention_fwd_plain(q, k, v, scale: Optional[float] = None):
+def flash_attention_fwd_plain(q, k, v, scale: Optional[float] = None,
+                              window: Optional[int] = None):
     """Plain version of the forward kernel: ``(o, lse)``.
 
     q [B, S, Hq, D], k/v [B, S, Hkv, D]; o [B, S, Hq, D] in q's dtype, lse
     f32 [B, Hq, S].  The kernel's numerics with one softmax pass over the
-    whole row: s = (q . k) * scale in f32, -1e30 above the diagonal,
-    p = exp(s - m) summed in f32, p cast to v's dtype before PV,
-    o = acc / l, lse = m + log(l)."""
+    whole row: s = (q . k) * scale in f32, -1e30 above the diagonal (and
+    outside the ``window``), p = exp(s - m) summed in f32, p cast to v's
+    dtype before PV, o = acc / l, lse = m + log(l)."""
     b, seq, hq, d = q.shape
     group = hq // k.shape[2]
     scale = d ** -0.5 if scale is None else scale
-    s = _causal_scores(q, k, scale)
+    s = _causal_scores(q, k, scale, _window(window, seq))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -102,9 +119,11 @@ def flash_attention_fwd_plain(q, k, v, scale: Optional[float] = None):
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do,
-                              scale: Optional[float] = None):
+                              scale: Optional[float] = None,
+                              window: Optional[int] = None):
     """Plain version of the backward kernel: ``(dq, dk, dv)`` from the
-    forward's inputs, its ``(o, lse)`` and the output gradient ``do``.
+    forward's inputs, its ``(o, lse)`` and the output gradient ``do``
+    (``window`` as the forward's).
 
     Recomputes p = exp(s - lse) (not autograd through the forward);
     delta = rowsum(do * o) in f32; dv = bf16(p)^T do; dp = do v^T;
@@ -115,7 +134,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do,
     group = hq // hkv
     scale = d ** -0.5 if scale is None else scale
     delta = (do.float() * o.float()).sum(dim=-1).transpose(1, 2)
-    p = torch.exp(_causal_scores(q, k, scale) - lse[..., None])
+    p = torch.exp(_causal_scores(q, k, scale, _window(window, seq))
+                  - lse[..., None])
     do_h = _heads_first(do)
     dv = torch.matmul(p.to(k.dtype).float().transpose(-1, -2), do_h)
     dp = torch.matmul(do_h, _heads_first(v, group).transpose(-1, -2))
@@ -173,19 +193,25 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _flash_fwd_kernel(q, k, v, scale: float):
-    """``(o, lse)`` from ``csrc/flash_fwd.cu``."""
+def _flash_fwd_kernel(q, k, v, scale: float, window: Optional[int] = None):
+    """``(o, lse)`` from ``csrc/flash_fwd.cu`` (its windowed instantiation
+    when ``window`` masks anything)."""
     _check_flash(q, k, v)
     b, seq, hq, d = q.shape
+    window = _window(window, seq)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, seq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q, k, v, o, lse, b, seq, hq, k.shape[2], d,
-            float(scale))
-    flash_attention.fwd_launches += 1
+            window or 0, float(scale))
+    if window is None:
+        flash_attention.fwd_launches += 1
+    else:
+        flash_attention.window_fwd_launches += 1
     return o, lse
 
 
-def _flash_bwd_kernel(q, k, v, o, lse, do, scale: float):
+def _flash_bwd_kernel(q, k, v, o, lse, do, scale: float,
+                      window: Optional[int] = None):
     """``(dq, dk, dv)`` from ``csrc/flash_bwd.cu``: its pre-pass computes
     delta = rowsum(do * o) and zeroes an f32 dq accumulator, which the
     main kernel adds into by reduce-adds in no fixed order (so dq is not
@@ -195,64 +221,79 @@ def _flash_bwd_kernel(q, k, v, o, lse, do, scale: float):
     if lse.shape != (b, hq, seq) or lse.dtype != torch.float32:
         raise ValueError("lse must be f32 [B, Hq, S]")
     _check_flash(q, k, v, o, do, lse)
+    window = _window(window, seq)
     delta = torch.empty((b, hq, seq), dtype=torch.float32, device=q.device)
     dq_accum = torch.empty((b, seq, hq, d), dtype=torch.float32,
                            device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd", q, k, v, o, do, lse, delta, dq_accum, dq, dk, dv, b,
-            seq, hq, k.shape[2], d, float(scale))
-    flash_attention.bwd_launches += 1
+            seq, hq, k.shape[2], d, window or 0, float(scale))
+    if window is None:
+        flash_attention.bwd_launches += 1
+    else:
+        flash_attention.window_bwd_launches += 1
     return dq, dk, dv
 
 
 class _Flash(torch.autograd.Function):
     """Causal attention whose forward saves (q, k, v, o, lse) and whose
-    backward runs the given backward function on them."""
+    backward runs the given backward function on them (``window``: as
+    :func:`flash_attention`'s)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, fwd, bwd):
-        o, lse = fwd(q, k, v, scale)
+    def forward(ctx, q, k, v, scale, fwd, bwd, window=None):
+        o, lse = fwd(q, k, v, scale, window)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale, ctx.bwd = scale, bwd
+        ctx.scale, ctx.bwd, ctx.window = scale, bwd, window
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = ctx.bwd(q, k, v, o, lse, do.contiguous(), ctx.scale)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = ctx.bwd(q, k, v, o, lse, do.contiguous(), ctx.scale,
+                             ctx.window)
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention_plain(q, k, v, scale: Optional[float] = None):
+def flash_attention_plain(q, k, v, scale: Optional[float] = None,
+                          window: Optional[int] = None):
     """:func:`flash_attention` through the plain versions on any device
     (what the CPU runs; on the card, the yardstick the kernels are held
     to)."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     return _Flash.apply(q, k, v, scale, flash_attention_fwd_plain,
-                        flash_attention_bwd_plain)
+                        flash_attention_bwd_plain, window)
 
 
-def flash_attention(q, k, v, scale: Optional[float] = None):
+def flash_attention(q, k, v, scale: Optional[float] = None,
+                    window: Optional[int] = None):
     """Causal GQA attention, fused.  q: [B, S, Hq, D]; k, v: [B, S, Hkv, D].
 
     Differentiable: the backward recomputes the probabilities from the
     saved logsumexp.  Returns [B, S, Hq, D] in q's dtype.  Callers check
     :func:`supports` first.  CPU tensors take the plain versions; CUDA
     tensors launch ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (bf16,
-    head_dim 64 or 128, contiguous) or raise.  ``flash_attention.
-    fwd_launches`` and ``.bwd_launches`` count the kernels' launches.
+    head_dim 64 or 128, contiguous) or raise.  ``window`` W: query i sees
+    the keys j with 0 <= i - j < W (None, or a W of at least S: causal,
+    the same launches).  ``flash_attention.fwd_launches`` and
+    ``.bwd_launches`` count the causal kernels' launches,
+    ``.window_fwd_launches`` and ``.window_bwd_launches`` the windowed
+    ones'.
     """
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale)
+        return flash_attention_plain(q, k, v, scale, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(), scale,
-                        _flash_fwd_kernel, _flash_bwd_kernel)
+                        _flash_fwd_kernel, _flash_bwd_kernel,
+                        _window(window, q.shape[1]))
 
 
 flash_attention.fwd_launches = 0
 flash_attention.bwd_launches = 0
+flash_attention.window_fwd_launches = 0
+flash_attention.window_bwd_launches = 0
 
 
 def flash_attention_sharded(mesh, q, k, v, *,

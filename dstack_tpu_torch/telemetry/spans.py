@@ -22,6 +22,7 @@ Names are layer-neutral (serving calls the MoE block too): ``model.embed``,
 ``model.views`` (the per-layer views of the stacked weights and their
 backward), ``model.attention``, ``model.mlp``, ``model.moe.route``,
 ``model.moe.dispatch``, ``model.moe.experts``, ``model.moe.combine``,
+``model.moe.shared`` (a shared expert beside the routed ones),
 ``model.head_loss``; ``train.forward``, ``train.backward``,
 ``train.optimizer``; ``collective.<name>``.  A kernel belongs to the
 innermost span open on the thread that launched it: under remat the

@@ -129,6 +129,19 @@ def _port_params(ref, unstacked=False):
     return llama.params_from_jax(tree, "cpu", torch.float32)
 
 
+def _dense(route, e, cap):
+    """The JAX package's (dispatch [T, E, C], combine [T, E, C], aux) from
+    the port's routing by index: a 1 and the gate at each kept choice's
+    (expert, slot)."""
+    t = route.expert.shape[0]
+    dispatch, combine = torch.zeros(t, e, cap), torch.zeros(t, e, cap)
+    rows, j = route.kept.nonzero(as_tuple=True)
+    at = (rows, route.expert[rows, j], route.slot[rows, j])
+    dispatch[at] = 1.0
+    combine[at] = route.gate[rows, j]
+    return dispatch, combine, route.aux
+
+
 def test_route_matches_jax_with_drops_masks_and_ties():
     """Capacities that drop (1, 3) and one that cannot (32), with and
     without a token mask, on logits with planted ties: a tie for first,
@@ -144,14 +157,16 @@ def test_route_matches_jax_with_drops_masks_and_ties():
         for m in (None, mask):
             want = jroute(jnp.asarray(logits), 2, cap,
                           None if m is None else jnp.asarray(m))
-            got = moe._route(torch.from_numpy(logits), 2, cap,
-                             None if m is None else torch.from_numpy(m))
+            got = _dense(moe._route(torch.from_numpy(logits), 2, cap,
+                                    None if m is None
+                                    else torch.from_numpy(m)), 4, cap)
             np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
             np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
                                        atol=1e-6, rtol=0)
             assert got[2].item() == pytest.approx(float(want[2]), rel=1e-6)
     # the ties went to the lower experts first, as lax.top_k orders them
-    dispatch = moe._route(torch.from_numpy(logits), 2, 32)[0].sum(-1)
+    dispatch = _dense(moe._route(torch.from_numpy(logits), 2, 32), 4,
+                      32)[0].sum(-1)
     assert dispatch[2].tolist() == [0, 1, 1, 0]
     assert dispatch[5].tolist() == [1, 1, 0, 0]
     assert dispatch[9].tolist() == [1, 1, 0, 0]

@@ -116,7 +116,7 @@ class _KeptCount:
         def count(logits, k, capacity, token_mask=None, layout=None):
             out = self.route(logits, k, capacity, token_mask, layout)
             if self.seen < _cfg().num_layers:  # the forward, not remat's
-                self.counts[0] += float(out[0].sum())
+                self.counts[0] += float(out.kept.sum())
                 self.counts[1] += float(logits.shape[0] * k)
             self.seen += 1
             return out
