@@ -35,8 +35,17 @@ Phases (any failure stops the run with a non-zero exit and no result):
              edge shapes and at Trinity-Mini's launch (b8 s8192, Hq 32,
              Hkv 4, D=128, window 2048; two batch rows held), timed
              beside the causal kernels at that shape, their bound and
-             SDPA given the window as a mask.  Then the loss's f32
-             logits from bf16 inputs against an f32 matmul.
+             SDPA given the window as a mask.  Then the row kernel
+             (RMSNorm and its rotation epilogue, forward and backward)
+             held to its plain versions in bf16 ulps (ROWNORM_ULPS) at
+             edge cases and at the training cells' launches
+             (ROWNORM_ROWS: Trinity-Mini's q/k at b8 s8192 with and
+             without the rotation and its [65,536, 2048] norms;
+             the Llama-3-8B geometry's and Mixtral's rotation at b4
+             s2048, as phases 6 and 11 launch it, and [8192, 4096]
+             norms), each timed beside its bytes bound, its plain
+             versions and the eager autograd chain it replaced.  Then the
+             loss's f32 logits from bf16 inputs against an f32 matmul.
 3. server  — serves Llama-3-8B (full width and depth, random weights from a
              seed) with `python -m dstack_tpu_torch.serving.server --paged`
              and sends concurrent /v1/completions (one streaming) and a
@@ -59,8 +68,10 @@ Phases (any failure stops the run with a non-zero exit and no result):
              s2048), both with selective remat, random init from a seed:
              the loss is
              finite and falls, the flash kernels launch exactly layers x
-             steps (forward x2 under remat), and tokens/s, MFU and peak
-             memory are printed.
+             steps (forward x2 under remat), the row kernel exactly
+             (want_row_launches: 2 norms a layer and the final one, q and
+             k's rotation once a layer, forward x2), and tokens/s, MFU
+             and peak memory are printed.
 7. train-plain — one 1B step through the kernels and the same step with
              flash_attention swapped for its plain versions: loss and
              grad norm must agree.
@@ -122,7 +133,8 @@ Phases (any failure stops the run with a non-zero exit and no result):
              as the engine routed where the two differ (each such flip on
              a router near-tie: MOE_TIE_EPS), within 0.1 std.
              Then training at Mixtral width, 2 layers, b4 s2048, remat:
-             6 steps (loss falls, aux loss finite, flash launches exact)
+             6 steps (loss falls, aux loss finite, flash and row-kernel
+             launches exact)
              and one step through the kernels against one through
              flash_attention_plain (TRAIN_PLAIN_RTOL).  Prints TTFT,
              decode rate and step, train step and tokens/s (no MFU: the
@@ -217,19 +229,20 @@ Phases (any failure stops the run with a non-zero exit and no result):
              Llama-3.2-1B at full width and depth (bf16, paged), each
              replica a `python -m dstack_tpu_torch.serving.server`
              process: seeder A (weights from seed 5, published as a
-             snapshot, --compile-cache) warms and puts its paged-decode
-             library into its cache root; joiner B, from a copy of the
+             snapshot, --compile-cache) warms and puts its row-kernel
+             and paged-decode libraries into its cache root; joiner B, from a copy of the
              package with an empty build/ and another seed, pulls A's
              weights and library (--weight-peers, --compile-cache-peers)
              as a --standby; cold replica C the same without a cache
              peer.  Fails unless B reports warming on /load and answers
              503 until POST /elastic/standby/activate, B ran no nvcc
-             (compile_cache_misses 0, a peer hit) and C exactly one, B's
+             (compile_cache_misses 0, a peer hit) and C one a library, B's
              and C's weights came from A and their greedy tokens are A's,
              and every replica launched K5 exactly layers x decode steps.
              Then two trainer processes (the 1B at 2 layers, b1 s1024)
-             through one cache root: T1 from the checkout (hits 2, puts
-             2), T2 from a copy with an empty build/ (misses 0, hits 2),
+             through one cache root: T1 from the checkout (hits 3, puts
+             3: K3/K4 and the row kernel), T2 from a copy with an empty
+             build/ (misses 0, hits 3),
              each step's loss within 1e-3 of the same step in process and
              K3/K4 launched once a layer.  Prints the snapshot's bytes and
              write seconds, the pull's GB/s (timed in process), each
@@ -242,8 +255,12 @@ Phases (any failure stops the run with a non-zero exit and no result):
              beside two rank processes sharing it under gloo: (a)
              prefill/decode at tensor=2 both ways (a 300-token prompt's
              export through the wire codec, bitwise; the pair's export
-             held to the one-card one within PD_EXPORT_RTOL, the first
-             token equal; each install decoded 16 tokens); (b) the
+             held to the one-card one within PD_EXPORT_RTOL, its first
+             token its own logits' argmax, held with the decoded tokens
+             to the plain forward; its agreement with the one-card
+             token printed: the pair's row-parallel sums differ in
+             bf16, so a near-tie may fall either way; each install
+             decoded 16 tokens); (b) the
              weights over fsdp (MeshSpec(fsdp=2), each rank half the
              matrices, a layer gathered at use) in bf16, then with int8
              weights; (c) a one-card engine made under
@@ -298,9 +315,12 @@ Phases (any failure stops the run with a non-zero exit and no result):
              seed 0 through afmoe.make_train_step, selective remat.  Fails
              unless the loss falls, the expert bias moves with a zero
              mean, and a step launches the windowed kernels exactly
-             (2 x 6, 6) times and the causal ones (2 x 2, 2); the
-             windowed launches are the windowed rows' counts in the
-             kernels' record.  Prints the step, tokens/s, dropped tokens
+             (2 x 6, 6) times and the causal ones (2 x 2, 2), the row
+             kernel's norms (65, 33) and q/k prologue (16, 8) times,
+             of which the sliding layers' (12, 6) rotate; the windowed
+             launches are the windowed rows' counts in the kernels'
+             record, and the prologue's, by whether they rotated, the
+             q/k rows'.  Prints the step, tokens/s, dropped tokens
              and peak memory.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -1220,6 +1240,266 @@ def check_window_kernels(torch) -> dict:
     return out
 
 
+#: the row kernel's cases (csrc/rownorm.cu): name -> (shapes, rows dtype,
+#: weight dtype or None for no norm, rotation, positions a batch row).  One
+#: shape: D-wide rows [T, n]; two: q and k [B, S, H, D] in one launch.  The
+#: training cells' launches (Trinity-Mini's q/k at b8 s8192 with and without
+#: the rotation and its [65,536, 2048] norms; the Llama-3-8B geometry's and
+#: Mixtral's rotation at b4 s2048, as phases 6 and 11 train them, and their
+#: [8192, 4096] norms: the Mistral and Mixtral cells' b2 s4096 launches
+#: have the same 8192 x 40 head rows and rows, and a table of twice the
+#: positions), held and timed; then
+#: edge cases, held only: heads that leave threads of a row idle and row
+#: counts that leave a block's rows, f32 rows with bf16 weights and the
+#: other way round, a position table a batch row, the widest f32 rows
+ROWNORM_ROWS = {
+    "trinity-mini q/k norm+rope": (((8, 8192, 32, 128), (8, 8192, 4, 128)),
+                                   "bf16", "bf16", True, False),
+    "trinity-mini q/k norm": (((8, 8192, 32, 128), (8, 8192, 4, 128)),
+                              "bf16", "bf16", False, False),
+    "trinity-mini rows": (((65536, 2048),), "bf16", "bf16", False, False),
+    "8b/mixtral q/k rope": (((4, 2048, 32, 128), (4, 2048, 8, 128)),
+                            "bf16", None, True, False),
+    "8b/mixtral rows": (((8192, 4096),), "bf16", "bf16", False, False),
+}
+ROWNORM_EDGES = {
+    "q/k f32 norm+rope, D 96, positions a row": (
+        ((3, 37, 5, 96), (3, 37, 1, 96)), "f32", "bf16", True, True),
+    "q/k rope, D 64, Hq 7": (((2, 100, 7, 64), (2, 100, 1, 64)), "bf16",
+                             None, True, False),
+    "rows 999 x 3072, f32 weight": (((999, 3072),), "bf16", "f32", False,
+                                    False),
+    "rows 77 x 8192 f32": (((77, 8192),), "f32", "f32", False, False),
+    "rows 5 x 64": (((5, 64),), "bf16", "bf16", False, False),
+}
+#: the kernel against its plain versions, in bf16 ulps of the row's largest
+#: value (rows: the last dimension; dw: the whole vector): the two sum the
+#: squares, the backward's dot product and dw's rows in another order,
+#: which moves rstd and dot by a few f32 ulps and so may flip a bf16
+#: rounding by one ulp; with the rotation, a flip of the normed value
+#: carries into the rotated one, whose own rounding may flip too: 2 ulps.
+#: An f32 output (rows, or a weight's gradient) has no bf16 rounding to
+#: flip: its limit is 0.01 of those ulps (8e-5 of the row's largest)
+ROWNORM_ULPS = {"bf16": 2.0, "f32": 0.01}
+ROWNORM_RSTD_RTOL = 1e-5
+ROWNORM_EPS = 1e-5
+
+
+def rownorm_ulps(torch, got, want) -> float:
+    """The largest |got - want| in bf16 ulps of its row's largest |want|."""
+    got, want = got.float(), want.float()
+    top = want.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return ((got - want).abs() / ulp).max().item()
+
+
+def rownorm_case(torch, spec, device: str, seed: int):
+    """(xs, ws, table, dys) of a row-kernel case drawn from ``seed``."""
+    from dstack_tpu_torch.ops.rotary import rope_frequencies, rope_table
+
+    shapes, dtype, wdtype, rope, batch_positions = spec
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    xs = [(randn(s) * 3).to(types[dtype]) for s in shapes]
+    ws = [None if wdtype is None else
+          (1 + randn(s[-1:], 0.1)).to(types[wdtype]) for s in shapes]
+    dys = [randn(s).to(types[dtype]) for s in shapes]
+    table = None
+    if rope:
+        b, s, _, d = shapes[0]
+        positions = torch.arange(s, device=device)[None, :]
+        if batch_positions:
+            positions = positions + 1000 * torch.arange(b, device=device)[
+                :, None]
+        inv = torch.from_numpy(rope_frequencies(d, 10_000.0)).to(device)
+        table = rope_table(positions, inv)
+    return xs, ws, table, dys
+
+
+def rownorm_bounds(xs, ws, table) -> dict:
+    """Least ms of the forward and the backward at a case's shapes, by
+    bytes: each input read once and each output written once (forward: x,
+    w, table -> y, rstd; backward: x, dy, w, rstd, table -> dx, dw; x and
+    rstd only with a norm).  A few flops an element: bytes bound it."""
+    norm = ws[0] is not None
+    rows = sum(x.numel() // x.shape[-1] for x in xs)
+    elems = sum(x.numel() * x.element_size() for x in xs)
+    wbytes = sum(w.numel() * w.element_size() for w in ws) if norm else 0
+    tbytes = 0 if table is None else table.numel() * 4
+    rbytes = 4 * rows if norm else 0
+    fwd = 2 * elems + wbytes + tbytes + rbytes
+    bwd = (3 if norm else 2) * elems + 2 * wbytes + tbytes + rbytes
+    return {"fwd": (fwd / PEAK_BYTES_PER_S * 1e3, fwd),
+            "bwd": (bwd / PEAK_BYTES_PER_S * 1e3, bwd)}
+
+
+def rownorm_errors(torch, spec, device: str, seed: int, fwd, bwd) -> tuple:
+    """Run ``fwd``/``bwd`` (the kernel's, or on the CPU the plain ones) on
+    a case and hold them to the plain versions; returns (inputs, the
+    forward's rstds, errors by name)."""
+    import types
+
+    from dstack_tpu_torch.ops import rownorm
+
+    xs, ws, table, dys = rownorm_case(torch, spec, device, seed)
+    counter = types.SimpleNamespace(launches=0, bwd_launches=0,
+                                    rope_launches=0, rope_bwd_launches=0)
+    ys, rstds = fwd(xs, ws, table, ROWNORM_EPS, counter)
+    dxs, dws = bwd(xs, ws, table, rstds, dys, [True] * len(xs), counter)
+    errs, limits = {}, {}
+
+    def held(name, got, want):
+        errs[name] = rownorm_ulps(torch, got, want)
+        limits[name] = ROWNORM_ULPS[
+            "bf16" if got.dtype == torch.bfloat16 else "f32"]
+
+    for i, (x, w, y, r, dy, dx, dw) in enumerate(zip(xs, ws, ys, rstds, dys,
+                                                     dxs, dws)):
+        want_y, want_r = rownorm.rows_fwd_plain(x, w, table, ROWNORM_EPS)
+        want_dx, want_dw = rownorm.rows_bwd_plain(x, w, table, want_r, dy)
+        held(f"y{i}", y, want_y)
+        held(f"dx{i}", dx, want_dx)
+        if w is not None:
+            held(f"dw{i}", dw, want_dw)
+            errs[f"rstd{i}"] = ((r - want_r).abs() / want_r).max().item()
+            limits[f"rstd{i}"] = ROWNORM_RSTD_RTOL
+        errs[f"y{i}_bitwise_share"] = (y == want_y).float().mean().item()
+    bad = {n: e for n, e in errs.items() if n in limits and not
+           e <= limits[n]}
+    if bad:
+        fail(f"row kernel at {spec} disagrees with the plain versions: {bad} "
+             f"(limits {limits})")
+    return (xs, ws, table, dys), rstds, errs
+
+
+def check_rownorm_kernels(torch, device: str = "cuda", rows=None,
+                          edges=None, kernels=None, iters: int = 20) -> dict:
+    """Hold the row kernel (forward and backward) to its plain versions at
+    ROWNORM_EDGES and ROWNORM_ROWS, then time each ROWNORM_ROWS launch
+    beside its bytes bound, the plain versions and the eager autograd
+    chain the layers ran before (rms_norm's and apply_rope's operations,
+    forward with autograd saving, then backward).  ``kernels``: the
+    (fwd, bwd) to hold (default the kernel's; a CPU rehearsal passes the
+    plain ones, and times nothing)."""
+    import types
+
+    from dstack_tpu_torch.ops import rownorm
+
+    fwd, bwd = kernels or (rownorm._kernel_fwd, rownorm._kernel_bwd)
+    timed = device == "cuda"
+    for name, spec in (ROWNORM_EDGES if edges is None else edges).items():
+        errs = rownorm_errors(torch, spec, device, 5, fwd, bwd)[2]
+        log(f"kernel rownorm [{name}]: " + " ".join(
+            f"{n} {e:.3g}" for n, e in errs.items()))
+    out = {}
+    for row, spec in (ROWNORM_ROWS if rows is None else rows).items():
+        (xs, ws, table, dys), rstds, errs = rownorm_errors(
+            torch, spec, device, 7, fwd, bwd)
+        counter = types.SimpleNamespace(launches=0, bwd_launches=0,
+                                        rope_launches=0, rope_bwd_launches=0)
+        need = [True] * len(xs)
+        bounds = rownorm_bounds(xs, ws, table)
+        times = {}
+        if timed:
+            times["fwd"] = time_ms(torch, lambda: fwd(
+                xs, ws, table, ROWNORM_EPS, counter), iters)
+            times["bwd"] = time_ms(torch, lambda: bwd(
+                xs, ws, table, rstds, dys, need, counter), iters)
+            plain = [rownorm.rows_fwd_plain(x, w, table, ROWNORM_EPS)[1]
+                     for x, w in zip(xs, ws)]
+            times["fwd_plain"] = time_ms(torch, lambda: [
+                rownorm.rows_fwd_plain(x, w, table, ROWNORM_EPS)
+                for x, w in zip(xs, ws)], 3)
+            times["bwd_plain"] = time_ms(torch, lambda: [
+                rownorm.rows_bwd_plain(x, w, table, r, dy)
+                for x, w, r, dy in zip(xs, ws, plain, dys)], 3)
+            del plain
+            leaves = [t.detach().requires_grad_() for t in (*xs, *ws)
+                      if t is not None]
+            cos_sin = None if table is None else rownorm.table_cos_sin(table)
+
+            def eager():
+                outs = []
+                for x, w in zip(leaves[:len(xs)], leaves[len(xs):] or
+                                [None] * len(xs)):
+                    y = x if w is None else rownorm.rows_fwd_plain(
+                        x, w, None, ROWNORM_EPS)[0]
+                    outs.append(y if cos_sin is None
+                                else rownorm.rotate_half(y, *cos_sin))
+                return outs
+
+            times["fwd_eager"] = time_ms(torch, eager, 3)
+            ref = eager()
+            times["bwd_eager"] = time_ms(torch, lambda: torch.autograd.grad(
+                ref, leaves, dys, retain_graph=True), 3)
+            del ref, leaves
+        shapes = " + ".join(str(tuple(x.shape)) for x in xs)
+        for part in ("fwd", "bwd"):
+            name = f"rownorm_{part}[{row}]"
+            bound_ms, nbytes = bounds[part]
+            out[name] = {
+                "name": name, "route": "cuda",
+                "source": "dstack_tpu_torch/ops/csrc/rownorm.cu",
+                "replaces": "(none: the JAX package leaves this to XLA)",
+                "shapes": shapes, "launches": 0,
+                "max_err_ulps": max(e for n, e in errs.items()
+                                    if n[0] in "yd"
+                                    and not n.endswith("_share")),
+                "ms": times.get(part), "bound_ms": bound_ms,
+                "bound_by": "bytes", "bytes": nbytes,
+                "plain_ms": times.get(part + "_plain"),
+                "eager_ms": times.get(part + "_eager")}
+            if timed:
+                log(f"kernel {name} {shapes}: kernel "
+                    f"{times[part] * 1e3:.1f} us, bound {bound_ms * 1e3:.1f}"
+                    f" us ({nbytes} B), {bound_ms / times[part]:.3f} of the "
+                    f"bound, plain {times[part + '_plain'] * 1e3:.1f} us, "
+                    f"eager chain {times[part + '_eager'] * 1e3:.1f} us")
+        log(f"kernel rownorm [{row}] errors: " + " ".join(
+            f"{n} {e:.3g}" for n, e in errs.items()))
+        del xs, ws, table, dys, rstds
+        if timed:
+            torch.cuda.empty_cache()
+    return out
+
+
+def row_launches() -> dict:
+    """The row kernel's launch counters (rms_norm's D-wide rows, q and k's
+    prologue), by name."""
+    from dstack_tpu_torch.ops import rmsnorm, rotary
+
+    return {"rms_norm": rmsnorm.rms_norm.launches,
+            "rms_norm_bwd": rmsnorm.rms_norm.bwd_launches,
+            "qk_prologue": rotary.qk_prologue.launches,
+            "qk_prologue_bwd": rotary.qk_prologue.bwd_launches,
+            "qk_prologue_rope": rotary.qk_prologue.rope_launches,
+            "qk_prologue_rope_bwd": rotary.qk_prologue.rope_bwd_launches}
+
+
+def want_row_launches(layers: int, norms: int, steps: int,
+                      remat: bool = True, rotated=None) -> dict:
+    """A train step's row-kernel launches: ``norms`` D-wide norms a layer
+    and the final norm, q and k's prologue once a layer (with a rotation
+    on ``rotated`` of the layers, default all), each forward twice under
+    remat (every layer region is recomputed once) and once backward."""
+    passes = 2 if remat else 1
+    rotated = layers if rotated is None else rotated
+    return {"rms_norm": steps * (passes * norms * layers + 1),
+            "rms_norm_bwd": steps * (norms * layers + 1),
+            "qk_prologue": steps * passes * layers,
+            "qk_prologue_bwd": steps * layers,
+            "qk_prologue_rope": steps * passes * rotated,
+            "qk_prologue_rope_bwd": steps * rotated}
+
+
+def counted_row_launches(before: dict) -> dict:
+    return {n: v - before[n] for n, v in row_launches().items()}
+
+
 #: Trinity-Mini's training cut as the benchmark's cell runs it: the first
 #: 8 layers (both dense ones, then two periods of three windowed and one
 #: full), 16 of the router's 128 experts held, an eighth of the vocabulary;
@@ -1256,6 +1536,7 @@ def afmoe_phase(torch, cfg=None, device: str = "cuda", batch: int = AFMOE_BATCH,
                 "window_bwd_launches")
     for name in counters:
         setattr(fa.flash_attention, name, 0)
+    rows_before = row_launches()
     losses, norms, dropped, times = [], [], [], []
     for _ in range(steps):
         t = time.time()
@@ -1275,6 +1556,13 @@ def afmoe_phase(torch, cfg=None, device: str = "cuda", batch: int = AFMOE_BATCH,
     if device == "cuda" and launches != want:
         fail(f"train trinity-mini: flash launches {launches}, expected "
              f"{want}")
+    # four D-wide norms a layer (attention's and the MLP's, before and
+    # after), q and k normed on every layer and rotated on the sliding ones
+    rows = counted_row_launches(rows_before)
+    want_rows = want_row_launches(cfg.num_layers, 4, steps, rotated=sliding)
+    if device == "cuda" and rows != want_rows:
+        fail(f"train trinity-mini: row-kernel launches {rows}, expected "
+             f"{want_rows}")
     if not all(map(math.isfinite, losses + norms)):
         fail(f"train trinity-mini: non-finite loss or grad norm: {losses} "
              f"{norms}")
@@ -1293,7 +1581,7 @@ def afmoe_phase(torch, cfg=None, device: str = "cuda", batch: int = AFMOE_BATCH,
            "step_median_s": step_s, "tokens_per_s": batch * seq / step_s,
            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
                                        if device == "cuda" else None),
-           **launches}
+           "sliding_layers": sliding, "row_launches": rows, **launches}
     log("train: " + json.dumps(out))
     del state, step_fn
     if device == "cuda":
@@ -1840,6 +2128,7 @@ def run_train(torch, cfg_name: str, steps: int) -> dict:
     init_s = time.time() - t0
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.fwd_launches = fa.flash_attention.bwd_launches = 0
+    rows_before = row_launches()
     losses, norms, times = [], [], []
     for _ in range(steps):
         t = time.time()
@@ -1855,6 +2144,11 @@ def run_train(torch, cfg_name: str, steps: int) -> dict:
     if fwd != want_fwd or bwd != want_bwd:
         fail(f"train {cfg_name}: flash launches fwd {fwd} bwd {bwd}, "
              f"expected {want_fwd} and {want_bwd}")
+    rows = counted_row_launches(rows_before)
+    want_rows = want_row_launches(cfg.num_layers, 2, steps, per_layer == 2)
+    if rows != want_rows:
+        fail(f"train {cfg_name}: row-kernel launches {rows}, expected "
+             f"{want_rows}")
     if not all(map(math.isfinite, losses + norms)):
         fail(f"train {cfg_name}: non-finite loss or grad norm: {losses} "
              f"{norms}")
@@ -1870,7 +2164,7 @@ def run_train(torch, cfg_name: str, steps: int) -> dict:
            # 6 * params * tokens: the matmuls only, attention left out
            "mfu_6nd": 6 * cfg.num_params() * tok / step_s / PEAK_BF16_FLOPS,
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "fwd_launches": fwd, "bwd_launches": bwd}
+           "fwd_launches": fwd, "bwd_launches": bwd, "row_launches": rows}
     log("train: " + json.dumps(out))
     del state, step_fn
     torch.cuda.empty_cache()
@@ -3378,6 +3672,7 @@ def moe_train(torch, cfg, device: str, batch: int, seq: int,
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.fwd_launches = fa.flash_attention.bwd_launches = 0
+    rows_before = row_launches()
     losses, auxes, norms, times = [], [], [], []
     for _ in range(steps):
         t = time.time()
@@ -3392,6 +3687,10 @@ def moe_train(torch, cfg, device: str, batch: int, seq: int,
     if cuda and (fwd != want_fwd or bwd != want_bwd):
         fail(f"moe train: flash launches fwd {fwd} bwd {bwd}, expected "
              f"{want_fwd} and {want_bwd}")
+    rows = counted_row_launches(rows_before)
+    want_rows = want_row_launches(cfg.num_layers, 2, steps)
+    if cuda and rows != want_rows:
+        fail(f"moe train: row-kernel launches {rows}, expected {want_rows}")
     if not all(map(math.isfinite, losses + auxes + norms)):
         fail(f"moe train: non-finite loss, aux loss or grad norm: {losses} "
              f"{auxes} {norms}")
@@ -3402,7 +3701,7 @@ def moe_train(torch, cfg, device: str, batch: int, seq: int,
            "batch": batch, "seq": seq, "steps": steps, "losses": losses,
            "aux_losses": auxes, "grad_norms": norms, "step_s": times,
            "step_median_s": step_s, "tokens_per_s": batch * seq / step_s,
-           "fwd_launches": fwd, "bwd_launches": bwd}
+           "fwd_launches": fwd, "bwd_launches": bwd, "row_launches": rows}
     if cuda:
         out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del state, step_fn, metrics
@@ -4217,7 +4516,9 @@ def mesh_serving_rest_phase(torch, model: str = "llama3-8b",
     through the wire codec to the pair, which installs it (each rank its
     heads) and decodes PD_NEW_TOKENS, then exports the same prompt (each
     rank's heads gathered) through the wire to this process, where it is
-    held to the one-card export (PD_EXPORT_RTOL; first_token equal) and
+    held to the one-card export (PD_EXPORT_RTOL; first_token the
+    argmax of the pair's own logits, which greedy_gaps then holds to the
+    plain forward with the decoded tokens) and
     installed into the one-card engine.  (b) MeshSpec(fsdp=2) with the
     weights over fsdp (FSDP_POLICY): bf16, then int8 weights; each rank
     holds half the matrices and gathers a layer at use.  (c) a one-card
@@ -4282,13 +4583,18 @@ def mesh_serving_rest_phase(torch, model: str = "llama3-8b",
             0.1, "pd install into the pair", PD_NEW_TOKENS)
         pair_exp = pd_prefill((tmp / "pair.json").read_text())
         errs = export_errors(torch, pair_exp, exp)
+        pair_argmax = int(torch.argmax(pair_exp["logits"]))
         if (max(errs.values()) > PD_EXPORT_RTOL
-                or pair_exp["first_token"] != exp["first_token"]
+                or pair_exp["first_token"] != pair_argmax
                 or pair_exp["length"] != exp["length"]):
             fail(f"pd: the pair's export against the one-card one: {errs} "
                  f"(limit {PD_EXPORT_RTOL}), first token "
-                 f"{pair_exp['first_token']} vs {exp['first_token']}")
+                 f"{pair_exp['first_token']} (its logits' argmax "
+                 f"{pair_argmax}), length {pair_exp['length']} vs "
+                 f"{exp['length']}")
         pair["export_rel_err"] = errs
+        pair["first_token_agrees"] = (pair_exp["first_token"]
+                                      == exp["first_token"])
         fa.paged_decode_attention.launches = 0
         steps0 = one.decode_steps
         installed = Request(tokens=list(PD_PROMPT),
@@ -4694,6 +5000,10 @@ ELASTIC_TRAIN_SEQ = 1024
 ELASTIC_TIMEOUT_S = 600
 #: a trainer process's loss against the same step in this process
 ELASTIC_LOSS_RTOL = 1e-3
+#: the libraries a paged bf16 replica and a train step resolve through the
+#: compile cache
+SERVE_LIBRARIES = ("rownorm", "paged_decode")
+TRAIN_LIBRARIES = ("flash_fwd", "flash_bwd", "rownorm")
 
 
 def port_copy(dest: Path) -> Path:
@@ -4874,10 +5184,11 @@ def elastic_phase(torch, config: str = "llama3-1b",
     --standby: it must be warming on /load and refuse /v1 until
     activated, run no nvcc (misses 0, a peer hit), serve A's greedy
     tokens, and launch K5 layers x decode steps.  (c) Cold replica C: the
-    same, but no compile-cache peer and an empty root: exactly one nvcc
-    run.  (d) Two trainer processes through one cache root: T1 from the
-    checkout (its build/ has the flash libraries: hits 2, puts 2), T2
-    from a copy with an empty build/ (misses 0, hits 2); each one step's
+    same, but no compile-cache peer and an empty root: one nvcc run a
+    library (``SERVE_LIBRARIES``).  (d) Two trainer processes through one
+    cache root: T1 from the checkout (its build/ has the train step's
+    libraries, ``TRAIN_LIBRARIES``: a hit and a put each), T2 from a copy
+    with an empty build/ (misses 0, a hit each); each one step's
     loss within ELASTIC_LOSS_RTOL of the same step in this process.
     Every server is stopped before this returns.  ``config="tiny",
     device="cpu"`` rehearses the flow on the CPU (with ``fail`` patched:
@@ -4912,7 +5223,9 @@ def elastic_phase(torch, config: str = "llama3-1b",
         replicas.append(a)
         out["a_ready_s"] = a.wait_ready()
         a_stats = a.stats()
-        check_counters("seeder A", a_stats, hits=1, puts=1, misses=0)
+        served = len(SERVE_LIBRARIES)
+        check_counters("seeder A", a_stats, hits=served, puts=served,
+                       misses=0)
         want = greedy_tokens(a.base, "seeder A")
 
         t = time.time()
@@ -4965,7 +5278,7 @@ def elastic_phase(torch, config: str = "llama3-1b",
                 cache = check_counters("joiner B", stats, misses=0,
                                        at_least=("peer_hits",))
             else:
-                cache = check_counters("cold C", stats, misses=1)
+                cache = check_counters("cold C", stats, misses=served)
             out[name] = {"ready_s": ready, "ttft_s": ttft,
                          "compile_cache": cache,
                          "resolved": stats["compile_cache_resolved"],
@@ -4983,8 +5296,9 @@ def elastic_phase(torch, config: str = "llama3-1b",
                                   device),
             "t2": elastic_trainer(port_copy(work / "t2-root"),
                                   work / "t2.json", work / "ct", device)}
-        want_counts = {"t1": {"hits": 2, "puts": 2, "misses": 0},
-                       "t2": {"hits": 2, "misses": 0}}
+        trained = len(TRAIN_LIBRARIES)
+        want_counts = {"t1": {"hits": trained, "puts": trained, "misses": 0},
+                       "t2": {"hits": trained, "misses": 0}}
         for name, run in trainers.items():
             for key, value in want_counts[name].items():
                 if run[f"compile_cache_{key}"] != value:
@@ -5470,6 +5784,7 @@ def main() -> int:
                                    mesh_k5_rows(torch.cuda.device_count()))
     kernels.update(check_flash_kernels(torch))
     kernels.update(check_window_kernels(torch))
+    kernels.update(check_rownorm_kernels(torch))
     check_f32_logits(torch)
     served = serve_8b()
     kernels["paged_decode_attention[bf16,llama3-8b]"]["launches"] = \
@@ -5520,11 +5835,33 @@ def main() -> int:
     for way in ("fwd", "bwd"):
         kernels[f"flash_attention_{way}[llama3-8b-fit,D=128]"][
             "launches"] += mixtral["train"][f"{way}_launches"]
+    # the 8B trainer's layers and Mixtral's (b4 s2048 both) launch the row
+    # kernel at the rows' shapes: the rotation on q and k, the norms on
+    # [8192, 4096] rows
+    fit = next(r for r in trained if r["config"] == "llama3-8b-fit")
+    for way, suffix in (("fwd", ""), ("bwd", "_bwd")):
+        for run in (fit, mixtral["train"]):
+            counted = run["row_launches"]
+            kernels[f"rownorm_{way}[8b/mixtral q/k rope]"]["launches"] += \
+                counted["qk_prologue_rope" + suffix]
+            kernels[f"rownorm_{way}[8b/mixtral rows]"]["launches"] += \
+                counted["rms_norm" + suffix]
     trinity = afmoe_phase(torch)
     window = WINDOW_ROWS["trinity-mini"][-1]
     for way in ("fwd", "bwd"):
         kernels[f"flash_attention_{way}[trinity-mini,D=128,window={window}]"][
             "launches"] = trinity[f"window_{way}_launches"]
+    # sliding layers norm and rotate q and k, full ones only norm them: the
+    # prologue's launches less those that rotated
+    for way, suffix in (("fwd", ""), ("bwd", "_bwd")):
+        counted = trinity["row_launches"]
+        rotated = counted["qk_prologue_rope" + suffix]
+        kernels[f"rownorm_{way}[trinity-mini q/k norm+rope]"]["launches"] = \
+            rotated
+        kernels[f"rownorm_{way}[trinity-mini q/k norm]"]["launches"] = \
+            counted["qk_prologue" + suffix] - rotated
+        kernels[f"rownorm_{way}[trinity-mini rows]"]["launches"] = \
+            counted["rms_norm" + suffix]
     meshed = mesh_serving_phase(torch)
     for run in meshed.values():
         # every rank's launches, each on its Hkv / tensor kv heads (its
@@ -5575,7 +5912,7 @@ def main() -> int:
         {k: trinity[k] for k in ("tokens_per_s", "step_median_s", "losses",
                                  "dropped_tokens", "max_memory_allocated_gb",
                                  "window_fwd_launches",
-                                 "window_bwd_launches")}))
+                                 "window_bwd_launches", "row_launches")}))
     log("resume summary: " + json.dumps(
         {k: resumed[k] for k in ("snapshot_bytes", "copy_s", "write_s",
                                  "restore_s", "step_median_s",

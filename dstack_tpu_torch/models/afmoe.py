@@ -46,7 +46,7 @@ from dstack_tpu_torch.models.moe import MoEConfig
 from dstack_tpu_torch.ops import flash_attention as flash
 from dstack_tpu_torch.ops.loss import chunked_cross_entropy
 from dstack_tpu_torch.ops.rmsnorm import rms_norm
-from dstack_tpu_torch.ops.rotary import rope_frequencies
+from dstack_tpu_torch.ops.rotary import rope_frequencies, rope_table
 from dstack_tpu_torch.telemetry import spans
 
 SLIDING, FULL = "sliding_attention", "full_attention"
@@ -222,6 +222,7 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: AfmoeConfig, *,
     inv_freqs = torch.from_numpy(rope_frequencies(
         cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(dev)
     positions = torch.arange(s, device=dev)[None, :]
+    rope = rope_table(positions, inv_freqs)
     use_flash = flash.supports(s, cfg.head_dim, cfg.dtype,
                                group=cfg.num_heads // cfg.num_kv_heads)
     specs = collections.defaultdict(lambda: None)  # no mesh: nothing sharded
@@ -238,7 +239,7 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: AfmoeConfig, *,
                 qk_norm=True, gate=True, sandwich=True,
                 mlp=None if dense else routed)
             built[dense, sliding] = llama._layer_fn(
-                cfg, positions, inv_freqs, use_flash, keep, layout, specs,
+                cfg, positions, rope, use_flash, keep, layout, specs,
                 kind)
         return built[dense, sliding]
 

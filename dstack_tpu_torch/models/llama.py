@@ -41,7 +41,8 @@ from dstack_tpu_torch.ops.attention import (KVCache, causal_attention,
 from dstack_tpu_torch.ops.ring_attention import ring_attention_sharded
 from dstack_tpu_torch.ops.loss import f32_logits
 from dstack_tpu_torch.ops.rmsnorm import rms_norm
-from dstack_tpu_torch.ops.rotary import RopeScaling, apply_rope, rope_frequencies
+from dstack_tpu_torch.ops.rotary import (RopeScaling, apply_rope, qk_prologue,
+                                         rope_frequencies, rope_table)
 from dstack_tpu_torch.parallel import collectives
 from dstack_tpu_torch.parallel.pipeline import pipeline_layers
 from dstack_tpu_torch.parallel.mesh import (distribute, entry_axes,
@@ -611,13 +612,15 @@ class LayerKind:
     mlp: Optional[Callable] = None
 
 
-def _layer_fn(cfg: LlamaConfig, positions, inv_freqs, routed: bool,
+def _layer_fn(cfg: LlamaConfig, positions, rope, routed: bool,
               keep: Optional[tuple], layout: Layout, specs: dict,
               kind: LayerKind = LayerKind()):
     """One transformer layer ``(x, lp) -> x``; its attention is
     :meth:`Layout.attention` when ``routed`` (the fused kernels, or ring
     or Ulysses under ``seq``), else :func:`causal_attention` over
-    ``positions``.  ``kind`` says what the layer adds to Llama's
+    ``positions``.  ``rope`` is the :func:`rope_table` of ``positions``;
+    q and k go through :func:`qk_prologue` (their norms and rotation).
+    ``kind`` says what the layer adds to Llama's
     (:class:`LayerKind`).  The layer is five steps,
     each making one named tensor (:data:`REMAT_NAMES`); under remat the
     steps between two kept tensors run as one checkpointed region, so the
@@ -641,12 +644,10 @@ def _layer_fn(cfg: LlamaConfig, positions, inv_freqs, routed: bool,
 
     def attn_out(st, lp):
         q, k, v = st.pop("qkv")
-        if kind.qk_norm:
-            q = rms_norm(q, w(lp, "q_norm"), cfg.rms_eps)
-            k = rms_norm(k, w(lp, "k_norm"), cfg.rms_eps)
-        if kind.rope:
-            q = apply_rope(q, positions, inv_freqs)
-            k = apply_rope(k, positions, inv_freqs)
+        norms = ((w(lp, "q_norm"), w(lp, "k_norm")) if kind.qk_norm
+                 else (None, None))
+        q, k = qk_prologue(q, k, *norms, rope if kind.rope else None,
+                           cfg.rms_eps)
         if routed:
             out = layout.attention(q, k, v, window=kind.window)
         else:
@@ -769,6 +770,7 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
         cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(dev)
     if default_positions:
         positions = layout.positions(s, dev)
+    rope = rope_table(positions, inv_freqs)
     use_flash = layout.seq is None and default_positions and flash.supports(
         s, cfg.head_dim, cfg.dtype, group=cfg.num_heads // cfg.num_kv_heads)
     layers = params["layers"]
@@ -776,7 +778,7 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     layout.check_stacked(stacked)
     layer_specs = ({k: tuple(v[1:]) for k, v in specs["layers"].items()}
                    if stacked else specs["layers"][0] if layers else {})
-    layer = _layer_fn(cfg, positions, inv_freqs,
+    layer = _layer_fn(cfg, positions, rope,
                       use_flash or layout.seq is not None, keep, layout,
                       layer_specs)
 

@@ -71,7 +71,8 @@ from dstack_tpu_torch.ops.attention import causal_attention
 from dstack_tpu_torch.ops.loss import (chunked_cross_entropy, chunked_nll_sum,
                                        f32_logits)
 from dstack_tpu_torch.ops.rmsnorm import rms_norm
-from dstack_tpu_torch.ops.rotary import apply_rope, rope_frequencies
+from dstack_tpu_torch.ops.rotary import (qk_prologue, rope_frequencies,
+                                         rope_table)
 from dstack_tpu_torch.parallel import mesh as mesh_lib
 from dstack_tpu_torch.parallel.collectives import (all_reduce_sum, gather,
                                                     psum, reduce_scatter,
@@ -750,6 +751,7 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: MoEConfig, *,
     inv_freqs = torch.from_numpy(rope_frequencies(
         cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(dev)
     positions = torch.arange(s, device=dev)[None, :]
+    rope = rope_table(positions, inv_freqs)
     use_flash = flash.supports(
         s, cfg.head_dim, cfg.dtype, group=cfg.num_heads // cfg.num_kv_heads)
     layers = params["layers"]
@@ -766,8 +768,7 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: MoEConfig, *,
             h = layout.enter(rms_norm(x, w("attn_norm"), cfg.rms_eps))
             q, k, v = ((h @ w(name)).reshape(b, s, -1, cfg.head_dim)
                        for name in ("wq", "wk", "wv"))
-            q = apply_rope(q, positions, inv_freqs)
-            k = apply_rope(k, positions, inv_freqs)
+            q, k = qk_prologue(q, k, rope=rope, eps=cfg.rms_eps)
             if use_flash:
                 attn = layout.attention(q, k, v)
             else:

@@ -355,7 +355,8 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
 
     step = maybe_cached(
         _step_from_loss(loss_fn, optimizer, sharded=mesh is not None),
-        compile_cache, tag="train_step", kernels=("flash_fwd", "flash_bwd"),
+        compile_cache, tag="train_step",
+        kernels=("flash_fwd", "flash_bwd", "rownorm"),
         needs=lambda state, batch: batch["tokens"].device.type == "cuda")
     if telemetry is None:
         return step

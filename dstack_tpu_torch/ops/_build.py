@@ -38,6 +38,8 @@ SIGNATURES = {
                      + [_F, _I, _P]),
     "flash_fwd": ("dstack_flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _P]),
     "flash_bwd": ("dstack_flash_bwd", [_P] * 11 + [_I] * 6 + [_F, _P]),
+    "rownorm": ("dstack_rownorm", [_P] * 14 + [_LL] * 2 + [_I] * 9
+                + [_F, _P]),
 }
 
 _bound: Dict[str, Callable[..., int]] = {}

@@ -3,6 +3,12 @@
 The inverse frequencies are computed on the host in float64 and cast to
 float32 (so every caller gets bit-identical tables); the rotation uses the
 split-halves convention (rotate_half), matching Llama.
+
+The training layers rotate through :func:`qk_prologue`: q and k's optional
+per-head RMSNorm and their rotation by a cos/sin table that
+:func:`rope_table` builds once per backbone call, one row-kernel launch each
+way on the card (``csrc/rownorm.cu``).  Serving and the plain-cache decode
+keep :func:`apply_rope`, plain torch on every device.
 """
 
 from __future__ import annotations
@@ -12,6 +18,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from dstack_tpu_torch.ops import rownorm
+from dstack_tpu_torch.ops.rmsnorm import rms_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +74,65 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     angles = positions[..., :, None].float() * inv_freqs  # [..., S, D/2]
     cos = torch.cos(angles)[..., :, None, :]              # [..., S, 1, D/2]
     sin = torch.sin(angles)[..., :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return rotated.to(x.dtype)
+    return rownorm.rotate_half(x, cos, sin)
+
+
+def rope_table(positions: torch.Tensor,
+               inv_freqs: torch.Tensor) -> torch.Tensor:
+    """The cos/sin table [2, P, S, head_dim // 2] f32 of ``positions`` [P,
+    S] (or [S]: P = 1), by :func:`apply_rope`'s own operations, so a
+    rotation by the table is bit for bit :func:`apply_rope`'s."""
+    angles = positions.reshape(-1, positions.shape[-1])[..., :, None].float(
+        ) * inv_freqs
+    return torch.stack([torch.cos(angles), torch.sin(angles)])
+
+
+def qk_prologue(q: torch.Tensor, k: torch.Tensor,
+                q_w: Optional[torch.Tensor] = None,
+                k_w: Optional[torch.Tensor] = None,
+                rope: Optional[torch.Tensor] = None,
+                eps: float = 1e-5) -> tuple:
+    """``(q, k)`` [B, S, H, head_dim] before attention: each head normed by
+    ``q_w`` / ``k_w`` [head_dim] when given (an RMSNorm, cast back to the
+    heads' dtype), then rotated by the :func:`rope_table` ``rope`` when
+    given.  CPU tensors take :func:`rms_norm` and :func:`apply_rope`'s
+    arithmetic; CUDA tensors one row-kernel launch for both tensors forward
+    and one backward, counted on ``qk_prologue.launches`` and
+    ``.bwd_launches``, and those that rotate on ``.rope_launches`` and
+    ``.rope_bwd_launches`` too."""
+    if (q_w is None) != (k_w is None):
+        raise ValueError("qk_prologue norms both q and k or neither")
+    if q_w is None and rope is None:
+        return q, k
+    if q.device.type != "cpu":
+        return rownorm.apply_rows(qk_prologue, (q, k), (q_w, k_w), rope, eps)
+    if q_w is not None:
+        q, k = rms_norm(q, q_w, eps), rms_norm(k, k_w, eps)
+    if rope is not None:
+        cos, sin = rownorm.table_cos_sin(rope)
+        q, k = (rownorm.rotate_half(q, cos, sin),
+                rownorm.rotate_half(k, cos, sin))
+    return q, k
+
+
+qk_prologue.launches = 0
+qk_prologue.bwd_launches = 0
+qk_prologue.rope_launches = 0
+qk_prologue.rope_bwd_launches = 0
+
+
+def qk_prologue_fwd_plain(x: torch.Tensor, w: Optional[torch.Tensor],
+                          rope: Optional[torch.Tensor],
+                          eps: float = 1e-5) -> tuple:
+    """Plain version of the kernel's forward on one of q and k: ``(y,
+    rstd)`` (rstd None without a norm)."""
+    return rownorm.rows_fwd_plain(x, w, rope, eps)
+
+
+def qk_prologue_bwd_plain(x: torch.Tensor, w: Optional[torch.Tensor],
+                          rope: Optional[torch.Tensor],
+                          rstd: Optional[torch.Tensor],
+                          dy: torch.Tensor) -> tuple:
+    """Plain version of the kernel's backward on one of q and k: ``(dx,
+    dw)`` (dw None without a norm)."""
+    return rownorm.rows_bwd_plain(x, w, rope, rstd, dy)

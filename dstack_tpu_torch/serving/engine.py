@@ -521,11 +521,13 @@ class InferenceEngine:
             raise ValueError("int4 KV packing needs an even head_dim")
         self.kv_quantize = kv_quantize
         self.kv_quant = kv_quantize is not None
-        #: the paged-decode library is still to be resolved through the
-        #: compile cache (before the first launch)
-        self._kernels_pending = (
-            self.compile_cache is not None and self.device.type == "cuda"
-            and paged and kv_quantize != "int4")
+        #: the libraries still to be resolved through the compile cache
+        #: (before their first launch): the row kernel of every norm on
+        #: the card, the paged decode's where it reads pages
+        self._kernels_pending = () if (
+            self.compile_cache is None or self.device.type != "cuda") else (
+            ("rownorm", "paged_decode") if paged and kv_quantize != "int4"
+            else ("rownorm",))
         #: paged decode reads a power-of-two bucket of each slot's block
         #: table sized to the longest active slot; DSTACK_TPU_RAGGED_DECODE=0
         #: reads the full span (the JAX engine's dense-paged baseline)
@@ -787,6 +789,7 @@ class InferenceEngine:
         with self._op_lock:
             if self._leader is not None:
                 self._leader.send(name, args)
+            self._ensure_kernels()
             return getattr(self, "_do_" + name)(**args)
 
     def _produced(self, kind: str, *arrays) -> None:
@@ -888,9 +891,9 @@ class InferenceEngine:
         return time.time() - t0
 
     def _ensure_kernels(self) -> None:
-        if self._kernels_pending:
-            self._kernels_pending = False
-            self.compile_cache.ensure("paged_decode")
+        names, self._kernels_pending = self._kernels_pending, ()
+        for name in names:
+            self.compile_cache.ensure(name)
 
     def run_forever(self) -> None:
         """Serving loop: step when there is work, block when idle.  A bad

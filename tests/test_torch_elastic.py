@@ -506,7 +506,7 @@ def test_make_train_step_takes_a_compile_cache(tmp_path, monkeypatch):
     cache = CompileCache(tmp_path)
     step = train.make_train_step(cfg, opt, compile_cache=cache)
     assert isinstance(step, CachedKernels)
-    assert step.kernels == ("flash_fwd", "flash_bwd")
+    assert step.kernels == ("flash_fwd", "flash_bwd", "rownorm")
     state = train.create_state(0, cfg, opt, device="cpu")
     tokens = torch.randint(0, cfg.vocab_size, (1, 17),
                            generator=torch.Generator().manual_seed(0))
@@ -549,18 +549,19 @@ def test_engine_warmup_returns_elapsed():
 
 def test_engine_resolves_the_kernel_library_once_on_the_card_path():
     """A CPU engine resolves no library (its decode takes the plain
-    attention); an engine on the kernel's path resolves paged_decode
-    once, in warmup or at its first decode window."""
+    attention); an engine on the kernels' path resolves the row kernel and
+    paged_decode once, in warmup or at its first device operation."""
     cpu = _engine(compile_cache=_Ensured())
     cpu.warmup(prompt_len=4, max_new_tokens=2)
     assert cpu.compile_cache.names == []
     for warm in (True, False):
         engine = _engine(compile_cache=_Ensured())
-        engine._kernels_pending = True  # as on CUDA with bf16 pages
+        # as on CUDA with bf16 pages
+        engine._kernels_pending = ("rownorm", "paged_decode")
         if warm:
             engine.warmup(prompt_len=4, max_new_tokens=2)
         engine.generate([1, 2, 3], max_new_tokens=3)
-        assert engine.compile_cache.names == ["paged_decode"]
+        assert engine.compile_cache.names == ["rownorm", "paged_decode"]
 
 
 # -- the server's elastic routes -----------------------------------------------
