@@ -348,6 +348,8 @@ import urllib.error
 import urllib.request
 from pathlib import Path
 
+from portbench.frozen.bounds import _least, flash_bounds, paged_decode_bound
+
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): device memory rate
@@ -662,24 +664,6 @@ def wrapper_host_ms(torch, fn, iters: int) -> float:
     return held_span(torch, fn, iters)[1] / iters
 
 
-def bound(d: int, quant: bool, lengths=LENGTHS, hkv: int = HKV, g: int = G):
-    """Least time for this call's work: each input byte the function needs
-    read once (q, the K/V rows below each length, their scales, the table
-    entries walked, the lengths), each output byte written once, against
-    4 * sum(length) * Hq * D operations (QK and PV, two per MAC) in bf16."""
-    hq = hkv * g
-    rows = sum(lengths)
-    elem = 1 if quant else 2
-    kv = 2 * rows * hkv * d * elem + (2 * rows * hkv * 4 if quant else 0)
-    pages = sum(-(-n // BS) for n in lengths)
-    nbytes = (B * hq * d * 2 + kv + pages * 4 + B * 4
-              + B * hq * d * 4 + B * hq * 4)
-    flops = 4 * rows * hq * d
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops
-            else "operations", nbytes, flops)
-
-
 def errors(torch, fa, args):
     """Largest |o| and |lse| differences of the wrapper against the plain
     version on ``args``, and whether every empty slot gave o = 0, lse =
@@ -813,8 +797,8 @@ def check_kernels(torch, mesh_rows=None) -> tuple:
                                        flush_span)
                 warm_ms = device_ms(torch, kernel, PAGED_ITERS)
                 host_ms = wrapper_host_ms(torch, kernel, PAGED_ITERS)
-                bound_ms, bound_by, nbytes, flops = bound(d, quant, lengths,
-                                                          hkv, g)
+                bound_ms, bound_by, nbytes, flops = paged_decode_bound(
+                    lengths, d, quant, hkv, g, BS)
                 row = {"max_abs_err": err_o, "max_abs_err_lse": err_lse,
                        "splits": splits, "ms": ms, "warm_l2_ms": warm_ms,
                        "library_ms": library_ms, "bound_ms": bound_ms,
@@ -903,28 +887,6 @@ def flash_case(torch, shape, seed: int):
 
     return randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d), \
         randn(b, s, hq, d)
-
-
-def flash_bounds(shape):
-    """Least times (ms) of the forward and the backward function at
-    ``shape``, each with what bounds it.  Bytes: each input read once and
-    each output written once (forward: q, k, v -> o, lse; backward: q, k,
-    v, o, lse, do -> dq, dk, dv).  Operations: 2 per multiply-add over the
-    (query, key) pairs the causal mask keeps, S(S+1)/2 per head: two
-    products (QK^T, PV) forward, five (QK^T, dO V^T, dV, dK, dQ) backward."""
-    b, s, hq, hkv, d = shape
-    pairs = b * hq * s * (s + 1) // 2
-    q_bytes, kv_bytes, lse_bytes = b * s * hq * d * 2, b * s * hkv * d * 2, \
-        b * hq * s * 4
-    out = {}
-    for part, nbytes, flops in (
-            ("fwd", 2 * q_bytes + 2 * kv_bytes + lse_bytes, 4 * d * pairs),
-            ("bwd", 4 * q_bytes + 4 * kv_bytes + lse_bytes, 10 * d * pairs)):
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-        out[part] = (max(t_bytes, t_ops) * 1e3,
-                     "bytes" if t_bytes >= t_ops else "operations", nbytes,
-                     flops)
-    return out
 
 
 def row_rel_err(torch, got, want) -> float:
@@ -1077,25 +1039,6 @@ WINDOW_ROWS = {"trinity-mini": (8, 8192, 32, 4, 128, 2048)}
 WINDOW_CHECK_ROWS = (0, 7)
 
 
-def window_flash_bounds(shape, window: int) -> dict:
-    """:func:`flash_bounds` under a sliding window: the same bytes, the
-    operations over the (query, key) pairs the window keeps, each query i
-    min(i + 1, window) of them."""
-    b, s, hq, hkv, d = shape
-    w = min(window, s)
-    pairs = b * hq * (w * (w + 1) // 2 + (s - w) * w)
-    out = {}
-    for part, (nbytes, _flops), mul in (
-            ("fwd", flash_bounds(shape)["fwd"][2:], 4),
-            ("bwd", flash_bounds(shape)["bwd"][2:], 10)):
-        flops = mul * d * pairs
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-        out[part] = (max(t_bytes, t_ops) * 1e3,
-                     "bytes" if t_bytes >= t_ops else "operations", nbytes,
-                     flops)
-    return out
-
-
 def window_errors(torch, fa, shape, window: int, rows=None):
     """Both windowed kernels once at ``shape``, held to the plain versions
     (batch ``rows`` of it only, when given): (inputs, (o, lse), errors)
@@ -1140,7 +1083,8 @@ def checked_window_errors(torch, fa, shape, window: int, rows=None):
 def check_window_kernels(torch) -> dict:
     """Hold the windowed forward and backward kernels to their plain
     versions at WINDOW_EDGE_SHAPES and WINDOW_ROWS, then time each
-    WINDOW_ROWS launch beside its bound (:func:`window_flash_bounds`),
+    WINDOW_ROWS launch beside its bound (the causal launch's bytes, the
+    operations over the pairs the window keeps),
     the causal kernels at the same shape, and
     ``scaled_dot_product_attention`` given the window as a mask (the
     heads repeated for the grouped-query read, so a masked backend takes
@@ -1199,7 +1143,11 @@ def check_window_kernels(torch) -> dict:
             log(f"kernel flash window sdpa: not measured ({e})"[:300])
         del qt, kt, vt, mask
         torch.cuda.empty_cache()
-        bounds = window_flash_bounds(shape, window)
+        from portbench.families.afmoe import window_pairs
+
+        pairs = shape[0] * shape[2] * window_pairs(shape[1], window)
+        bounds = {part: _least(flash_bounds(shape)[part][2], mul * d * pairs)
+                  for part, mul in (("fwd", 4), ("bwd", 10))}
         for part, errs_shown in (("fwd", ("o", "lse", "o_row")),
                                  ("bwd", ("dq", "dk", "dv", "dq_row",
                                           "dk_row", "dv_row"))):

@@ -15,17 +15,18 @@ scores plus an expert bias, the chosen scores renormalised times
 every token.  The embedding is scaled by ``embed_scale`` (sqrt of the
 hidden size under muP).
 
-A layer is :func:`dstack_tpu_torch.models.llama._layer_fn` with a
-:class:`~dstack_tpu_torch.models.llama.LayerKind`, attention goes through
-the fused kernels where ``flash.supports`` holds (a window through their
-windowed instantiation), and the step is AdamW through
-:func:`dstack_tpu_torch.models.train._step_from_loss`.  The parameters are
-two stacks, ``dense_layers`` ``[num_dense_layers, ...]`` and
-``moe_layers`` ``[num_layers - num_dense_layers, ...]``, each walked
-through :func:`~dstack_tpu_torch.models.llama.layer_views`.  The expert
-bias is train state without a gradient (``TrainState.buffers``
-``{"expert_bias": f32 [L_moe, E]}``): after AdamW each step moves it by
-the step's token counts (:func:`update_expert_bias`).
+What a new architecture supplies, this module shows (what each family
+passes is listed on :class:`~dstack_tpu_torch.models.llama.LayerKind`):
+its config, its parameter tree (two stacks, ``dense_layers``
+``[num_dense_layers, ...]`` and ``moe_layers`` ``[num_layers -
+num_dense_layers, ...]``), each layer's ``LayerKind`` (the routed MLP
+:func:`~dstack_tpu_torch.models.moe.routed_mlp` with the layer's expert
+bias) given to the one stack walk, ``llama._walk``, and the step: the
+loss through ``train._head_loss``, AdamW through
+``train._step_from_loss``, and what moves without a gradient.  Here that
+is the expert bias (``TrainState.buffers`` ``{"expert_bias": f32 [L_moe,
+E]}``), moved after AdamW by the step's token counts
+(:func:`update_expert_bias`).
 
 The layer may hold a range of the routed experts (``held_experts``: one
 card's share under expert parallelism): it routes over all of them and
@@ -34,7 +35,6 @@ adds the held experts' part.  Not ported: a mesh, serving.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -43,11 +43,6 @@ import torch
 from dstack_tpu_torch.models import llama, moe, train
 from dstack_tpu_torch.models.llama import Params, output_head
 from dstack_tpu_torch.models.moe import MoEConfig
-from dstack_tpu_torch.ops import flash_attention as flash
-from dstack_tpu_torch.ops.loss import chunked_cross_entropy
-from dstack_tpu_torch.ops.rmsnorm import rms_norm
-from dstack_tpu_torch.ops.rotary import rope_frequencies, rope_table
-from dstack_tpu_torch.telemetry import spans
 
 SLIDING, FULL = "sliding_attention", "full_attention"
 #: the tree's layer stacks
@@ -217,50 +212,24 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: AfmoeConfig, *,
     (:func:`moe._moe_mlp`)."""
     keep = llama.remat_names(remat)
     layout = llama.Layout(None, llama.ShardingPolicy(), cfg)
-    b, s = tokens.shape
-    dev = tokens.device
-    inv_freqs = torch.from_numpy(rope_frequencies(
-        cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(dev)
-    positions = torch.arange(s, device=dev)[None, :]
-    rope = rope_table(positions, inv_freqs)
-    use_flash = flash.supports(s, cfg.head_dim, cfg.dtype,
-                               group=cfg.num_heads // cfg.num_kv_heads)
-    specs = collections.defaultdict(lambda: None)  # no mesh: nothing sharded
-
-    def routed(h, lp):
-        return moe._moe_mlp(h, lp, cfg, stats=stats)[0]
-
-    built: Dict[tuple, Callable] = {}
-
-    def layer_of(dense: bool, sliding: bool):
-        if (dense, sliding) not in built:
-            kind = llama.LayerKind(
-                window=cfg.sliding_window if sliding else None, rope=sliding,
-                qk_norm=True, gate=True, sandwich=True,
-                mlp=None if dense else routed)
-            built[dense, sliding] = llama._layer_fn(
-                cfg, positions, rope, use_flash, keep, layout, specs,
-                kind)
-        return built[dense, sliding]
-
-    with spans.region("model.embed") as r:
-        x = llama._embed_lookup(r.inputs(params["embed"]).to(cfg.dtype),
-                                tokens, layout, None)
-        if cfg.embed_scale != 1.0:
-            x = x * cfg.embed_scale
-        x = r.outputs(x)
+    bias = None if buffers is None else buffers["expert_bias"].unbind(0)
     nd = cfg.num_dense_layers
-    views = (llama.layer_views(params["dense_layers"], nd)
-             + llama.layer_views(params["moe_layers"], cfg.num_moe_layers))
-    bias = (None if buffers is None
-            else buffers["expert_bias"].unbind(0))
-    for l, lp in enumerate(views):
-        if l >= nd:
-            lp = dict(lp, expert_bias=None if bias is None else bias[l - nd])
-        x = layer_of(l < nd, cfg.sliding(l))(x, lp)
-    with spans.region("model.head_loss") as r:
-        x, norm = r.inputs((x, params["final_norm"]))
-        return r.outputs(rms_norm(x, norm, cfg.rms_eps))
+    sides: list = []
+
+    def kind(l: int) -> llama.LayerKind:
+        sliding = cfg.sliding(l)
+        return llama.LayerKind(
+            window=cfg.sliding_window if sliding else None, rope=sliding,
+            qk_norm=True, gate=True, sandwich=True,
+            mlp=None if l < nd else moe.routed_mlp(
+                cfg, layout, sides, stats=stats is not None,
+                bias=None if bias is None else bias[l - nd]))
+
+    x = llama._walk(params, tokens, cfg, layout, None, kind, keep,
+                    stacks=STACKS, embed_scale=cfg.embed_scale)
+    if stats is not None:
+        stats.extend((counts, dropped) for _, counts, dropped in sides)
+    return x
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: AfmoeConfig,
@@ -284,18 +253,13 @@ def make_train_step(cfg: AfmoeConfig, optimizer: train.AdamW,
     llama.remat_names(remat)  # reject a bad mode before the first step
 
     def loss_fn(params, batch, buffers):
-        tokens = batch["tokens"]
         stats: list = []
-        x = backbone(params, tokens[:, :-1], cfg, buffers=buffers,
+        x = backbone(params, batch["tokens"][:, :-1], cfg, buffers=buffers,
                      remat=remat, stats=stats)
         metrics = {"expert_tokens": torch.stack([c for c, _ in stats]),
                    "dropped_tokens": torch.stack([d for _, d in stats])}
-        with spans.region("model.head_loss") as r:
-            x, outer = r.inputs((x, {k: v for k, v in params.items()
-                                     if k not in STACKS}))
-            ce = chunked_cross_entropy(x, output_head(outer, cfg),
-                                       tokens[:, 1:], batch.get("mask"))
-            return r.outputs(ce), {"loss": ce.detach(), **metrics}
+        loss, ce = train._head_loss(params, x, batch, cfg)
+        return loss, {"loss": ce, **metrics}
 
     def after(state, metrics):
         update_expert_bias(state.buffers["expert_bias"],

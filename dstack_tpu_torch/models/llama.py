@@ -23,6 +23,7 @@ run as a GPipe pipeline (:mod:`dstack_tpu_torch.parallel.pipeline`).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -494,8 +495,10 @@ class Layout:
     def positions(self, s: int, device) -> torch.Tensor:
         """[1, s] global positions of this rank's ``s`` tokens: under
         ``seq`` rank r's stripe starts at r * s, else at 0."""
-        start = self.mesh.get_local_rank(self.seq) * s if self.seq else 0
-        return start + torch.arange(s, device=device)[None, :]
+        positions = torch.arange(s, device=device)[None, :]
+        if self.seq:
+            positions = positions + self.mesh.get_local_rank(self.seq) * s
+        return positions
 
     def weight(self, w: torch.Tensor, spec, whole: bool = False):
         """The weight a rank computes with: gathered over the batch axes
@@ -600,9 +603,20 @@ class LayerKind:
       ([D, Hq * head_dim], h the normed input) before ``wo``;
     - ``sandwich``: an RMSNorm on the attention's and the MLP's outputs
       (``post_attn_norm``, ``post_mlp_norm``) before their residual adds;
-    - ``mlp``: ``(h, lp) -> out``, the MLP branch's output from the normed
-      h (a routed MLP), in place of the SwiGLU through ``w_gate``,
-      ``w_up``, ``w_down`` (None)."""
+    - ``mlp``: ``(h, weight) -> out``, the MLP branch's output from the
+      normed rows h, ``weight(name)`` the layer's weight ``name`` as this
+      rank computes with it (:meth:`Layout.weight`), in place of the
+      SwiGLU through ``w_gate``, ``w_up``, ``w_down`` (None).  Such a
+      routed MLP crosses the model axes itself: h comes to it without
+      :meth:`Layout.enter`.
+
+    What each family passes to :func:`_walk`, the one stack walk (a new
+    architecture adds its config, parameter tree and specs): Llama and
+    Mistral ``LayerKind()``; Mixtral ``LayerKind(mlp=moe.routed_mlp(...))``,
+    its aux loss read from the routed MLP's side results; Trinity, by
+    ``layer_types``, ``window`` and ``rope`` on sliding layers and neither
+    on full ones, ``qk_norm``, ``gate`` and ``sandwich`` on all, and past
+    the dense lead the routed MLP with the layer's expert bias."""
 
     window: Optional[int] = None
     rope: bool = True
@@ -612,11 +626,11 @@ class LayerKind:
     mlp: Optional[Callable] = None
 
 
-def _layer_fn(cfg: LlamaConfig, positions, rope, routed: bool,
+def _layer_fn(cfg: LlamaConfig, positions, rope, fused: bool,
               keep: Optional[tuple], layout: Layout, specs: dict,
               kind: LayerKind = LayerKind()):
     """One transformer layer ``(x, lp) -> x``; its attention is
-    :meth:`Layout.attention` when ``routed`` (the fused kernels, or ring
+    :meth:`Layout.attention` when ``fused`` (the fused kernels, or ring
     or Ulysses under ``seq``), else :func:`causal_attention` over
     ``positions``.  ``rope`` is the :func:`rope_table` of ``positions``;
     q and k go through :func:`qk_prologue` (their norms and rotation).
@@ -648,7 +662,7 @@ def _layer_fn(cfg: LlamaConfig, positions, rope, routed: bool,
                  else (None, None))
         q, k = qk_prologue(q, k, *norms, rope if kind.rope else None,
                            cfg.rms_eps)
-        if routed:
+        if fused:
             out = layout.attention(q, k, v, window=kind.window)
         else:
             out = causal_attention(q, k, v, q_positions=positions,
@@ -665,10 +679,11 @@ def _layer_fn(cfg: LlamaConfig, positions, rope, routed: bool,
         st["x"] = st["x"] + y
 
     def mlp_mid(st, lp):
-        h = layout.enter(rms_norm(st["x"], w(lp, "mlp_norm"), cfg.rms_eps))
+        h = rms_norm(st["x"], w(lp, "mlp_norm"), cfg.rms_eps)
         if kind.mlp is not None:
-            st["mid"] = kind.mlp(h, lp)
+            st["mid"] = kind.mlp(h, lambda name: w(lp, name))
             return
+        h = layout.enter(h)
         st["mid"] = F.silu(h @ w(lp, "w_gate")) * (h @ w(lp, "w_up"))
 
     def proj_mlp(st, lp):
@@ -719,14 +734,10 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
              positions: Optional[torch.Tensor] = None,
              remat: Union[bool, str, tuple] = False) -> torch.Tensor:
     """Transformer stack up to and including the final norm: [B, S, D]
-    hidden states in ``cfg.dtype``.
-
-    Attention is :func:`flash_attention` exactly when the JAX package takes
-    its fused kernel (default positions and ``supports``), else
-    :func:`causal_attention` over ``positions``.  ``remat`` is one of
-    False/"none", True/"selective", "wide", "full" or a tuple of
-    checkpoint names (see :func:`remat_names`).  Layers may be stacked
-    (walked as :func:`layer_views`) or unstacked (a list, see
+    hidden states in ``cfg.dtype``; :func:`_walk` with ``LayerKind()`` in
+    every layer.  ``remat`` is one of False/"none", True/"selective",
+    "wide", "full" or a tuple of checkpoint names (see
+    :func:`remat_names`).  Layers may be stacked or unstacked (a list, see
     :func:`unstack_params`).
 
     Under a ``mesh`` (a DeviceMesh over :data:`dstack_tpu_torch.parallel.
@@ -752,52 +763,82 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     ``stage``, Ulysses with heads that do not split over seq x tensor."""
     keep = remat_names(remat)
     layout = Layout(mesh, policy or ShardingPolicy(), cfg)
-    default_positions = positions is None
     for axis, what in ((layout.stage, "the pipeline path"),
                        (layout.seq, "the context-parallel (seq) path")):
-        if axis and not default_positions:
+        if axis and positions is not None:
             # the layer body reads whole-batch, global 0..S-1 positions
             raise NotImplementedError(
                 f"custom `positions` are not supported on {what} yet; pass "
                 f"positions=None with {axis} parallelism")
+    specs = None
     if mesh is not None:
-        params = map_with_specs(lambda sp, p: _local(p, sp, mesh),
-                                specs_for(params, cfg, layout.policy), params)
-    specs = specs_for(params, cfg, layout.policy)
-    s = tokens.shape[1]
-    dev = tokens.device
+        specs = specs_for(params, cfg, layout.policy)
+        params = map_with_specs(lambda sp, p: _local(p, sp, mesh), specs,
+                                params)
+    return _walk(params, tokens, cfg, layout, specs, LayerKind(), keep,
+                 positions=positions)
+
+
+def _walk(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+          layout: Layout, specs: Optional[Params],
+          kind: Union[LayerKind, Callable[[int], LayerKind]],
+          keep: Optional[tuple], *, positions: Optional[torch.Tensor] = None,
+          stacks: tuple = ("layers",), embed_scale: float = 1.0
+          ) -> torch.Tensor:
+    """The stack of every family, from ``tokens`` to the final norm's
+    output: RoPE's table of ``positions`` (None: :meth:`Layout.positions`)
+    and the attention (the fused kernels under ``seq`` or where the JAX
+    package takes them: default positions and ``flash.supports``; else
+    :func:`causal_attention`) chosen once, the embedding times
+    ``embed_scale`` in ``model.embed``, the layers of each of ``stacks``
+    in turn (stacked: :func:`layer_views`; under ``stage``
+    :func:`pipeline_layers`), layer l :func:`_layer_fn` of ``kind`` or
+    ``kind(l)`` under ``keep``, and the final norm in ``model.head_loss``.
+    ``specs``: the tree's specs under a mesh (``params`` this rank's
+    local shards), else None."""
+    s, dev = tokens.shape[1], tokens.device
+    default_positions = positions is None
     inv_freqs = torch.from_numpy(rope_frequencies(
         cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(dev)
     if default_positions:
         positions = layout.positions(s, dev)
     rope = rope_table(positions, inv_freqs)
-    use_flash = layout.seq is None and default_positions and flash.supports(
-        s, cfg.head_dim, cfg.dtype, group=cfg.num_heads // cfg.num_kv_heads)
-    layers = params["layers"]
-    stacked = not isinstance(layers, (list, tuple))
+    fused = layout.seq is not None or (default_positions and flash.supports(
+        s, cfg.head_dim, cfg.dtype, group=cfg.num_heads // cfg.num_kv_heads))
+    layers = [params[name] for name in stacks]
+    stacked = not isinstance(layers[0], (list, tuple))
     layout.check_stacked(stacked)
-    layer_specs = ({k: tuple(v[1:]) for k, v in specs["layers"].items()}
-                   if stacked else specs["layers"][0] if layers else {})
-    layer = _layer_fn(cfg, positions, rope,
-                      use_flash or layout.seq is not None, keep, layout,
-                      layer_specs)
+    if specs is None:  # no mesh: nothing is sharded
+        specs = layer_specs = collections.defaultdict(lambda: None)
+    elif stacked:
+        layer_specs = {k: tuple(v[1:]) for k, v in specs["layers"].items()}
+    else:
+        layer_specs = specs["layers"][0] if layers[0] else {}
+    layer_of = functools.cache(lambda k: _layer_fn(
+        cfg, positions, rope, fused, keep, layout, layer_specs, k))
 
     with spans.region("model.embed") as r:
-        x = r.outputs(_embed_lookup(r.inputs(params["embed"]).to(cfg.dtype),
-                                    tokens, layout, specs["embed"]))
+        x = _embed_lookup(r.inputs(params["embed"]).to(cfg.dtype), tokens,
+                          layout, specs["embed"])
+        if embed_scale != 1.0:
+            x = x * embed_scale
+        x = r.outputs(x)
     if layout.stage:
+        # only the dense model keeps a stage axis (an MoE's strips it)
         shapes = init_params(cfg, "meta", None)["layers"]
         x = pipeline_layers(
-            layer, {k: distribute(w, specs["layers"][k], mesh,
-                                  shapes[k].shape)
-                    for k, w in layers.items()}, x,
-            mesh=mesh, stage_axis=layout.stage,
+            layer_of(kind), {k: distribute(w, specs["layers"][k], layout.mesh,
+                                        shapes[k].shape)
+                          for k, w in layers[0].items()}, x,
+            mesh=layout.mesh, stage_axis=layout.stage,
             num_microbatches=layout.policy.num_microbatches)
     else:
-        if stacked:
-            layers = layer_views(layers, cfg.num_layers)
-        for lp in layers:
-            x = layer(x, lp)
+        views = []
+        for stack in layers:
+            views += (layer_views(stack, tree_leaves(stack)[0].shape[0])
+                      if stacked else stack)
+        for l, lp in enumerate(views):
+            x = layer_of(kind(l) if callable(kind) else kind)(x, lp)
     with spans.region("model.head_loss") as r:
         x, norm = r.inputs((x, params["final_norm"]))
         return r.outputs(rms_norm(x, layout.weight(norm, specs["final_norm"]),

@@ -55,28 +55,19 @@ rank computes the whole step of its batch stripe.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from dstack_tpu_torch.models import llama, train
 from dstack_tpu_torch.models.llama import (LlamaConfig, Layout, Params,
                                            ShardingPolicy, output_head)
-from dstack_tpu_torch.ops import flash_attention as flash
-from dstack_tpu_torch.ops.attention import causal_attention
-from dstack_tpu_torch.ops.loss import (chunked_cross_entropy, chunked_nll_sum,
-                                       f32_logits)
-from dstack_tpu_torch.ops.rmsnorm import rms_norm
-from dstack_tpu_torch.ops.rotary import (qk_prologue, rope_frequencies,
-                                         rope_table)
+from dstack_tpu_torch.ops.loss import f32_logits
 from dstack_tpu_torch.parallel import mesh as mesh_lib
-from dstack_tpu_torch.parallel.collectives import (all_reduce_sum, gather,
-                                                    psum, reduce_scatter,
-                                                    sum_grad)
+from dstack_tpu_torch.parallel.collectives import (gather, psum,
+                                                    reduce_scatter, sum_grad)
 from dstack_tpu_torch.telemetry import spans
 
 
@@ -711,8 +702,27 @@ def _moe_mlp(h: torch.Tensor, lp: Params, cfg: MoEConfig,
     return out.reshape(b, s, d), route.aux
 
 
-_ckpt = functools.partial(checkpoint, use_reentrant=False,
-                          preserve_rng_state=False)
+def routed_mlp(cfg: MoEConfig, layout: Layout, sides: list,
+               stats: bool = False,
+               bias: Optional[torch.Tensor] = None) -> Callable:
+    """A routed layer's ``LayerKind.mlp``: :func:`_moe_mlp` on weights
+    read through the layer's ``weight``, ``bias`` the layer's expert bias.
+    Each call appends its side results to ``sides`` in layer order,
+    ``(aux, counts, dropped)``, the last two None unless ``stats``; remat's
+    recompute appends again, so read ``sides`` right after the forward."""
+    names = ("router", "w_gate", "w_up", "w_down") + ((
+        "shared_gate", "shared_up", "shared_down")
+        if cfg.shared_intermediate_size else ())
+
+    def mlp(h, weight):
+        lp = {name: weight(name) for name in names}
+        lp["expert_bias"] = bias
+        counted = [] if stats else None
+        out, aux = _moe_mlp(h, lp, cfg, layout=layout, stats=counted)
+        sides.append((aux, *(counted[0] if stats else (None, None))))
+        return out
+
+    return mlp
 
 
 def backbone(params: Params, tokens: torch.Tensor, cfg: MoEConfig, *,
@@ -722,7 +732,9 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: MoEConfig, *,
     """Returns (hidden [B, S, D] in ``cfg.dtype``, router aux loss: the
     layers' sum over ``num_layers``).
 
-    Attention is :func:`flash_attention` exactly when ``supports`` holds,
+    The stack is :func:`llama._walk`'s, every layer
+    :func:`llama._layer_fn` with the routed MLP (:func:`routed_mlp`):
+    attention is :func:`flash_attention` exactly when ``supports`` holds,
     else :func:`causal_attention`.  ``remat`` is one of
     :data:`llama.REMAT_MODES` or a tuple of checkpoint names; the MoE
     layer names no tensor for a checkpoint policy to keep, so every mode
@@ -737,68 +749,19 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: MoEConfig, *,
     and the global aux loss.  Attention runs through
     :meth:`Layout.attention` (the fused kernels on this rank's rows and
     heads, over the whole sequence) where ``supports`` holds."""
-    keep = llama.remat_names(remat)
+    keep = None if llama.remat_names(remat) is None else ()
+    layout, specs = Layout(None, ShardingPolicy(), cfg), None
     if mesh is not None:
         layout = _layout(mesh, policy, cfg, expert_axis)
         specs = specs_for(params, cfg, layout.policy, expert_axis)
         params = llama.map_with_specs(
             lambda sp, p: llama._local(p, sp, mesh), specs, params)
-    else:
-        layout = Layout(None, ShardingPolicy(), cfg)
-        specs = specs_for(params, cfg, ShardingPolicy(), expert_axis)
-    b, s = tokens.shape
-    dev = tokens.device
-    inv_freqs = torch.from_numpy(rope_frequencies(
-        cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(dev)
-    positions = torch.arange(s, device=dev)[None, :]
-    rope = rope_table(positions, inv_freqs)
-    use_flash = flash.supports(
-        s, cfg.head_dim, cfg.dtype, group=cfg.num_heads // cfg.num_kv_heads)
-    layers = params["layers"]
-    stacked = not isinstance(layers, (list, tuple))
-    lspecs = ({k: tuple(v[1:]) for k, v in specs["layers"].items()}
-              if stacked else specs["layers"][0])
-
-    def layer(x, lp):
-        def w(name):
-            return layout.weight(ws[name], lspecs[name])
-
-        with spans.region("model.attention") as r:
-            x, ws = r.inputs((x, lp))
-            h = layout.enter(rms_norm(x, w("attn_norm"), cfg.rms_eps))
-            q, k, v = ((h @ w(name)).reshape(b, s, -1, cfg.head_dim)
-                       for name in ("wq", "wk", "wv"))
-            q, k = qk_prologue(q, k, rope=rope, eps=cfg.rms_eps)
-            if use_flash:
-                attn = layout.attention(q, k, v)
-            else:
-                attn = causal_attention(q, k, v, q_positions=positions,
-                                        kv_positions=positions)
-            x = r.outputs(x + layout.leave(attn.reshape(b, s, -1) @ w("wo")))
-        with spans.region("model.mlp") as r:
-            x, ws = r.inputs((x, lp))
-            h = rms_norm(x, w("mlp_norm"), cfg.rms_eps)
-            experts = {name: w(name)
-                       for name in ("router", "w_gate", "w_up", "w_down")}
-            moe_out, layer_aux = _moe_mlp(h, experts, cfg, layout=layout)
-            return r.outputs((x + moe_out, layer_aux))
-
-    layer_fn = layer if keep is None else (
-        lambda x, lp: _ckpt(layer, x, lp))
-    with spans.region("model.embed") as r:
-        x = r.outputs(llama._embed_lookup(
-            r.inputs(params["embed"]).to(cfg.dtype), tokens, layout,
-            specs["embed"]))
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
-    if stacked:
-        layers = llama.layer_views(layers, cfg.num_layers)
-    for lp in layers:
-        x, layer_aux = layer_fn(x, lp)
+    sides: list = []
+    x = llama._walk(params, tokens, cfg, layout, specs,
+                    llama.LayerKind(mlp=routed_mlp(cfg, layout, sides)), keep)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for layer_aux, _, _ in sides:
         aux = aux + layer_aux
-    with spans.region("model.head_loss") as r:
-        x, norm = r.inputs((x, params["final_norm"]))
-        x = r.outputs(rms_norm(x, layout.weight(norm, specs["final_norm"]),
-                               cfg.rms_eps))
     return x, aux / cfg.num_layers
 
 
@@ -828,35 +791,17 @@ def make_train_step(cfg: MoEConfig, optimizer: train.AdamW, mesh: Any = None,
     loss the global routing's, and the gradients and their norm the
     global ones."""
     llama.remat_names(remat)  # reject a bad mode before the first step
+    layout = None
     if mesh is not None:
         policy = token_policy(policy or ShardingPolicy())
-        _layout(mesh, policy, cfg, expert_axis)
+        layout = _layout(mesh, policy, cfg, expert_axis)
 
     def loss_fn(params, batch):
-        tokens = batch["tokens"]
-        x, aux = backbone(params, tokens[:, :-1], cfg, mesh=mesh,
+        x, aux = backbone(params, batch["tokens"][:, :-1], cfg, mesh=mesh,
                           policy=policy, expert_axis=expert_axis, remat=remat)
-        with spans.region("model.head_loss") as r:
-            x, aux, outer = r.inputs((x, aux, {
-                k: v for k, v in params.items() if k != "layers"}))
-            head = output_head(outer, cfg, mesh, policy)
-            if mesh is None:
-                ce = chunked_cross_entropy(x, head, tokens[:, 1:],
-                                           batch.get("mask"))
-                return (r.outputs(ce + cfg.router_aux_weight * aux),
-                        {"loss": ce.detach(), "aux_loss": aux.detach()})
-            # this rank's share of the global mean (see
-            # train.make_train_step); the aux loss is whole on every rank,
-            # and its sums over the batch pass each rank's gradient on, so
-            # the shares still add up
-            total, count = chunked_nll_sum(x, head, tokens[:, 1:],
-                                           batch.get("mask"))
-            count = all_reduce_sum(count, mesh,
-                                   policy.batch_axes).clamp_min(1.0)
-            return r.outputs(total / count + cfg.router_aux_weight * aux), {
-                "loss": all_reduce_sum(total, mesh, policy.batch_axes)
-                / count,
-                "aux_loss": aux.detach()}
+        loss, ce = train._head_loss(params, x, batch, cfg, layout, aux=aux,
+                                    aux_weight=cfg.router_aux_weight)
+        return loss, {"loss": ce, "aux_loss": aux.detach()}
 
     return train._step_from_loss(loss_fn, optimizer, sharded=mesh is not None)
 

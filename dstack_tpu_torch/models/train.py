@@ -327,31 +327,14 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
     if compile_cache is None:
         compile_cache = CompileCache.from_env()
     llama.remat_names(remat)  # reject a bad mode before the first step
-    if mesh is not None:
-        policy = policy or ShardingPolicy()
-        layout = llama.Layout(mesh, policy, cfg)
+    policy = policy or ShardingPolicy()
+    layout = llama.Layout(mesh, policy, cfg)
 
     def loss_fn(params, batch):
-        tokens = batch["tokens"]
-        x = llama.backbone(params, tokens[:, :-1], cfg, mesh=mesh,
+        x = llama.backbone(params, batch["tokens"][:, :-1], cfg, mesh=mesh,
                            policy=policy, remat=remat)
-        with spans.region("model.head_loss") as r:
-            x, outer = r.inputs((x, {k: v for k, v in params.items()
-                                     if k != "layers"}))
-            head = llama.output_head(outer, cfg, mesh, policy)
-            if mesh is None:
-                loss = chunked_cross_entropy(x, head, tokens[:, 1:],
-                                             batch.get("mask"))
-                return r.outputs(loss), {"loss": loss.detach()}
-            # this rank's share of the global mean: its tokens' sum over
-            # the global count; the weights' collectives sum the gradients
-            total, count = chunked_nll_sum(x, head, tokens[:, 1:],
-                                           batch.get("mask"))
-            count = all_reduce_sum(count, mesh,
-                                   layout.token_axes).clamp_min(1.0)
-            return r.outputs(total / count), {
-                "loss": all_reduce_sum(total, mesh, layout.token_axes)
-                / count}
+        loss, ce = _head_loss(params, x, batch, cfg, layout)
+        return loss, {"loss": ce}
 
     step = maybe_cached(
         _step_from_loss(loss_fn, optimizer, sharded=mesh is not None),
@@ -364,6 +347,43 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
     # (and of the layers, 1/stage)
     return telemetry.wrap(step, cfg, n_devices=1 if mesh is None else
                           layout.tsize * layout.stage_count)
+
+
+#: the leaves outside the layer stacks: what the head and loss read
+_OUTER = ("embed", "final_norm", "lm_head")
+
+
+def _head_loss(params: Params, x: torch.Tensor, batch: dict,
+               cfg: LlamaConfig, layout: Optional[llama.Layout] = None, *,
+               aux: Optional[torch.Tensor] = None,
+               aux_weight: float = 0.0) -> tuple:
+    """Every step's ``(loss, ce)`` in ``model.head_loss``: the value to
+    differentiate and the cross entropy to report, of the backbone's
+    ``x`` at ``batch``'s targets through the head of ``params``.  Under a
+    mesh the loss is this rank's share of the global mean (its tokens'
+    sum over every rank's count, summed over ``layout.token_axes``);
+    ``aux_weight * aux`` is added to it."""
+    mesh = None if layout is None else layout.mesh
+    targets, mask = batch["tokens"][:, 1:], batch.get("mask")
+    with spans.region("model.head_loss") as r:
+        x, aux, outer = r.inputs((x, aux, {
+            k: params[k] for k in _OUTER if k in params}))
+        head = llama.output_head(outer, cfg, mesh,
+                                 None if mesh is None else layout.policy)
+        if mesh is None:
+            loss = chunked_cross_entropy(x, head, targets, mask)
+            ce = loss.detach()
+        else:
+            total, count = chunked_nll_sum(x, head, targets, mask)
+            count = all_reduce_sum(count, mesh,
+                                   layout.token_axes).clamp_min(1.0)
+            loss = total / count
+        if aux is not None:
+            loss = loss + aux_weight * aux
+        loss = r.outputs(loss)
+        if mesh is not None:
+            ce = all_reduce_sum(total, mesh, layout.token_axes) / count
+        return loss, ce
 
 
 def _step_from_loss(loss_fn: Callable[..., tuple],

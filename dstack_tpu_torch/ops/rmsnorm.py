@@ -30,16 +30,3 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
 
 rms_norm.launches = 0
 rms_norm.bwd_launches = 0
-
-
-def rms_norm_fwd_plain(x: torch.Tensor, weight: torch.Tensor,
-                       eps: float = 1e-5) -> tuple:
-    """Plain version of the kernel's forward: ``(y, rstd)``, rstd the f32
-    1 / rms a row it saves for the backward."""
-    return rownorm.rows_fwd_plain(x, weight, None, eps)
-
-
-def rms_norm_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
-                       rstd: torch.Tensor, dy: torch.Tensor) -> tuple:
-    """Plain version of the kernel's backward: ``(dx, dweight)``."""
-    return rownorm.rows_bwd_plain(x, weight, None, rstd, dy)

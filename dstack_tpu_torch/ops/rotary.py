@@ -119,20 +119,3 @@ qk_prologue.launches = 0
 qk_prologue.bwd_launches = 0
 qk_prologue.rope_launches = 0
 qk_prologue.rope_bwd_launches = 0
-
-
-def qk_prologue_fwd_plain(x: torch.Tensor, w: Optional[torch.Tensor],
-                          rope: Optional[torch.Tensor],
-                          eps: float = 1e-5) -> tuple:
-    """Plain version of the kernel's forward on one of q and k: ``(y,
-    rstd)`` (rstd None without a norm)."""
-    return rownorm.rows_fwd_plain(x, w, rope, eps)
-
-
-def qk_prologue_bwd_plain(x: torch.Tensor, w: Optional[torch.Tensor],
-                          rope: Optional[torch.Tensor],
-                          rstd: Optional[torch.Tensor],
-                          dy: torch.Tensor) -> tuple:
-    """Plain version of the kernel's backward on one of q and k: ``(dx,
-    dw)`` (dw None without a norm)."""
-    return rownorm.rows_bwd_plain(x, w, rope, rstd, dy)

@@ -16,13 +16,17 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils.checkpoint import checkpoint
 
 import chip_smoke
 from dstack_tpu.models import moe as j_moe
 from dstack_tpu.models import train as j_train
 from dstack_tpu_torch.models import llama, moe, train
 from dstack_tpu_torch.ops import flash_attention as fa
+from dstack_tpu_torch.ops import rotary
+from dstack_tpu_torch.ops.attention import causal_attention
 from dstack_tpu_torch.ops.loss import chunked_cross_entropy
+from dstack_tpu_torch.ops.rmsnorm import rms_norm
 from dstack_tpu_torch.parallel import mesh as mesh_lib
 from dstack_tpu_torch.serving import engine as t_engine
 from dstack_tpu_torch.serving.quant import quantize_params, quantize_weight
@@ -311,6 +315,85 @@ def test_remat_recomputes_the_whole_layer(remat, monkeypatch):
     assert got_loss.item() == pytest.approx(want_loss.item(), rel=1e-6)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-6, rtol=0)
+
+
+def _hand_layer_backbone(params, tokens, cfg, *, remat):
+    """Mixtral's backbone as it stood with a layer of its own, before its
+    layers became ``llama._layer_fn`` ones, off a mesh: there its layout's
+    ``weight``, ``enter`` and ``leave`` are the identity and its
+    ``attention`` is ``flash_attention``, and no profiler runs, so no span
+    is opened.  Every mode but "none" recomputes the whole layer."""
+    keep = llama.remat_names(remat)
+    b, s = tokens.shape
+    inv_freqs = torch.from_numpy(rotary.rope_frequencies(
+        cfg.head_dim, cfg.rope_theta, cfg.rope_scaling))
+    positions = torch.arange(s)[None, :]
+    rope = rotary.rope_table(positions, inv_freqs)
+    use_flash = fa.supports(s, cfg.head_dim, cfg.dtype,
+                            group=cfg.num_heads // cfg.num_kv_heads)
+    layers = params["layers"]
+
+    def layer(x, lp):
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps)
+        q, k, v = ((h @ lp[name]).reshape(b, s, -1, cfg.head_dim)
+                   for name in ("wq", "wk", "wv"))
+        q, k = rotary.qk_prologue(q, k, rope=rope, eps=cfg.rms_eps)
+        if use_flash:
+            attn = fa.flash_attention(q, k, v)
+        else:
+            attn = causal_attention(q, k, v, q_positions=positions,
+                                    kv_positions=positions)
+        x = x + attn.reshape(b, s, -1) @ lp["wo"]
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
+        experts = {name: lp[name]
+                   for name in ("router", "w_gate", "w_up", "w_down")}
+        moe_out, layer_aux = moe._moe_mlp(h, experts, cfg)
+        return x + moe_out, layer_aux
+
+    layer_fn = layer if keep is None else (
+        lambda x, lp: checkpoint(layer, x, lp, use_reentrant=False,
+                                 preserve_rng_state=False))
+    x = llama._embed_lookup(params["embed"].to(cfg.dtype), tokens,
+                            llama.Layout(None, llama.ShardingPolicy(), cfg),
+                            None)
+    aux = torch.zeros((), dtype=torch.float32)
+    if not isinstance(layers, (list, tuple)):
+        layers = llama.layer_views(layers, cfg.num_layers)
+    for lp in layers:
+        x, layer_aux = layer_fn(x, lp)
+        aux = aux + layer_aux
+    return rms_norm(x, params["final_norm"], cfg.rms_eps), aux / cfg.num_layers
+
+
+@pytest.mark.parametrize("stacked", [True, False],
+                         ids=["stacked", "unstacked"])
+@pytest.mark.parametrize("remat", [False, True])
+def test_backbone_is_the_hand_layer_bit_for_bit(remat, stacked):
+    """Mixtral's backbone through ``llama._layer_fn`` with the routed MLP
+    is the hand-written layer it replaced, bit for bit in float32: the
+    hidden states, the aux loss and every parameter's gradient of a loss
+    that reads both."""
+    params = _tiny_params()
+    if not stacked:
+        params = llama.unstack_params(params)
+    leaves = llama.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(rng.integers(0, TINY.vocab_size, (2, 128)))
+    dy = torch.from_numpy(rng.standard_normal(
+        (2, 128, TINY.hidden_size)).astype(np.float32))
+    runs = []
+    for backbone in (moe.backbone, _hand_layer_backbone):
+        x, aux = backbone(params, tokens, TINY, remat=remat)
+        value = (x * dy).sum() + TINY.router_aux_weight * aux
+        runs.append((x, aux, torch.autograd.grad(value, leaves)))
+    (x, aux, grads), (want_x, want_aux, want_grads) = runs
+    assert aux.item() > 0
+    assert torch.equal(x, want_x) and torch.equal(aux, want_aux)
+    assert len(grads) == len(want_grads) == len(leaves)
+    for g, w in zip(grads, want_grads):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("clip", [1e-3, 1e3], ids=["clipped", "unclipped"])

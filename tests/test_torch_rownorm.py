@@ -1,7 +1,7 @@
 """The row kernel's plain versions and its Python side, on the CPU (no JAX).
 
-``rownorm.rows_fwd_plain`` / ``rows_bwd_plain`` (and their names in
-``rmsnorm`` and ``rotary``) are the arithmetic ``csrc/rownorm.cu`` does;
+``rownorm.rows_fwd_plain`` / ``rows_bwd_plain`` are the arithmetic
+``csrc/rownorm.cu`` does;
 ``chip_smoke.py`` holds the kernel to them on the card.  Here they are held
 to autograd of the eager chain the layers ran before (``rms_norm`` then
 ``apply_rope``), the cos/sin table to ``apply_rope``'s own angles, the CPU
@@ -80,11 +80,11 @@ def test_plain_versions_match_autograd_of_the_eager_chain(mode, shape, dtype):
     xr = x.clone().requires_grad_(True)
     wr = None if w is None else w.clone().requires_grad_(True)
     want = _chain(xr, wr, positions, inv)
-    got, rstd = rotary.qk_prologue_fwd_plain(x, w, table, EPS)
+    got, rstd = rownorm.rows_fwd_plain(x, w, table, EPS)
     assert torch.equal(got, want.detach())
     dy = _rand(shape, dtype, 7)
     want.backward(dy)
-    dx, dw = rotary.qk_prologue_bwd_plain(x, w, table, rstd, dy)
+    dx, dw = rownorm.rows_bwd_plain(x, w, table, rstd, dy)
     limit = 1.0 if dtype == torch.bfloat16 else 1e-3
     assert dx.dtype == x.dtype and _ulps(dx, xr.grad) <= limit
     if w is None:
@@ -95,13 +95,17 @@ def test_plain_versions_match_autograd_of_the_eager_chain(mode, shape, dtype):
 
 def test_rms_norm_plain_names_are_the_row_arithmetic():
     x, w, _, _ = _inputs((3, 5, 1, 2048), torch.bfloat16, "norm")
-    y, rstd = rmsnorm.rms_norm_fwd_plain(x, w, EPS)
+    """``rms_norm`` is the row arithmetic without a rotation: its CPU
+    path equals the plain forward, whose rstd the plain backward takes,
+    and the backward equals autograd of that path (ulps as above)."""
+    y, rstd = rownorm.rows_fwd_plain(x, w, None, EPS)
     assert torch.equal(y, rmsnorm.rms_norm(x, w, EPS))
     assert rstd.shape == x.shape[:-1] and rstd.dtype == torch.float32
     dy = _rand(x.shape, x.dtype, 3)
-    dx, dw = rmsnorm.rms_norm_bwd_plain(x, w, rstd, dy)
-    ref = rownorm.rows_bwd_plain(x, w, None, rstd, dy)
-    assert torch.equal(dx, ref[0]) and torch.equal(dw, ref[1])
+    dx, dw = rownorm.rows_bwd_plain(x, w, None, rstd, dy)
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    rmsnorm.rms_norm(xr, wr, EPS).backward(dy)
+    assert _ulps(dx, xr.grad) <= 1.0 and _ulps(dw, wr.grad) <= 1.0
 
 
 def test_neither_norm_nor_rope_hands_back_q_and_k():
