@@ -45,6 +45,16 @@ Phases (any failure stops the run with a non-zero exit and no result):
              s2048, as phases 6 and 11 launch it, and [8192, 4096]
              norms), each timed beside its bytes bound, its plain
              versions and the eager autograd chain it replaced.  Then the
+             AdamW kernel (the global-norm clip folded in) held to the
+             plain three passes at the three training cells' leaf sets
+             (ADAMW_CELLS, stacked as the cells hold them) and at
+             ADAMW_EDGES over three steps, the norm above the clip,
+             below it, above: given the plain path's norm, p, m and v
+             bit for bit (ADAMW_ULPS); its own norm within
+             ADAMW_NORM_RTOL, and the elements that then differ
+             reported; each cell's set timed (both passes, and each
+             alone) beside its bytes bound (16 B a bf16 parameter) and
+             the plain path.  Then the
              loss's f32 logits from bf16 inputs against an f32 matmul.
 3. server  — serves Llama-3-8B (full width and depth, random weights from a
              seed) with `python -m dstack_tpu_torch.serving.server --paged`
@@ -70,8 +80,10 @@ Phases (any failure stops the run with a non-zero exit and no result):
              finite and falls, the flash kernels launch exactly layers x
              steps (forward x2 under remat), the row kernel exactly
              (want_row_launches: 2 norms a layer and the final one, q and
-             k's rotation once a layer, forward x2), and tokens/s, MFU
-             and peak memory are printed.
+             k's rotation once a layer, forward x2), the AdamW kernel
+             exactly (want_adamw_launches: a norm launch and a step
+             launch a leaf dtype, each per 64 leaves of the unstacked
+             state), and tokens/s, MFU and peak memory are printed.
 7. train-plain — one 1B step through the kernels and the same step with
              flash_attention swapped for its plain versions: loss and
              grad norm must agree.
@@ -133,8 +145,8 @@ Phases (any failure stops the run with a non-zero exit and no result):
              as the engine routed where the two differ (each such flip on
              a router near-tie: MOE_TIE_EPS), within 0.1 std.
              Then training at Mixtral width, 2 layers, b4 s2048, remat:
-             6 steps (loss falls, aux loss finite, flash and row-kernel
-             launches exact)
+             6 steps (loss falls, aux loss finite, flash, row-kernel
+             and AdamW launches exact)
              and one step through the kernels against one through
              flash_attention_plain (TRAIN_PLAIN_RTOL).  Prints TTFT,
              decode rate and step, train step and tokens/s (no MFU: the
@@ -317,7 +329,8 @@ Phases (any failure stops the run with a non-zero exit and no result):
              mean, and a step launches the windowed kernels exactly
              (2 x 6, 6) times and the causal ones (2 x 2, 2), the row
              kernel's norms (65, 33) and q/k prologue (16, 8) times,
-             of which the sliding layers' (12, 6) rotate; the windowed
+             of which the sliding layers' (12, 6) rotate, and AdamW's
+             one norm launch and one step launch a leaf dtype; the windowed
              launches are the windowed rows' counts in the kernels'
              record, and the prologue's, by whether they rotated, the
              q/k rows'.  Prints the step, tokens/s, dropped tokens
@@ -1448,6 +1461,270 @@ def counted_row_launches(before: dict) -> dict:
     return {n: v - before[n] for n, v in row_launches().items()}
 
 
+def adamw_launches() -> dict:
+    """The AdamW kernel's launch counters, by name."""
+    from dstack_tpu_torch.ops import adamw
+
+    return {"norm": adamw.norm_launches, "step": adamw.step_launches}
+
+
+def want_adamw_launches(leaves, steps: int) -> dict:
+    """``steps`` train steps' AdamW launches over the state's ``leaves``:
+    one norm launch, and one step launch a leaf dtype present, for every
+    ``adamw.MAX_LEAVES`` leaves (an unstacked state's hundreds take
+    more)."""
+    from collections import Counter
+
+    from dstack_tpu_torch.ops import adamw
+
+    def chunks(n: int) -> int:
+        return -(-n // adamw.MAX_LEAVES)
+
+    dtypes = Counter(p.dtype for p in leaves)
+    return {"norm": steps * chunks(len(leaves)),
+            "step": steps * sum(map(chunks, dtypes.values()))}
+
+
+def counted_adamw_launches(before: dict) -> dict:
+    return {n: v - before[n] for n, v in adamw_launches().items()}
+
+
+#: the training cells whose leaf sets (stacked, as the cells hold them) the
+#: AdamW kernel is held and timed at
+ADAMW_CELLS = ("mixtral-train-s4096", "mistral7b-train-s4096",
+               "trinity-train-s8192")
+#: further leaf sets it is held at, for correctness only: (shape, dtype,
+#: offset in elements) a leaf: lengths off the 16-byte vectors, bf16 and
+#: f32 leaves mixed, leaves that are not 16-byte aligned (the scalar
+#: path), and more leaves than one launch takes
+ADAMW_EDGES = {
+    "odd lengths": [((37, 5), "bf16", 0), ((3,), "f32", 0),
+                    ((13, 8, 3), "bf16", 0), ((4099,), "bf16", 0)],
+    "unaligned": [((1000,), "bf16", 1), ((999,), "f32", 3),
+                  ((64, 64), "bf16", 0)],
+    "130 leaves": [((1 + i * 37 % 200,), "f32" if i % 3 == 0 else "bf16", 0)
+                   for i in range(130)]}
+#: each checked step's gradients: N(0, 1) scaled to about this global
+#: norm, above the clip of 1 at steps 1 and 3, below it at step 2
+ADAMW_GRAD_NORMS = (30.0, 1e-3, 30.0)
+#: the most the kernel's p, m and v may differ from the plain path's, in
+#: ulps of the leaf's dtype, when its step pass is given the plain path's
+#: norm: none, the arithmetic is the same operation for operation (bit for
+#: bit on an H100 at the three cells' ~8e9 parameters, two steps each)
+ADAMW_ULPS = 0
+#: the most the kernel's norm may differ from the plain path's, relative:
+#: both are f32 sums of up to ~4e9 squares in their own orders (the
+#: kernel's threads each add ~14,000 in a row, ~sqrt(14,000) * 2^-24 =
+#: 7e-6 relative), ~10x that.  Where the two norms differ, an f32 leaf's
+#: clipped gradient differs in its last bits, and so may a bf16 one's
+#: where the coefficient's rounding to bf16 sits on a tie: the kernel's
+#: own steps are reported against the plain path's, not held
+ADAMW_NORM_RTOL = 1e-4
+
+
+def adamw_leaf_sets(torch, device: str) -> dict:
+    """name -> a maker of the leaves: each of ADAMW_CELLS' program
+    parameters (seed 0), then ADAMW_EDGES' (seed 3)."""
+    from dstack_tpu_torch.models import llama
+    from portbench import spec
+
+    def cell(name):
+        c = spec.find(name)
+        return lambda: llama.tree_leaves(
+            c.family.program_params(c.model_config(), 0, device))
+
+    def edge(leaves):
+        def make():
+            gen = torch.Generator(device=device).manual_seed(3)
+            types = {"bf16": torch.bfloat16, "f32": torch.float32}
+            return [torch.randn(math.prod(shape) + offset, generator=gen,
+                                device=device).mul_(0.02).to(types[dt])
+                    [offset:].view(shape) for shape, dt, offset in leaves]
+        return make
+
+    return {**{name: cell(name) for name in ADAMW_CELLS},
+            **{name: edge(leaves) for name, leaves in ADAMW_EDGES.items()}}
+
+
+def adamw_diff(torch, got, want) -> tuple:
+    """(elements that differ, the largest difference in ulps of their
+    dtype) of two tensors of one dtype, bf16 or f32 (ordered bit patterns,
+    in slices to keep the int64 copies small)."""
+    itype, mag = {torch.bfloat16: (torch.int16, 0x7FFF),
+                  torch.float32: (torch.int32, 0x7FFFFFFF)}[got.dtype]
+    a, b = got.reshape(-1).view(itype), want.reshape(-1).view(itype)
+    differ, worst, piece = 0, 0, 1 << 25
+    for i in range(0, a.numel(), piece):
+        x, y = a[i:i + piece].long(), b[i:i + piece].long()
+        x = torch.where(x < 0, -(x & mag), x)
+        y = torch.where(y < 0, -(y & mag), y)
+        d = (x - y).abs()
+        differ += int((d != 0).sum())
+        worst = max(worst, int(d.max()))
+    return differ, worst
+
+
+def adamw_diffs(torch, name: str, ours, theirs, ours_opt,
+                theirs_opt) -> dict:
+    """{leaf dtype: (share of the p, m and v elements that differ, the
+    largest difference in ulps)} of two states; their step counts must be
+    equal."""
+    acc = {}
+    for p, q in zip(ours, theirs):
+        a, b = ours_opt.state[p], theirs_opt.state[q]
+        if a["step"].item() != b["step"].item():
+            fail(f"adamw [{name}]: step {a['step'].item()} against the "
+                 f"plain path's {b['step'].item()}")
+        n, d, w = acc.get(str(p.dtype), (0, 0, 0))
+        for x, y in ((p, q), (a["exp_avg"], b["exp_avg"]),
+                     (a["exp_avg_sq"], b["exp_avg_sq"])):
+            dx, wx = adamw_diff(torch, x, y)
+            n, d, w = n + x.numel(), d + dx, max(w, wx)
+        acc[str(p.dtype)] = (n, d, w)
+    return {k: (d / n, w) for k, (n, d, w) in acc.items()}
+
+
+def adamw_steps(torch, name, make, device: str, update) -> tuple:
+    """Both sides from ``make()``'s leaves and fresh states, stepped
+    len(ADAMW_GRAD_NORMS) times with random gradients: ours by ``update``,
+    or (``update`` None) by the kernel's norm pass and its step pass given
+    the plain path's norm; theirs by the plain path.  Returns (ours,
+    theirs, both optimizers, the last gradients, each step's norms (ours,
+    the plain path's), the diffs after step 1 and after the last)."""
+    from dstack_tpu_torch.models import train
+    from dstack_tpu_torch.ops import adamw
+
+    opt = train.default_optimizer()
+    ours = make()
+    theirs = [p.clone() for p in ours]
+    ours_opt, theirs_opt = opt.init(ours), opt.init(theirs)
+    hyper = adamw._hyper(ours_opt, opt.grad_clip)
+    scale = sum(p.numel() for p in ours) ** -0.5
+    gen = torch.Generator(device=device).manual_seed(11)
+    norms, diffs = [], {}
+    for i, target in enumerate(ADAMW_GRAD_NORMS):
+        grads = [torch.empty_like(p).normal_(generator=gen).mul_(
+            target * scale) for p in ours]
+        copies = [g.clone() for g in grads]
+        want = adamw.update_plain(theirs, copies, theirs_opt, opt.grad_clip)
+        del copies
+        if update is not None:
+            got = update(ours, grads, ours_opt, opt.grad_clip)
+        else:
+            states = [adamw.state_of(ours_opt, p) for p in ours]
+            table = adamw._table(ours, grads, states, [True] * len(ours))
+            got = adamw._norm_pass(table, ours[0].device).sqrt()
+            # sqrt(fl(x * x)) is x in binary floating point: the step
+            # pass clips by the plain path's norm exactly
+            echoed = adamw._step_pass(table, want * want, hyper)
+            if echoed.item() != want.item():
+                fail(f"adamw [{name}]: the step pass read the norm "
+                     f"{echoed.item()} for {want.item()}")
+        norms.append((got.item(), want.item()))
+        if i in (0, len(ADAMW_GRAD_NORMS) - 1):
+            diffs[f"step{i + 1}"] = adamw_diffs(torch, name, ours, theirs,
+                                                ours_opt, theirs_opt)
+    return ours, theirs, ours_opt, theirs_opt, grads, norms, diffs
+
+
+def check_adamw_kernels(torch, sets=None, device: str = "cuda",
+                        update=None, iters: int = 10) -> dict:
+    """Hold the AdamW kernel to the plain three passes at each leaf set of
+    ``sets`` (default adamw_leaf_sets(): the training cells', stacked as
+    they hold them, then ADAMW_EDGES), both sides from the same
+    parameters and fresh states, len(ADAMW_GRAD_NORMS) steps of random
+    gradients (the norm above the clip, below it, above; adamw_steps).
+    First the kernel's step pass given the plain path's norm: p, m and v
+    after step 1 and after the last within ADAMW_ULPS, and the kernel's
+    norm within ADAMW_NORM_RTOL of the plain path's.  Then the kernel's
+    whole step (its own norm): the share of elements that differ and the
+    largest difference, by leaf dtype, reported.  Then times each of
+    ADAMW_CELLS' whole step, its norm pass and its step pass, beside their
+    bytes bounds (16 B a bf16 parameter, 32 an f32 one; 2 and 4 of them
+    the norm's), and the plain path.  ``update``: the whole step held to
+    the plain path (default the kernel's; a CPU rehearsal passes
+    ``adamw.update_plain``, skips the step pass alone and times
+    nothing)."""
+    from dstack_tpu_torch.models import train
+    from dstack_tpu_torch.ops import adamw
+
+    on_card = device == "cuda"
+    clip = train.default_optimizer().grad_clip
+    out = {}
+    for name, make in (sets or adamw_leaf_sets(torch, device)).items():
+        before = adamw_launches()
+        checked = {}
+        if on_card:
+            checked["same_norm"] = adamw_steps(torch, name, make, device,
+                                               None)[-2:]
+            torch.cuda.empty_cache()
+        ours, theirs, ours_opt, theirs_opt, grads, norms, diffs = \
+            adamw_steps(torch, name, make, device,
+                        update or adamw._kernel_update)
+        checked["kernel"] = (norms, diffs)
+        launches = counted_adamw_launches(before)
+        numel = {dt: sum(p.numel() for p in ours if p.dtype == dt)
+                 for dt in (torch.bfloat16, torch.float32)}
+        norm_bytes = sum(n * dt.itemsize for dt, n in numel.items())
+        times = {}
+        if on_card and name in ADAMW_CELLS:
+            times["update"] = time_ms(torch, lambda: adamw._kernel_update(
+                ours, grads, ours_opt, clip), iters)
+            states = [ours_opt.state[p] for p in ours]
+            table = adamw._table(ours, grads, states, [True] * len(ours))
+            hyper = adamw._hyper(ours_opt, clip)
+            sumsq = adamw._norm_pass(table, ours[0].device)
+            times["norm"] = time_ms(torch, lambda: adamw._norm_pass(
+                table, ours[0].device), iters)
+            times["step"] = time_ms(torch, lambda: adamw._step_pass(
+                table, sumsq, hyper), iters)
+            plain_grads = [g.clone() for g in grads]
+            times["plain"] = time_ms(torch, lambda: adamw.update_plain(
+                theirs, plain_grads, theirs_opt, clip), 3)
+            del table, sumsq, plain_grads
+        bound = {part: k * norm_bytes / PEAK_BYTES_PER_S * 1e3
+                 for part, k in (("update", 8), ("norm", 1), ("step", 7))}
+        rel = {way: [abs(a - b) / b for a, b in norms]
+               for way, (norms, _) in checked.items()}
+        row = {"name": f"adamw[{name}]", "route": "cuda",
+               "source": "dstack_tpu_torch/ops/csrc/adamw.cu",
+               "replaces": "(none: the JAX package leaves optax's clip and "
+                           "adamw to XLA)",
+               "shapes": f"{len(ours)} leaves, "
+                         f"{numel[torch.bfloat16]} bf16 + "
+                         f"{numel[torch.float32]} f32 parameters",
+               "launches": launches["norm"] + launches["step"],
+               "launches_by_pass": launches, "norm_rel_err": rel,
+               "diffs": {way: d for way, (_, d) in checked.items()},
+               "ms": times.get("update"), "bound_ms": bound["update"],
+               "bound_by": "bytes", "bytes": 8 * norm_bytes,
+               "norm_ms": times.get("norm"), "norm_bound_ms": bound["norm"],
+               "step_ms": times.get("step"), "step_bound_ms": bound["step"],
+               "plain_ms": times.get("plain")}
+        log(f"kernel adamw [{name}]: " + json.dumps(row))
+        if times:
+            out[row["name"]] = row
+            log(f"kernel adamw [{name}] {row['shapes']}: " + ", ".join(
+                f"{part} {times[part] * 1e3:.1f} us (bound "
+                f"{bound[part] * 1e3:.1f} us, "
+                f"{bound[part] / times[part]:.3f} of it)"
+                for part in ("update", "norm", "step"))
+                + f"; plain {times['plain'] * 1e3:.1f} us")
+        bad = [f"norm {e:.3g}" for e in rel["kernel"]
+               if not e <= ADAMW_NORM_RTOL]
+        for step, by_dtype in checked.get("same_norm", (0, {}))[1].items():
+            bad += [f"{step} {dtype}: {ulps} ulps"
+                    for dtype, (_, ulps) in by_dtype.items()
+                    if not ulps <= ADAMW_ULPS]
+        del ours, theirs, ours_opt, theirs_opt, grads
+        if on_card:
+            torch.cuda.empty_cache()
+        if bad:
+            fail(f"adamw [{name}] disagrees with the plain path: {bad} "
+                 f"(limits {ADAMW_NORM_RTOL} relative, {ADAMW_ULPS} ulps)")
+    return out
+
+
 #: Trinity-Mini's training cut as the benchmark's cell runs it: the first
 #: 8 layers (both dense ones, then two periods of three windowed and one
 #: full), 16 of the router's 128 experts held, an eighth of the vocabulary;
@@ -1466,6 +1743,7 @@ def afmoe_phase(torch, cfg=None, device: str = "cuda", batch: int = AFMOE_BATCH,
     backward and twice forward (selective remat recomputes the layer) and
     the causal ones so on the full layers."""
     from dstack_tpu_torch.models import afmoe, train
+    from dstack_tpu_torch.models.llama import tree_leaves
     from dstack_tpu_torch.ops import flash_attention as fa
 
     cfg = cfg or afmoe.AfmoeConfig.trinity_mini(**AFMOE_CUT)
@@ -1484,7 +1762,7 @@ def afmoe_phase(torch, cfg=None, device: str = "cuda", batch: int = AFMOE_BATCH,
                 "window_bwd_launches")
     for name in counters:
         setattr(fa.flash_attention, name, 0)
-    rows_before = row_launches()
+    rows_before, adamw_before = row_launches(), adamw_launches()
     losses, norms, dropped, times = [], [], [], []
     for _ in range(steps):
         t = time.time()
@@ -1511,6 +1789,11 @@ def afmoe_phase(torch, cfg=None, device: str = "cuda", batch: int = AFMOE_BATCH,
     if device == "cuda" and rows != want_rows:
         fail(f"train trinity-mini: row-kernel launches {rows}, expected "
              f"{want_rows}")
+    adam = counted_adamw_launches(adamw_before)
+    want_adam = want_adamw_launches(tree_leaves(state.params), steps)
+    if device == "cuda" and adam != want_adam:
+        fail(f"train trinity-mini: AdamW launches {adam}, expected "
+             f"{want_adam}")
     if not all(map(math.isfinite, losses + norms)):
         fail(f"train trinity-mini: non-finite loss or grad norm: {losses} "
              f"{norms}")
@@ -1529,7 +1812,8 @@ def afmoe_phase(torch, cfg=None, device: str = "cuda", batch: int = AFMOE_BATCH,
            "step_median_s": step_s, "tokens_per_s": batch * seq / step_s,
            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
                                        if device == "cuda" else None),
-           "sliding_layers": sliding, "row_launches": rows, **launches}
+           "sliding_layers": sliding, "row_launches": rows,
+           "adamw_launches": adam, **launches}
     log("train: " + json.dumps(out))
     del state, step_fn
     if device == "cuda":
@@ -2062,6 +2346,7 @@ def run_train(torch, cfg_name: str, steps: int) -> dict:
     the flash kernels ran exactly once per layer per step forward (twice
     under remat: the backward recomputes the layer) and once backward."""
     from dstack_tpu_torch.models import train
+    from dstack_tpu_torch.models.llama import tree_leaves
     from dstack_tpu_torch.ops import flash_attention as fa
 
     cfg, batch, seq, remat = trainer(cfg_name)
@@ -2076,7 +2361,7 @@ def run_train(torch, cfg_name: str, steps: int) -> dict:
     init_s = time.time() - t0
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.fwd_launches = fa.flash_attention.bwd_launches = 0
-    rows_before = row_launches()
+    rows_before, adamw_before = row_launches(), adamw_launches()
     losses, norms, times = [], [], []
     for _ in range(steps):
         t = time.time()
@@ -2097,6 +2382,11 @@ def run_train(torch, cfg_name: str, steps: int) -> dict:
     if rows != want_rows:
         fail(f"train {cfg_name}: row-kernel launches {rows}, expected "
              f"{want_rows}")
+    adam = counted_adamw_launches(adamw_before)
+    want_adam = want_adamw_launches(tree_leaves(state.params), steps)
+    if adam != want_adam:
+        fail(f"train {cfg_name}: AdamW launches {adam}, expected "
+             f"{want_adam}")
     if not all(map(math.isfinite, losses + norms)):
         fail(f"train {cfg_name}: non-finite loss or grad norm: {losses} "
              f"{norms}")
@@ -2112,7 +2402,8 @@ def run_train(torch, cfg_name: str, steps: int) -> dict:
            # 6 * params * tokens: the matmuls only, attention left out
            "mfu_6nd": 6 * cfg.num_params() * tok / step_s / PEAK_BF16_FLOPS,
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "fwd_launches": fwd, "bwd_launches": bwd, "row_launches": rows}
+           "fwd_launches": fwd, "bwd_launches": bwd, "row_launches": rows,
+           "adamw_launches": adam}
     log("train: " + json.dumps(out))
     del state, step_fn
     torch.cuda.empty_cache()
@@ -3602,6 +3893,7 @@ def moe_train(torch, cfg, device: str, batch: int, seq: int,
     ``flash_attention_plain`` from the same fresh state and batch (b2,
     remat off): loss and grad norm within TRAIN_PLAIN_RTOL."""
     from dstack_tpu_torch.models import moe, train
+    from dstack_tpu_torch.models.llama import tree_leaves
     from dstack_tpu_torch.ops import flash_attention as fa
 
     cuda = device == "cuda"
@@ -3620,7 +3912,7 @@ def moe_train(torch, cfg, device: str, batch: int, seq: int,
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.fwd_launches = fa.flash_attention.bwd_launches = 0
-    rows_before = row_launches()
+    rows_before, adamw_before = row_launches(), adamw_launches()
     losses, auxes, norms, times = [], [], [], []
     for _ in range(steps):
         t = time.time()
@@ -3639,6 +3931,10 @@ def moe_train(torch, cfg, device: str, batch: int, seq: int,
     want_rows = want_row_launches(cfg.num_layers, 2, steps)
     if cuda and rows != want_rows:
         fail(f"moe train: row-kernel launches {rows}, expected {want_rows}")
+    adam = counted_adamw_launches(adamw_before)
+    want_adam = want_adamw_launches(tree_leaves(state.params), steps)
+    if cuda and adam != want_adam:
+        fail(f"moe train: AdamW launches {adam}, expected {want_adam}")
     if not all(map(math.isfinite, losses + auxes + norms)):
         fail(f"moe train: non-finite loss, aux loss or grad norm: {losses} "
              f"{auxes} {norms}")
@@ -3649,7 +3945,8 @@ def moe_train(torch, cfg, device: str, batch: int, seq: int,
            "batch": batch, "seq": seq, "steps": steps, "losses": losses,
            "aux_losses": auxes, "grad_norms": norms, "step_s": times,
            "step_median_s": step_s, "tokens_per_s": batch * seq / step_s,
-           "fwd_launches": fwd, "bwd_launches": bwd, "row_launches": rows}
+           "fwd_launches": fwd, "bwd_launches": bwd, "row_launches": rows,
+           "adamw_launches": adam}
     if cuda:
         out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del state, step_fn, metrics
@@ -4951,17 +5248,19 @@ ELASTIC_LOSS_RTOL = 1e-3
 #: the libraries a paged bf16 replica and a train step resolve through the
 #: compile cache
 SERVE_LIBRARIES = ("rownorm", "paged_decode")
-TRAIN_LIBRARIES = ("flash_fwd", "flash_bwd", "rownorm")
+TRAIN_LIBRARIES = ("flash_fwd", "flash_bwd", "rownorm", "adamw")
 
 
 def port_copy(dest: Path) -> Path:
-    """A copy of the checkout's package and this script, without build/:
+    """A copy of the checkout's package and this script (with the
+    benchmark's package, whose frozen bounds it imports), without build/:
     a process started from it finds no kernel library and fills its own
     build/ (``_build.BUILD_DIR`` follows the package's files)."""
     import shutil
 
-    shutil.copytree(ROOT / "dstack_tpu_torch", dest / "dstack_tpu_torch",
-                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    for package in ("dstack_tpu_torch", "portbench"):
+        shutil.copytree(ROOT / package, dest / package,
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", dest / "chip_smoke.py")
     return dest
 
@@ -5733,6 +6032,7 @@ def main() -> int:
     kernels.update(check_flash_kernels(torch))
     kernels.update(check_window_kernels(torch))
     kernels.update(check_rownorm_kernels(torch))
+    kernels.update(check_adamw_kernels(torch))
     check_f32_logits(torch)
     served = serve_8b()
     kernels["paged_decode_attention[bf16,llama3-8b]"]["launches"] = \
@@ -5854,13 +6154,14 @@ def main() -> int:
         log("train summary: " + json.dumps(
             {k: run[k] for k in ("config", "tokens_per_s", "mfu_6nd",
                                  "step_median_s", "max_memory_allocated_gb",
-                                 "losses")}))
+                                 "losses", "adamw_launches")}))
     log("train-plain summary: " + json.dumps(plain))
     log("trinity summary: " + json.dumps(
         {k: trinity[k] for k in ("tokens_per_s", "step_median_s", "losses",
                                  "dropped_tokens", "max_memory_allocated_gb",
                                  "window_fwd_launches",
-                                 "window_bwd_launches", "row_launches")}))
+                                 "window_bwd_launches", "row_launches",
+                                 "adamw_launches")}))
     log("resume summary: " + json.dumps(
         {k: resumed[k] for k in ("snapshot_bytes", "copy_s", "write_s",
                                  "restore_s", "step_median_s",
@@ -5892,7 +6193,7 @@ def main() -> int:
             for k in ("int8", "bf16")},
          "train": {n: mixtral["train"][n] for n in (
              "step_median_s", "tokens_per_s", "max_memory_allocated_gb",
-             "losses", "aux_losses")},
+             "losses", "aux_losses", "adamw_launches")},
          "train_plain": {n: mixtral["train"]["plain"][n] for n in (
              "loss_rel_err", "grad_norm_rel_err")}}))
     log("mesh-serving summary: " + json.dumps({

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from dstack_tpu_torch.models import llama
 from dstack_tpu_torch.models.llama import (LlamaConfig, Params,
                                            ShardingPolicy, tree_leaves)
+from dstack_tpu_torch.ops import adamw
 from dstack_tpu_torch.ops.loss import chunked_cross_entropy, chunked_nll_sum
 from dstack_tpu_torch.parallel import mesh as mesh_lib
 from dstack_tpu_torch.parallel.collectives import all_reduce_sum
@@ -70,14 +71,21 @@ class AdamW:
 
     - clip: when the gradients' global norm is at least ``grad_clip``, each
       gradient becomes ``g * grad_clip / norm`` (optax's rule: no epsilon
-      in the denominator); below it they pass unchanged;
-    - then torch's fused AdamW with decoupled weight decay on every leaf,
-      which is optax's ``adamw``: moments ``exp_avg``, ``exp_avg_sq`` in
-      the params' dtype (as optax keeps them for bf16 params),
-      bias-corrected by ``1 - b**count``, and the update ``mu_hat /
-      (sqrt(nu_hat) + eps) + weight_decay * p`` times ``-lr``.  The
-      clipped gradients are rounded to their dtype (as optax's are); the
-      fused step runs in f32 and rounds once into each leaf's dtype.
+      in the denominator), rounded to its dtype as optax rounds it; below
+      it they pass unchanged;
+    - then torch's fused AdamW arithmetic with decoupled weight decay on
+      every leaf, which is optax's ``adamw``: moments ``exp_avg``,
+      ``exp_avg_sq`` in the params' dtype (as optax keeps them for bf16
+      params), bias-corrected by ``1 - b**count``, and the update ``mu_hat
+      / (sqrt(nu_hat) + eps) + weight_decay * p`` times ``-lr``, in f32,
+      rounded once into each leaf's dtype.
+
+    Where it runs (:mod:`dstack_tpu_torch.ops.adamw`): CPU leaves take
+    three plain passes (the norms, the clip's multiply, torch's fused
+    AdamW); CUDA leaves take the hand-written kernel ``ops/csrc/adamw.cu``
+    in two, one read of every gradient for the norm and one streaming
+    pass for the step, 16 bytes a bf16 parameter, with the same
+    arithmetic.
 
     Leaves may mix dtypes (an MoE router in f32 among bf16 weights): each
     keeps its moments in its own dtype, and the norm is accumulated in f32
@@ -95,7 +103,9 @@ class AdamW:
     def init(self, params: Params) -> torch.optim.AdamW:
         """The fused AdamW over the leaves' local tensors (a DTensor's
         shard: the update is elementwise, so each rank steps its shard of
-        the global update)."""
+        the global update).  It holds the hyperparameters and, from the
+        first step, each leaf's ``step``, ``exp_avg`` and ``exp_avg_sq``;
+        on CUDA the kernel steps them in its place."""
         return torch.optim.AdamW(
             [mesh_lib.local_tensor(p) for p in tree_leaves(params)],
             lr=self.lr, betas=(self.b1, self.b2), eps=self.eps,
@@ -105,41 +115,16 @@ class AdamW:
     def update(self, params: List[torch.Tensor], grads,
                opt_state: torch.optim.AdamW) -> torch.Tensor:
         """Apply one step in place to ``params`` (the leaves ``init`` was
-        given, in :func:`tree_leaves` order) from ``grads``, which are
-        clipped in place; returns the gradients' global norm (f32, before
-        clipping).
+        given, in :func:`tree_leaves` order) from ``grads`` (on the CPU
+        clipped in place; on CUDA left as they are); returns the
+        gradients' global norm (f32, before clipping).
 
         A DTensor parameter's gradient is given as its local shard's,
         already in the parameter's placements: the sharded forward's
         collectives reduce it.  The norm then sums each block's squares
         once (on the block's owner,
         :func:`dstack_tpu_torch.parallel.mesh.owns`) over every rank."""
-        from torch.distributed.tensor import DTensor
-
-        grads = list(grads)
-        if any(isinstance(p, DTensor) for p in params):
-            import torch.distributed as dist
-
-            owned = [g for p, g in zip(params, grads)
-                     if not isinstance(p, DTensor) or mesh_lib.owns(p)]
-            sq = (torch.stack(torch._foreach_norm(owned, 2,
-                                                  dtype=torch.float32))
-                  .square().sum() if owned else
-                  torch.zeros((), device=grads[0].device))
-            dist.all_reduce(sq)
-            norm = sq.sqrt()
-        else:
-            norm = torch.linalg.vector_norm(torch.stack(
-                torch._foreach_norm(grads, 2, dtype=torch.float32)))
-        torch._foreach_mul_(grads, self.grad_clip
-                            / torch.clamp_min(norm, self.grad_clip))
-        for p, g in zip(params, grads):
-            # the fused step takes each gradient laid out as its parameter;
-            # a tied head's comes back transposed
-            mesh_lib.local_tensor(p).grad = g.contiguous()
-        opt_state.step()
-        opt_state.zero_grad(set_to_none=True)
-        return norm
+        return adamw.update(params, grads, opt_state, self.grad_clip)
 
 
 def default_optimizer(lr: float = 3e-4, weight_decay: float = 0.1,
@@ -339,7 +324,7 @@ def make_train_step(cfg: LlamaConfig, optimizer: AdamW, mesh: Any = None,
     step = maybe_cached(
         _step_from_loss(loss_fn, optimizer, sharded=mesh is not None),
         compile_cache, tag="train_step",
-        kernels=("flash_fwd", "flash_bwd", "rownorm"),
+        kernels=("flash_fwd", "flash_bwd", "rownorm", "adamw"),
         needs=lambda state, batch: batch["tokens"].device.type == "cuda")
     if telemetry is None:
         return step

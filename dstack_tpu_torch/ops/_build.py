@@ -40,6 +40,7 @@ SIGNATURES = {
     "flash_bwd": ("dstack_flash_bwd", [_P] * 11 + [_I] * 6 + [_F, _P]),
     "rownorm": ("dstack_rownorm", [_P] * 14 + [_LL] * 2 + [_I] * 9
                 + [_F, _P]),
+    "adamw": ("dstack_adamw", [_P] * 5 + [_I] * 6 + [_F] * 6 + [_P]),
 }
 
 _bound: Dict[str, Callable[..., int]] = {}

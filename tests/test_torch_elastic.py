@@ -506,7 +506,7 @@ def test_make_train_step_takes_a_compile_cache(tmp_path, monkeypatch):
     cache = CompileCache(tmp_path)
     step = train.make_train_step(cfg, opt, compile_cache=cache)
     assert isinstance(step, CachedKernels)
-    assert step.kernels == ("flash_fwd", "flash_bwd", "rownorm")
+    assert step.kernels == ("flash_fwd", "flash_bwd", "rownorm", "adamw")
     state = train.create_state(0, cfg, opt, device="cpu")
     tokens = torch.randint(0, cfg.vocab_size, (1, 17),
                            generator=torch.Generator().manual_seed(0))
