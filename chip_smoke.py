@@ -1201,6 +1201,163 @@ def check_window_kernels(torch) -> dict:
     return out
 
 
+#: latent attention's kernels (mla_fwd_kernel / mla_bwd_kernel, QK width
+#: 192, V width 128, one kv head a query head): edge shapes (B, S, H) for
+#: correctness (one 128-row tile, one head, an odd head count, a ragged
+#: last 64-row tile), then Kanana-2-30B-A3B's training launch (b4 s16384,
+#: 32 heads), held on the (batch row, head) pairs of MLA_CHECK_HEADS (the
+#: plain scores of one head are 1 GB in f32 at s16384) and timed
+MLA_WIDTHS = (192, 128)
+MLA_EDGE_SHAPES = ((2, 128, 4), (1, 256, 1), (2, 384, 3), (1, 192, 5))
+MLA_ROWS = {"kanana2-30b-a3b": (4, 16384, 32)}
+MLA_CHECK_HEADS = ((0, 0), (3, 31))
+
+
+def mla_case(torch, shape, seed: int):
+    """Unit-normal bf16 q, k [B, S, H, 192] and v, do [B, S, H, 128]."""
+    b, s, h = shape
+    dq, dv = MLA_WIDTHS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(d):
+        return torch.randn((b, s, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    return randn(dq), randn(dq), randn(dv), randn(dv)
+
+
+def mla_errors(torch, fa, shape, heads=None):
+    """Both latent-attention kernels once at ``shape``, held to the plain
+    versions (on the (batch row, head) pairs ``heads`` alone, when given):
+    (inputs, (o, lse), errors) as :func:`flash_errors` gives them."""
+    q, k, v, do = mla_case(torch, shape, seed=sum(shape))
+    scale = MLA_WIDTHS[0] ** -0.5
+    o, lse = fa._flash_fwd_kernel(q, k, v, scale)
+    grads = fa._flash_bwd_kernel(q, k, v, o, lse, do, scale)
+    torch.cuda.synchronize()
+    if heads is None:
+        heads = [(r, h) for r in range(shape[0]) for h in range(shape[2])]
+    errs = {}
+    for r, h in heads:
+        one = [t[r:r + 1, :, h:h + 1] for t in (q, k, v, o, do)]
+        want_o, want_lse = fa.flash_attention_fwd_plain(*one[:3], scale)
+        want_grads = fa.flash_attention_bwd_plain(
+            *one[:3], one[3], lse[r:r + 1, h:h + 1], one[4], scale)
+        got = {"lse": lse[r:r + 1, h:h + 1], "o": one[3]}
+        got.update(zip(("dq", "dk", "dv"),
+                       (g[r:r + 1, :, h:h + 1] for g in grads)))
+        want = {"lse": want_lse, "o": want_o}
+        want.update(zip(("dq", "dk", "dv"), want_grads))
+        for n in got:
+            e = (got[n].float() - want[n].float()).abs().max().item()
+            errs[n] = max(errs.get(n, 0.0), e)
+            if n != "lse":
+                errs[n + "_row"] = max(errs.get(n + "_row", 0.0),
+                                       row_rel_err(torch, got[n], want[n]))
+        del want_o, want_lse, want_grads, want
+    torch.cuda.empty_cache()
+    return (q, k, v, do), (o, lse), errs
+
+
+def checked_mla_errors(torch, fa, shape, heads=None):
+    out = mla_errors(torch, fa, shape, heads)
+    bad = flash_violations(out[2])
+    if bad:
+        fail(f"latent-attention flash kernels at (B, S, H) = {shape} "
+             f"disagree with the plain versions: {bad} (limits "
+             f"{FLASH_LIMITS})")
+    return out
+
+
+def check_mla_kernels(torch) -> dict:
+    """Hold latent attention's forward and backward kernels to their plain
+    versions at MLA_EDGE_SHAPES and MLA_ROWS, then time each MLA_ROWS
+    launch beside its bound (``portbench.families.deepseek_v3.mla_bounds``:
+    the operations of 2 * (192 + 128) forward and 2 * (3 * 192 + 2 * 128)
+    backward a kept pair and head) and ``scaled_dot_product_attention``
+    (the yardstick, never called by the port; "not measured" where no
+    backend takes the widths).  Checks the wrapper's launch counters."""
+    import torch.nn.functional as F
+
+    from dstack_tpu_torch.ops import flash_attention as fa
+    from portbench.families.deepseek_v3 import mla_bounds
+
+    before = (fa.flash_attention.mla_fwd_launches,
+              fa.flash_attention.mla_bwd_launches,
+              fa.flash_attention.fwd_launches, fa.flash_attention.bwd_launches)
+    for shape in MLA_EDGE_SHAPES:
+        errs = checked_mla_errors(torch, fa, shape)[2]
+        log(f"kernel flash mla (B, S, H) = {shape}: max err " + " ".join(
+            f"{n} {e:.3e}" for n, e in errs.items()))
+    out = {}
+    dq_w, dv_w = MLA_WIDTHS
+    for row, shape in MLA_ROWS.items():
+        scale = dq_w ** -0.5
+        (q, k, v, do), (o, lse), errs = checked_mla_errors(
+            torch, fa, shape, MLA_CHECK_HEADS)
+        times = {
+            "fwd": time_ms(torch, lambda: fa._flash_fwd_kernel(
+                q, k, v, scale), 10),
+            "bwd": time_ms(torch, lambda: fa._flash_bwd_kernel(
+                q, k, v, o, lse, do, scale), 10),
+        }
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  scale=scale)
+
+        try:
+            with torch.no_grad():
+                times["fwd_sdpa"] = time_ms(torch, sdpa, 5)
+            ref = sdpa()
+            times["bwd_sdpa"] = time_ms(torch, lambda: torch.autograd.grad(
+                ref, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 5)
+            del ref
+        except (RuntimeError, torch.cuda.OutOfMemoryError) as e:
+            log(f"kernel flash mla sdpa: not measured ({e})"[:300])
+        del qt, kt, vt
+        torch.cuda.empty_cache()
+        bounds = mla_bounds(*shape, dq_w, dv_w)
+        for part, errs_shown in (("fwd", ("o", "lse", "o_row")),
+                                 ("bwd", ("dq", "dk", "dv", "dq_row",
+                                          "dk_row", "dv_row"))):
+            name = f"flash_attention_{part}[{row},D={dq_w}/{dv_w}]"
+            bound_ms, bound_by, nbytes, flops = bounds[part]
+            sdpa_ms = times.get(part + "_sdpa")
+            out[name] = {
+                "name": name, "route": "cuda", "source": FLASH_SOURCES[part],
+                "replaces": "(new: multi-head latent attention)",
+                "launches": 0,
+                "max_abs_err": max(errs[n] for n in errs_shown
+                                   if not n.endswith("_row")),
+                "ms": times[part], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": sdpa_ms,
+            }
+            log(f"kernel {name}: max err " + " ".join(
+                f"{n} {errs[n]:.3e}" for n in errs_shown)
+                + f"  kernel {times[part] * 1e3:.1f} us  bound "
+                f"{bound_ms * 1e3:.1f} us by {bound_by} ({nbytes} B, "
+                f"{flops} flop)  {flops / times[part] / 1e9:.1f} TFLOP/s, "
+                f"{bound_ms / times[part]:.3f} of the bound, sdpa "
+                + (f"{sdpa_ms * 1e3:.1f} us, "
+                   f"{times[part] / sdpa_ms:.2f}x sdpa" if sdpa_ms
+                   else "not measured"))
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    after = (fa.flash_attention.mla_fwd_launches,
+             fa.flash_attention.mla_bwd_launches,
+             fa.flash_attention.fwd_launches, fa.flash_attention.bwd_launches)
+    counted = [a - b for a, b in zip(after, before)]
+    if counted[0] == 0 or counted[1] == 0 or counted[2] or counted[3]:
+        fail(f"flash mla: the wrapper counted {counted} (mla fwd/bwd, "
+             f"causal fwd/bwd); expected latent launches alone")
+    log(f"kernel flash mla launches counted: fwd/bwd {counted[0]}/"
+        f"{counted[1]}")
+    return out
+
+
 #: the row kernel's cases (csrc/rownorm.cu): name -> (shapes, rows dtype,
 #: weight dtype or None for no norm, rotation, positions a batch row).  One
 #: shape: D-wide rows [T, n]; two: q and k [B, S, H, D] in one launch.  The
@@ -1814,6 +1971,100 @@ def afmoe_phase(torch, cfg=None, device: str = "cuda", batch: int = AFMOE_BATCH,
                                        if device == "cuda" else None),
            "sliding_layers": sliding, "row_launches": rows,
            "adamw_launches": adam, **launches}
+    log("train: " + json.dumps(out))
+    del state, step_fn
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+#: Kanana-2-30B-A3B's training cut as the benchmark's cell runs it: the
+#: first 12 of 48 layers (the dense one, then 11 routed), 16 of the
+#: router's 128 experts held, an eighth of the vocabulary; b4 s16384
+KANANA_CUT = dict(num_layers=12, held_experts=(0, 16), vocab_size=16_032)
+KANANA_BATCH, KANANA_SEQ, KANANA_STEPS = 4, 16384, 4
+
+
+def kanana_phase(torch, cfg=None, device: str = "cuda",
+                 batch: int = KANANA_BATCH, seq: int = KANANA_SEQ,
+                 steps: int = KANANA_STEPS) -> dict:
+    """Kanana-2-30B-A3B at its published widths (``KANANA_CUT``) trained
+    ``steps`` steps through ``deepseek.make_train_step`` at the port's
+    default remat, on one repeated batch of random tokens from seed 0.
+    Checks the loss is finite and falls, the expert bias moved with a
+    zero mean, and, on the card, that latent attention's kernels ran once
+    a layer a step backward and twice forward (selective remat recomputes
+    the layer) and no other flash kernel ran; the row kernel and AdamW
+    as their counts say (three norms a layer: attention's, the latent's
+    and the MLP's; no q/k prologue: the rotation is plain torch)."""
+    from dstack_tpu_torch.models import deepseek, train
+    from dstack_tpu_torch.models.llama import tree_leaves
+    from dstack_tpu_torch.ops import flash_attention as fa
+
+    cfg = cfg or deepseek.DeepseekV3Config.kanana2_30b_a3b(**KANANA_CUT)
+    gen = torch.Generator(device=device).manual_seed(0)
+    opt = train.default_optimizer()
+    t0 = time.time()
+    state = deepseek.create_state(gen, cfg, opt, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                           device=device, dtype=torch.int32)
+    step_fn = deepseek.make_train_step(cfg, opt)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    init_s = time.time() - t0
+    counters = ("fwd_launches", "bwd_launches", "window_fwd_launches",
+                "window_bwd_launches", "mla_fwd_launches",
+                "mla_bwd_launches")
+    for name in counters:
+        setattr(fa.flash_attention, name, 0)
+    rows_before, adamw_before = row_launches(), adamw_launches()
+    losses, norms, dropped, times = [], [], [], []
+    for _ in range(steps):
+        t = time.time()
+        state, metrics = step_fn(state, {"tokens": tokens})
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        dropped.append(metrics["dropped_tokens"].sum().item())
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.time() - t)
+    launches = {name: getattr(fa.flash_attention, name) for name in counters}
+    want = dict.fromkeys(counters, 0)
+    want.update(mla_fwd_launches=2 * cfg.num_layers * steps,
+                mla_bwd_launches=cfg.num_layers * steps)
+    if device == "cuda" and launches != want:
+        fail(f"train kanana2: flash launches {launches}, expected {want}")
+    rows = counted_row_launches(rows_before)
+    want_rows = {name: 0 if name.startswith("qk_prologue") else n
+                 for name, n in want_row_launches(cfg.num_layers, 3,
+                                                  steps).items()}
+    if device == "cuda" and rows != want_rows:
+        fail(f"train kanana2: row-kernel launches {rows}, expected "
+             f"{want_rows}")
+    adam = counted_adamw_launches(adamw_before)
+    want_adam = want_adamw_launches(tree_leaves(state.params), steps)
+    if device == "cuda" and adam != want_adam:
+        fail(f"train kanana2: AdamW launches {adam}, expected {want_adam}")
+    if not all(map(math.isfinite, losses + norms)):
+        fail(f"train kanana2: non-finite loss or grad norm: {losses} "
+             f"{norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"train kanana2: loss did not fall: {losses}")
+    bias = state.buffers["expert_bias"]
+    if not (bias.abs().amax() > 0
+            and bias.sum(-1).abs().amax() < 1e-6 * cfg.num_experts):
+        fail(f"train kanana2: the expert bias did not move with a zero "
+             f"mean: {bias.sum(-1).tolist()}")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    out = {"config": "kanana2-30b-a3b", "num_layers": cfg.num_layers,
+           "held_experts": cfg.held_experts, "batch": batch,
+           "seq": seq, "steps": steps, "init_s": init_s, "losses": losses,
+           "grad_norms": norms, "dropped_tokens": dropped, "step_s": times,
+           "step_median_s": step_s, "tokens_per_s": batch * seq / step_s,
+           "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                       if device == "cuda" else None),
+           "row_launches": rows, "adamw_launches": adam, **launches}
     log("train: " + json.dumps(out))
     del state, step_fn
     if device == "cuda":
@@ -6031,6 +6282,7 @@ def main() -> int:
                                    mesh_k5_rows(torch.cuda.device_count()))
     kernels.update(check_flash_kernels(torch))
     kernels.update(check_window_kernels(torch))
+    kernels.update(check_mla_kernels(torch))
     kernels.update(check_rownorm_kernels(torch))
     kernels.update(check_adamw_kernels(torch))
     check_f32_logits(torch)
@@ -6110,6 +6362,10 @@ def main() -> int:
             counted["qk_prologue" + suffix] - rotated
         kernels[f"rownorm_{way}[trinity-mini rows]"]["launches"] = \
             counted["rms_norm" + suffix]
+    kanana = kanana_phase(torch)
+    for way in ("fwd", "bwd"):
+        kernels[f"flash_attention_{way}[kanana2-30b-a3b,D=192/128]"][
+            "launches"] = kanana[f"mla_{way}_launches"]
     meshed = mesh_serving_phase(torch)
     for run in meshed.values():
         # every rank's launches, each on its Hkv / tensor kv heads (its

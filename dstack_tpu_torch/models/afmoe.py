@@ -150,11 +150,13 @@ def leaf_shapes(cfg: AfmoeConfig, dense: bool
 
 
 def init_params(cfg: AfmoeConfig, device: Union[str, torch.device],
-                generator: Optional[torch.Generator]) -> Params:
+                generator: Optional[torch.Generator],
+                shapes: Callable = leaf_shapes) -> Params:
     """Scaled-normal init on ``device`` from ``generator`` (None on the
     meta device): each matrix (an expert's one at a time) drawn in f32 ~
     N(0, 1 / fan_in) and cast into its stacked buffer, norm weights ones;
-    the router stays f32."""
+    the router stays f32.  ``shapes(cfg, dense)``: a layer's leaves (a
+    family with the same two stacks gives its own)."""
 
     def leaf(shape, fan_in, dtype, lead=()):
         if fan_in == 0:
@@ -173,7 +175,7 @@ def init_params(cfg: AfmoeConfig, device: Union[str, torch.device],
     for stack, dense, n in (("dense_layers", True, cfg.num_dense_layers),
                             ("moe_layers", False, cfg.num_moe_layers)):
         params[stack] = {name: leaf(*spec, lead=(n,)) for name, spec
-                         in leaf_shapes(cfg, dense).items()}
+                         in shapes(cfg, dense).items()}
     params["final_norm"] = leaf((d,), 0, cfg.dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = leaf((d, v), d, cfg.dtype)
@@ -242,20 +244,24 @@ def forward(params: Params, tokens: torch.Tensor, cfg: AfmoeConfig,
 
 
 def make_train_step(cfg: AfmoeConfig, optimizer: train.AdamW,
-                    remat: Union[bool, str, tuple] = True
+                    remat: Union[bool, str, tuple] = True,
+                    backbone_fn: Optional[Callable] = None
                     ) -> Callable[[train.TrainState, dict], tuple]:
     """The train step on :func:`create_state`'s state (batch as
     :func:`train.make_train_step`'s): the chunked cross entropy's
     gradients, AdamW in place, then the expert bias's move.  Returns
     ``(state, metrics)``: {"loss", "step", "grad_norm", "expert_tokens":
     f32 [L_moe, E] the step's choices of each expert, "dropped_tokens":
-    f32 [L_moe] the held experts' choices over their capacity}."""
+    f32 [L_moe] the held experts' choices over their capacity}.
+    ``backbone_fn``: the stack (None: :func:`backbone`; a family with the
+    same expert bias gives its own)."""
     llama.remat_names(remat)  # reject a bad mode before the first step
+    stack = backbone if backbone_fn is None else backbone_fn
 
     def loss_fn(params, batch, buffers):
         stats: list = []
-        x = backbone(params, batch["tokens"][:, :-1], cfg, buffers=buffers,
-                     remat=remat, stats=stats)
+        x = stack(params, batch["tokens"][:, :-1], cfg, buffers=buffers,
+                  remat=remat, stats=stats)
         metrics = {"expert_tokens": torch.stack([c for c, _ in stats]),
                    "dropped_tokens": torch.stack([d for _, d in stats])}
         loss, ce = train._head_loss(params, x, batch, cfg)

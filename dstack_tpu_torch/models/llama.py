@@ -43,7 +43,8 @@ from dstack_tpu_torch.ops.ring_attention import ring_attention_sharded
 from dstack_tpu_torch.ops.loss import f32_logits
 from dstack_tpu_torch.ops.rmsnorm import rms_norm
 from dstack_tpu_torch.ops.rotary import (RopeScaling, apply_rope, qk_prologue,
-                                         rope_frequencies, rope_table)
+                                         rope_frequencies, rope_table,
+                                         rotate_pairs)
 from dstack_tpu_torch.parallel import collectives
 from dstack_tpu_torch.parallel.pipeline import pipeline_layers
 from dstack_tpu_torch.parallel.mesh import (distribute, entry_axes,
@@ -113,6 +114,11 @@ class LlamaConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    @property
+    def attn_widths(self) -> tuple:
+        """(QK width, V width) of one head's attention."""
+        return self.head_dim, self.head_dim
 
     def num_params(self) -> int:
         embed = self.vocab_size * self.hidden_size
@@ -591,6 +597,61 @@ def _embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,
 
 
 @dataclasses.dataclass(frozen=True)
+class Latent:
+    """Multi-head latent attention's widths (DeepSeek-V2/V3's MLA with a
+    full-rank query): q = h Wq per head [nope + rope]; [c, k_pe] = h
+    W_kv_a, c [``kv_lora_rank``] RMS-normed by ``kv_norm`` and expanded by
+    W_kv_b into each head's k_nope [nope] and v [``v_head_dim``]; k_pe
+    [rope] one for all heads.  RoPE turns q's and k's last ``rope``
+    dimensions in interleaved pairs; attention runs at QK width nope +
+    rope and V width ``v_head_dim``."""
+
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+def _latent_qkv(h: torch.Tensor, weight: Callable, lat: Latent,
+                eps: float) -> tuple:
+    """``(q, k_nope, k_pe, v)`` of the normed rows h [B, S, D]: q [B, S, H,
+    nope + rope], k_nope [B, S, H, nope], k_pe [B, S, rope], v [B, S, H,
+    v_head_dim]; the latent's product, norm and expansion in the
+    ``model.mla.latent`` span."""
+    q = (h @ weight("wq")).unflatten(-1, (-1, lat.qk_head_dim))
+    with spans.region("model.mla.latent") as r:
+        h, w_a, norm, w_b = r.inputs((h, weight("w_kv_a"), weight("kv_norm"),
+                                      weight("w_kv_b")))
+        c, k_pe = (h @ w_a).split([lat.kv_lora_rank, lat.qk_rope_head_dim],
+                                  dim=-1)
+        kv = (rms_norm(c, norm, eps) @ w_b).unflatten(
+            -1, (-1, lat.qk_nope_head_dim + lat.v_head_dim))
+        k_nope, v = kv.split([lat.qk_nope_head_dim, lat.v_head_dim], dim=-1)
+        k_nope, k_pe, v = r.outputs((k_nope, k_pe, v))
+    return q, k_nope, k_pe, v
+
+
+def _latent_qk(q: torch.Tensor, k_nope: torch.Tensor, k_pe: torch.Tensor,
+               rope: torch.Tensor, lat: Latent) -> tuple:
+    """``(q, k)`` [B, S, H, nope + rope] for attention: q's last ``rope``
+    dimensions and the shared k_pe turned by :func:`rotate_pairs`, k_pe
+    repeated over the heads after each head's k_nope; in the
+    ``model.mla.rope`` span."""
+    with spans.region("model.mla.rope") as r:
+        q, k_nope, k_pe = r.inputs((q, k_nope, k_pe))
+        nope = lat.qk_nope_head_dim
+        q = torch.cat([q[..., :nope], rotate_pairs(q[..., nope:], rope)],
+                      dim=-1)
+        k_pe = rotate_pairs(k_pe[:, :, None, :], rope)
+        k = torch.cat([k_nope, k_pe.expand(*k_nope.shape[:3], -1)], dim=-1)
+        return r.outputs((q, k))
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerKind:
     """What one transformer layer computes beyond Llama's, each at its
     default leaving the Llama layer's operations and their order.
@@ -608,7 +669,12 @@ class LayerKind:
       rank computes with it (:meth:`Layout.weight`), in place of the
       SwiGLU through ``w_gate``, ``w_up``, ``w_down`` (None).  Such a
       routed MLP crosses the model axes itself: h comes to it without
-      :meth:`Layout.enter`.
+      :meth:`Layout.enter`;
+    - ``latent``: multi-head latent attention of these widths
+      (:class:`Latent`; weights ``wq``, ``w_kv_a``, ``kv_norm``,
+      ``w_kv_b``) in place of ``wq``, ``wk``, ``wv``: the ``qkv`` step
+      makes q, k_nope, k_pe and v, the ``attn_out`` step turns and
+      assembles q and k (``rope`` and ``qk_norm`` do not apply).
 
     What each family passes to :func:`_walk`, the one stack walk (a new
     architecture adds its config, parameter tree and specs): Llama and
@@ -616,7 +682,9 @@ class LayerKind:
     its aux loss read from the routed MLP's side results; Trinity, by
     ``layer_types``, ``window`` and ``rope`` on sliding layers and neither
     on full ones, ``qk_norm``, ``gate`` and ``sandwich`` on all, and past
-    the dense lead the routed MLP with the layer's expert bias."""
+    the dense lead the routed MLP with the layer's expert bias; DeepSeek-V3
+    (Kanana-2) ``latent`` on all, and past the dense lead the routed MLP
+    with the layer's expert bias."""
 
     window: Optional[int] = None
     rope: bool = True
@@ -624,6 +692,7 @@ class LayerKind:
     gate: bool = False
     sandwich: bool = False
     mlp: Optional[Callable] = None
+    latent: Optional[Latent] = None
 
 
 def _layer_fn(cfg: LlamaConfig, positions, rope, fused: bool,
@@ -650,6 +719,10 @@ def _layer_fn(cfg: LlamaConfig, positions, rope, fused: bool,
 
     def qkv(st, lp):
         h = layout.enter(rms_norm(st["x"], w(lp, "attn_norm"), cfg.rms_eps))
+        if kind.latent is not None:
+            st["qkv"] = _latent_qkv(h, lambda name: w(lp, name), kind.latent,
+                                    cfg.rms_eps)
+            return
         b, s = h.shape[:2]
         st["qkv"] = tuple((h @ w(lp, name)).reshape(b, s, -1, cfg.head_dim)
                           for name in ("wq", "wk", "wv"))
@@ -657,11 +730,15 @@ def _layer_fn(cfg: LlamaConfig, positions, rope, fused: bool,
             st["gate"] = h @ w(lp, "w_attn_gate")
 
     def attn_out(st, lp):
-        q, k, v = st.pop("qkv")
-        norms = ((w(lp, "q_norm"), w(lp, "k_norm")) if kind.qk_norm
-                 else (None, None))
-        q, k = qk_prologue(q, k, *norms, rope if kind.rope else None,
-                           cfg.rms_eps)
+        if kind.latent is not None:
+            q, k_nope, k_pe, v = st.pop("qkv")
+            q, k = _latent_qk(q, k_nope, k_pe, rope, kind.latent)
+        else:
+            q, k, v = st.pop("qkv")
+            norms = ((w(lp, "q_norm"), w(lp, "k_norm")) if kind.qk_norm
+                     else (None, None))
+            q, k = qk_prologue(q, k, *norms, rope if kind.rope else None,
+                               cfg.rms_eps)
         if fused:
             out = layout.attention(q, k, v, window=kind.window)
         else:
@@ -795,7 +872,10 @@ def _walk(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     :func:`pipeline_layers`), layer l :func:`_layer_fn` of ``kind`` or
     ``kind(l)`` under ``keep``, and the final norm in ``model.head_loss``.
     ``specs``: the tree's specs under a mesh (``params`` this rank's
-    local shards), else None."""
+    local shards), else None.  Fused where the JAX package fuses, and also
+    where the card's kernels take the shape (:func:`flash.kernel_takes` at
+    ``cfg.attn_widths``: the TPU's budget does not bind them), so a long
+    sequence at the built widths never builds [S, S] scores."""
     s, dev = tokens.shape[1], tokens.device
     default_positions = positions is None
     inv_freqs = torch.from_numpy(rope_frequencies(
@@ -803,8 +883,10 @@ def _walk(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     if default_positions:
         positions = layout.positions(s, dev)
     rope = rope_table(positions, inv_freqs)
-    fused = layout.seq is not None or (default_positions and flash.supports(
-        s, cfg.head_dim, cfg.dtype, group=cfg.num_heads // cfg.num_kv_heads))
+    d_qk, d_v = cfg.attn_widths
+    fused = layout.seq is not None or (default_positions and (flash.supports(
+        s, d_qk, cfg.dtype, group=cfg.num_heads // cfg.num_kv_heads)
+        or flash.kernel_takes(s, d_qk, d_v)))
     layers = [params[name] for name in stacks]
     stacked = not isinstance(layers[0], (list, tuple))
     layout.check_stacked(stacked)

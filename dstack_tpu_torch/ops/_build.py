@@ -36,8 +36,8 @@ SIGNATURES = {
     "paged_decode": ("dstack_paged_decode",
                      [_P] * 6 + [_LL] + [_P] * 5 + [_I] * 7
                      + [_F, _I, _P]),
-    "flash_fwd": ("dstack_flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _P]),
-    "flash_bwd": ("dstack_flash_bwd", [_P] * 11 + [_I] * 6 + [_F, _P]),
+    "flash_fwd": ("dstack_flash_fwd", [_P] * 5 + [_I] * 7 + [_F, _P]),
+    "flash_bwd": ("dstack_flash_bwd", [_P] * 11 + [_I] * 7 + [_F, _P]),
     "rownorm": ("dstack_rownorm", [_P] * 14 + [_LL] * 2 + [_I] * 9
                 + [_F, _P]),
     "adamw": ("dstack_adamw", [_P] * 5 + [_I] * 6 + [_F] * 6 + [_P]),

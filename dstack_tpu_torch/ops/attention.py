@@ -26,12 +26,14 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: Optional[int] = None) -> torch.Tensor:
     """Causal GQA attention.
 
-    q: [B, Sq, Hq, D]; k, v: [B, Skv, Hkv, D].  Positions ([B or 1, S])
+    q: [B, Sq, Hq, D]; k: [B, Skv, Hkv, D]; v: [B, Skv, Hkv, Dv] (Dv may
+    differ from D: latent attention).  Positions ([B or 1, S])
     default to 0..S-1; ``kv_valid_length`` [B] masks cache rows at or past
     it; a ``window`` W masks the keys W or more positions behind the
     query (a sliding-window layer).  ``q * scale`` goes into the dot, scores and softmax are f32 with
     -1e30 where masked, and the probabilities are cast to v's dtype before
-    the PV product.  Returns [B, Sq, Hq, D] in q's dtype.
+    the PV product.  Returns [B, Sq, Hq, Dv] in q's dtype; the scale
+    defaults to D^-0.5.
     """
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -58,7 +60,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
                        v.float())
-    return out.reshape(b, sq, hq, d).to(q.dtype)
+    return out.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
 
 
 class KVCache(NamedTuple):

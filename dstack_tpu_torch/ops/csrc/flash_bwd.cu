@@ -44,6 +44,23 @@
 // the tile of the last query that sees its last key, and masks, besides
 // the diagonal and ragged tiles, each pair that some row's window cuts.
 //
+// Multi-head latent attention (q and k 192 wide, v, o and do 128) is
+// mla_bwd_kernel<192, 128>, with its pre- and post-pass mla_prep_kernel
+// and mla_post_kernel: the same body with S^T, dK and dQ over 192 and
+// dP^T and dV over 128.  What changes with the widths:
+//   * registers: dK's accumulator is 96 f32 a thread and dV's 64, 160 in
+//     all against D = 128's 128; S^T and dP^T are still made kQN = 32
+//     query columns at a time, as at D = 128, and ptxas spills nothing
+//     under the 240 setmaxnreg gives (16 columns a slice ran the cell's
+//     launch 16% slower on an H100);
+//   * shared memory: K 48 KB and V 32 KB once, two stages of Q (24 KB)
+//     and dO (16 KB), two dS^T buffers (32 KB) and the two dQ blocks
+//     (32 KB): 226 KB of the SM's 227;
+//   * dQ: a [64, 192] tile is three [64, 64] column blocks for two
+//     warpgroups.  Each takes its own block (0 or 1) over all 128 keys,
+//     and block 2 over its own 64 keys; both reduce-add into block 2,
+//     so the two do equal work.
+//
 // Numerics held to the JAX kernels: s = (q . k) * scale in f32, -1e30
 // above the diagonal; p = exp(s - lse) in f32 (as exp2 of base-2 values);
 // dv += bf16(p)^T do; dp = do v^T in f32; ds = bf16(p * (dp - delta));
@@ -59,25 +76,33 @@ constexpr int kBN = 128;  // key rows per CTA (64 per consumer warpgroup)
 constexpr int kThreads = 384;
 constexpr int kStages = 2;
 
-// Tile shapes by head_dim: kBM query rows per streamed tile (128 at D = 64,
-// so that each tile pair carries twice the work of a 64-row tile; 64 at
-// D = 128), S^T and dP^T made kQN query columns at a time.  The dK and dV
-// accumulators hold D f32 a thread; the slices keep the rest of each
-// consumer's registers (P^T, dS^T, and the previous slice's fragments
-// still read by its dV and dK products) under the 240 setmaxnreg gives it.
-template <int D>
+// Tile shapes by head_dim (D the QK width, DV the V width): kBM query rows
+// per streamed tile (128 at D = 64, so that each tile pair carries twice
+// the work of a 64-row tile; 64 at D = 128 and 192), S^T and dP^T made kQN
+// query columns at a time.  The dK and dV accumulators hold (D + DV) / 2
+// f32 a thread; the slices keep the rest of each consumer's registers
+// (P^T, dS^T, and the previous slice's fragments still read by its dV and
+// dK products) under the 240 setmaxnreg gives it.
+template <int D, int DV = D>
 struct Bwd {
   static constexpr int kBM = D == 64 ? 128 : 64;
   static constexpr int kQN = D == 64 ? 64 : 32;
-  static constexpr int kKVBytes = kBN * D * 2;  // the K or the V tile
-  static constexpr int kQBytes = kBM * D * 2;   // one Q or dO tile
+  static constexpr int kKBytes = kBN * D * 2;   // the K tile
+  static constexpr int kVBytes = kBN * DV * 2;  // the V tile
+  static constexpr int kQBytes = kBM * D * 2;   // one Q tile
+  static constexpr int kDoBytes = kBM * DV * 2;  // one dO tile
+  static constexpr int kStageBytes = kQBytes + kDoBytes;
   static constexpr int kDsBytes = kBN * kBM * 2;
   static constexpr int kRowBytes = kBM * 4;     // one lse or delta tile
   static constexpr int kDqBytes = 64 * 64 * 4;  // one warpgroup's [64, 64] f32 dQ block
+  // [64, 64] dQ blocks a warpgroup adds a pair: D = 192's third block is
+  // shared by both (see the top of the file)
+  static constexpr int kDqParts = D == 192 ? 2 : 1;
   static constexpr int kTiles =
-      2 * kKVBytes + kStages * 2 * kQBytes + 2 * kDsBytes + 2 * kDqBytes;
+      kKBytes + kVBytes + kStages * kStageBytes + 2 * kDsBytes + 2 * kDqBytes;
   static constexpr size_t kSmem =
       1024 + kTiles + kStages * 2 * kRowBytes + (1 + 2 * kStages) * sizeof(uint64_t);
+  static_assert(kSmem <= 227 * 1024, "shared memory over the SM's 227 KB");
 };
 
 // dq_accum[s0 .. s0 + 63, h, d0 .. d0 + 63] += dq (a warpgroup's [64, 64]
@@ -105,23 +130,25 @@ __device__ __forceinline__ void reduce_dq(const float (&dq)[32], unsigned char* 
   }
 }
 
-// The kernel's body: kWindow false is the causal kernel (window unused)
-template <int D, bool kWindow>
+// The kernel's body: kWindow false is the causal kernel (window unused);
+// DV < D is latent attention's (v, o and do narrower than q and k)
+template <int D, bool kWindow, int DV = D>
 __device__ __forceinline__ void bwd_body(const CUtensorMap* q_map, const CUtensorMap* k_map,
                                          const CUtensorMap* v_map, const CUtensorMap* do_map,
                                          const CUtensorMap* dq_map, const float* __restrict__ lse,
                                          const float* __restrict__ delta, bf16* __restrict__ dk,
                                          bf16* __restrict__ dv, int seq, int hq, int hkv,
                                          float scale, float scale_log2, int window) {
-  using C = Bwd<D>;
+  using C = Bwd<D, DV>;
   constexpr int kBM = C::kBM, kQN = C::kQN;
+  constexpr int kStageElems = C::kStageBytes / 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1k(smem_raw);
   bf16* k_s = reinterpret_cast<bf16*>(smem);
   bf16* v_s = k_s + kBN * D;
-  bf16* qdo_s = v_s + kBN * D;  // stage st: Q, then dO
+  bf16* qdo_s = v_s + kBN * DV;  // stage st: Q, then dO
   // two dS^T buffers, each [kBM / 64 query blocks][128 keys][64 queries]
-  unsigned char* ds_s = smem + 2 * C::kKVBytes + kStages * 2 * C::kQBytes;
+  unsigned char* ds_s = smem + C::kKBytes + C::kVBytes + kStages * C::kStageBytes;
   unsigned char* dq_s = ds_s + 2 * C::kDsBytes;  // each warpgroup's f32 dQ block
   float* rows_s = reinterpret_cast<float*>(smem + C::kTiles);  // stage st: lse, then delta
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kTiles + kStages * 2 * C::kRowBytes);
@@ -151,9 +178,9 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* q_map, const CUtenso
   if (wg == 2) {  // producer warpgroup: one thread issues every load
     regs_dec<kProducerRegs>();
     if (threadIdx.x == 256) {
-      mbar_expect_tx(kv_full, 2 * C::kKVBytes);
+      mbar_expect_tx(kv_full, C::kKBytes + C::kVBytes);
       tma_load_tile<D>(k_s, kBN, k_map, kv_full, hk, jk * kBN, b);
-      tma_load_tile<D>(v_s, kBN, v_map, kv_full, hk, jk * kBN, b);
+      tma_load_tile<DV>(v_s, kBN, v_map, kv_full, hk, jk * kBN, b);
       int n = 0;
       for (int g = 0; g < group; ++g) {
         const int h = hk * group + g;
@@ -163,10 +190,10 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* q_map, const CUtenso
           // last tile's Q and dO rows past S read as zero)
           const int rows = min(kBM, seq - it * kBM);
           mbar_wait(empty + st, ((n / kStages) & 1) ^ 1);
-          mbar_expect_tx(full + st, 2 * C::kQBytes + 2 * rows * 4);
-          bf16* q_st = qdo_s + st * 2 * kBM * D;
+          mbar_expect_tx(full + st, C::kStageBytes + 2 * rows * 4);
+          bf16* q_st = qdo_s + st * kStageElems;
           tma_load_tile<D>(q_st, kBM, q_map, full + st, h, it * kBM, b);
-          tma_load_tile<D>(q_st + kBM * D, kBM, do_map, full + st, h, it * kBM, b);
+          tma_load_tile<DV>(q_st + kBM * D, kBM, do_map, full + st, h, it * kBM, b);
           const long long row_off = ((long long)b * hq + h) * seq + it * kBM;
           float* r_st = rows_s + st * 2 * kBM;
           bulk_load(r_st, lse + row_off, rows * 4, full + st);
@@ -180,14 +207,16 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* q_map, const CUtenso
     const int row = warp * 16 + lane / 4;  // this thread's rows: row, row + 8
     const int c0 = 2 * (lane % 4);
     const int kpos = jk * kBN + wg * 64 + row;
-    float dk_acc[D / 2], dv_acc[D / 2];
+    float dk_acc[D / 2], dv_acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dv_acc[i] = 0.f;
     const bf16* k_w = k_s + wg * 64 * 64;  // this warpgroup's rows of each column block
     const bf16* v_w = v_s + wg * 64 * 64;
-    // this warpgroup's [64, 64] block of each tile's dQ: query rows
-    // qrow0 .., head_dim columns dcol0 ..
-    const int qrow0 = kBM == 128 ? wg * 64 : 0, dcol0 = D == 128 ? wg * 64 : 0;
+    // this warpgroup's [64, 64] blocks of each tile's dQ: query rows
+    // qrow0 .., head_dim columns from its block (0 at D = 64)
+    const int qrow0 = kBM == 128 ? wg * 64 : 0, own_col = D == 64 ? 0 : wg * 64;
     unsigned char* dq_w = dq_s + wg * C::kDqBytes;
     mbar_wait(kv_full, 0);
 
@@ -196,7 +225,7 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* q_map, const CUtenso
       const int h = hk * group + g;
       for (int it = first; it < stop; ++it, ++n) {
         const int st = n % kStages;
-        const bf16* q_st = qdo_s + st * 2 * kBM * D;
+        const bf16* q_st = qdo_s + st * kStageElems;
         const bf16* do_st = q_st + kBM * D;
         const float* lse_st = rows_s + st * 2 * kBM;
         const float* delta_st = lse_st + kBM;
@@ -221,7 +250,7 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* q_map, const CUtenso
           }
           wgmma_commit();
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk) {
+          for (int kk = 0; kk < DV / 16; ++kk) {
             const int off = (kk / 4) * kBN * 64 + (kk % 4) * 16;
             const int qoff = (kk / 4) * kBM * 64 + hf * kQN * 64 + (kk % 4) * 16;
             WgmmaSS<kQN, 0, 0>::run(dp, desc_b128(v_w + off), desc_b128(do_st + qoff), kk > 0);
@@ -280,7 +309,7 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* q_map, const CUtenso
 #pragma unroll
           for (int kq = 0; kq < kQN / 16; ++kq) {
             const int kk = hf * (kQN / 16) + kq;
-            WgmmaRS<D, 1>::run(dv_acc, pt[kq], desc_b128(do_st + kk * 16 * 64, kBM * 128));
+            WgmmaRS<DV, 1>::run(dv_acc, pt[kq], desc_b128(do_st + kk * 16 * 64, kBM * 128));
           }
 #pragma unroll
           for (int kq = 0; kq < kQN / 16; ++kq) {
@@ -292,21 +321,30 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* q_map, const CUtenso
         wgmma_wait<0>();
         mbar_arrive(empty + st);  // Q, dO, lse and delta of this stage are read
 
-        // this warpgroup's [64, 64] block of dQ = dS K over both warpgroups'
-        // keys: wait until both have written dS^T (the other buffer is still
-        // read by the previous pair's dQ products until both pass here)
+        // this warpgroup's [64, 64] blocks of dQ = dS K: its own column
+        // block over both warpgroups' keys, and at D = 192 the third block
+        // over its own keys (key steps k0 .. k0 + nk - 1); wait until both
+        // have written dS^T (the other buffer is still read by the previous
+        // pair's dQ products until both pass here)
         fence_proxy_async();
         named_barrier(1, 2 * 128);
-        float dq[32];
-        wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kBN / 16; ++kk)
-          WgmmaSS<64, 1, 1>::run(dq, desc_b128(ds_buf + (qrow0 / 64) * kBN * 128 + kk * 16 * 128),
-                                 desc_b128(k_s + (dcol0 / 64) * kBN * 64 + kk * 16 * 64),
-                                 kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        reduce_dq(dq, dq_w, dq_map, t, wg, row, c0, dcol0, h, it * kBM + qrow0, b);
+        for (int part = 0; part < C::kDqParts; ++part) {
+          const int dcol0 = part == 0 ? own_col : 128;
+          const int nk = part == 0 ? kBN / 16 : kBN / 32, k0 = part == 0 ? 0 : wg * nk;
+          float dq[32];
+          wgmma_fence();
+#pragma unroll
+          for (int i = 0; i < nk; ++i) {
+            const int kk = k0 + i;
+            WgmmaSS<64, 1, 1>::run(dq,
+                                   desc_b128(ds_buf + (qrow0 / 64) * kBN * 128 + kk * 16 * 128),
+                                   desc_b128(k_s + (dcol0 / 64) * kBN * 64 + kk * 16 * 64), i > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          reduce_dq(dq, dq_w, dq_map, t, wg, row, c0, dcol0, h, it * kBM + qrow0, b);
+        }
       }
     }
     if (t == 0) bulk_wait();
@@ -317,14 +355,15 @@ __device__ __forceinline__ void bwd_body(const CUtensorMap* q_map, const CUtenso
     for (int e = 0; e < 2; ++e) {
       const int pos = kpos + 8 * e;
       if (pos >= seq) continue;
-      const long long off = (((long long)b * seq + pos) * hkv + hk) * D + c0;
+      const long long row_kv = ((long long)b * seq + pos) * hkv + hk;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        *reinterpret_cast<uint32_t*>(dk + off + 8 * i) =
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(dk + row_kv * D + c0 + 8 * i) =
             pack_bf16(dk_acc[4 * i + 2 * e] * scale, dk_acc[4 * i + 2 * e + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dv + off + 8 * i) =
+#pragma unroll
+      for (int i = 0; i < DV / 8; ++i)
+        *reinterpret_cast<uint32_t*>(dv + row_kv * DV + c0 + 8 * i) =
             pack_bf16(dv_acc[4 * i + 2 * e], dv_acc[4 * i + 2 * e + 1]);
-      }
     }
   }
 }
@@ -358,10 +397,41 @@ prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout, float* __
   }
 }
 
-// dq = bf16(dq_accum * scale), 4 values a thread
+// latent attention's pre-pass: delta over the V width DV, dq_accum's row
+// zeroed over the QK width D; one warp per (b, s, h) row
+template <int D, int DV>
 __global__ void __launch_bounds__(256)
-post_kernel(const float* __restrict__ dq_accum, bf16* __restrict__ dq, long long n,
-            float scale) {
+mla_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                float* __restrict__ delta, float* __restrict__ dq_accum, long long rows, int seq,
+                int hq) {
+  const long long r = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  constexpr int kPerV = DV / 32, kPerQ = D / 32;  // values a lane
+  float sum = 0.f;
+#pragma unroll
+  for (int e = 0; e < kPerV; e += 2) {
+    const int c = lane * kPerV + e;
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(o + r * DV + c);
+    const __nv_bfloat162 g = *reinterpret_cast<const __nv_bfloat162*>(dout + r * DV + c);
+    sum += __bfloat162float(a.x) * __bfloat162float(g.x) +
+           __bfloat162float(a.y) * __bfloat162float(g.y);
+  }
+#pragma unroll
+  for (int e = 0; e < kPerQ; e += 2)
+    *reinterpret_cast<float2*>(dq_accum + r * D + lane * kPerQ + e) = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) {
+    const long long bs = r / hq;  // r = (b * S + s) * Hq + h
+    const int h = (int)(r % hq), s = (int)(bs % seq);
+    delta[((bs / seq) * hq + h) * seq + s] = sum;
+  }
+}
+
+// dq = bf16(dq_accum * scale), 4 values a thread
+__device__ __forceinline__ void post_body(const float* __restrict__ dq_accum,
+                                          bf16* __restrict__ dq, long long n, float scale) {
   const long long i = ((long long)blockIdx.x * 256 + threadIdx.x) * 4;
   if (i >= n) return;
   const float4 a = *reinterpret_cast<const float4*>(dq_accum + i);
@@ -369,6 +439,19 @@ post_kernel(const float* __restrict__ dq_accum, bf16* __restrict__ dq, long long
   out.x = pack_bf16(a.x * scale, a.y * scale);
   out.y = pack_bf16(a.z * scale, a.w * scale);
   *reinterpret_cast<uint2*>(dq + i) = out;
+}
+
+__global__ void __launch_bounds__(256)
+post_kernel(const float* __restrict__ dq_accum, bf16* __restrict__ dq, long long n,
+            float scale) {
+  post_body(dq_accum, dq, n, scale);
+}
+
+// latent attention's post-pass (its own name in a trace)
+__global__ void __launch_bounds__(256)
+mla_post_kernel(const float* __restrict__ dq_accum, bf16* __restrict__ dq, long long n,
+                float scale) {
+  post_body(dq_accum, dq, n, scale);
 }
 
 template <int D>
@@ -392,6 +475,59 @@ bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
            int hq, int hkv, float scale, float scale_log2, int window) {
   bwd_body<D, kWindow>(&q_map, &k_map, &v_map, &do_map, &dq_map, lse, delta, dk, dv, seq, hq,
                        hkv, scale, scale_log2, window);
+}
+
+// latent attention's instantiation: QK width D, V width DV (its own name
+// in a trace; causal only)
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+mla_bwd_kernel(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap do_map,
+               const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ lse,
+               const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+               int seq, int hq, int hkv, float scale, float scale_log2) {
+  bwd_body<D, false, DV>(&q_map, &k_map, &v_map, &do_map, &dq_map, lse, delta, dk, dv, seq, hq,
+                         hkv, scale, scale_log2, 0);
+}
+
+template <int D, int DV>
+int launch_mla_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const void* lse, void* delta, void* dq_accum, void* dq, void* dk, void* dv,
+                   int batch, int seq, int hq, int hkv, float scale, cudaStream_t stream) {
+  using C = Bwd<D, DV>;
+  CUtensorMap q_map, k_map, v_map, do_map, dq_map;
+  if (!make_map(&q_map, q, batch, seq, hq, D, C::kBM) ||
+      !make_map(&dq_map, dq_accum, batch, seq, hq, D, 64, true) ||
+      !make_map(&k_map, k, batch, seq, hkv, D, kBN) ||
+      !make_map(&v_map, v, batch, seq, hkv, DV, kBN) ||
+      !make_map(&do_map, dout, batch, seq, hq, DV, C::kBM)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                 const CUtensorMap, const float*, const float*, bf16*, bf16*, int, int, int,
+                 float, float) = mla_bwd_kernel<D, DV>;
+  cudaError_t err = allow_smem(kernel, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)batch * seq * hq;
+  float* acc = static_cast<float*>(dq_accum);
+  mla_prep_kernel<D, DV><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(delta),
+      acc, rows, seq, hq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((seq + kBN - 1) / kBN, hkv, batch);
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(
+      q_map, k_map, v_map, do_map, dq_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq, hq,
+      hkv, scale, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long n = rows * D;
+  mla_post_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, stream>>>(
+      acc, static_cast<bf16*>(dq), n, scale);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
@@ -448,23 +584,33 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 }  // namespace
 }  // namespace flash
 
-// Plain C entry point (loaded with ctypes).  q/o/do [B, S, Hq, D], k/v
-// [B, S, Hkv, D] bf16, lse [B, Hq, S] f32, all contiguous and 16-byte
-// aligned, S a multiple of 64; delta [B, Hq, S] and dq_accum [B, S, Hq, D]
-// are f32 scratch the caller allocates.  Writes dq [B, S, Hq, D] and dk/dv
-// [B, S, Hkv, D] bf16.  window 0 is causal, a window W in [1, S) the
-// sliding-window instantiation (the forward's lse must be of the same
-// window).  Launches the three kernels on `stream` and returns
-// cudaGetLastError() after them.
+// Plain C entry point (loaded with ctypes).  q [B, S, Hq, D], o/do
+// [B, S, Hq, Dv], k [B, S, Hkv, D], v [B, S, Hkv, Dv] bf16, lse [B, Hq, S]
+// f32, all contiguous and 16-byte aligned, S a multiple of 64; delta
+// [B, Hq, S] and dq_accum [B, S, Hq, D] are f32 scratch the caller
+// allocates.  Writes dq [B, S, Hq, D], dk [B, S, Hkv, D] and dv
+// [B, S, Hkv, Dv] bf16.  (D, Dv) is (64, 64), (128, 128) or latent
+// attention's (192, 128).  window 0 is causal, a window W in [1, S) the
+// sliding-window instantiation (equal widths only; the forward's lse must
+// be of the same window).  Launches the three kernels on `stream` and
+// returns cudaGetLastError() after them.
 extern "C" int dstack_flash_bwd(const void* q, const void* k, const void* v, const void* o,
                                 const void* dout, const void* lse, void* delta, void* dq_accum,
                                 void* dq, void* dk, void* dv, int batch, int seq, int hq, int hkv,
-                                int head_dim, int window, float scale, void* stream) {
+                                int head_dim, int head_dim_v, int window, float scale,
+                                void* stream) {
   if (seq <= 0 || seq % 64 || hkv <= 0 || hq % hkv || batch <= 0 || window < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (window >= seq) window = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim_v != head_dim) {
+    if (head_dim == 192 && head_dim_v == 128 && window == 0) {
+      return flash::launch_mla_bwd<192, 128>(q, k, v, o, dout, lse, delta, dq_accum, dq, dk, dv,
+                                             batch, seq, hq, hkv, scale, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (head_dim == 64) {
     return flash::launch_bwd<64>(q, k, v, o, dout, lse, delta, dq_accum, dq, dk, dv, batch, seq,
                                  hq, hkv, window, scale, s);

@@ -3,8 +3,10 @@
 // wgmma products and the shared-memory layout they agree on.
 //
 // Layout at the C boundary is the JAX package's [B, S, H, D] (contiguous,
-// bf16): the row of position s of head h is D contiguous values.  lse and
-// delta are f32 [B, Hq, S].  Query head h reads kv head h / (Hq / Hkv).
+// bf16): the row of position s of head h is D contiguous values (q and k
+// at the QK width, v, o and do at the V width, which latent attention
+// makes narrower).  lse and delta are f32 [B, Hq, S].  Query head h reads
+// kv head h / (Hq / Hkv).
 //
 // Tiles in shared memory.  A [R, D] bf16 tile is D / 64 column blocks, each
 // [R, 64] with its 128-byte rows in the 128-byte swizzle (16-byte chunk c of
@@ -185,6 +187,13 @@ __device__ __forceinline__ uint64_t desc_b128(const void* p, uint32_t lbo = 16) 
   "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "  \
   "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "  \
   "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define FLASH_R96 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, " \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, " \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, " \
+  "%87, %88, %89, %90, %91, %92, %93, %94, %95}"
 
 // d (+)= A B, A and B both from shared memory (descriptors); kTransA /
 // kTransB = 1 for an MN-major operand.  `accumulate` = 0 overwrites d.
@@ -229,12 +238,15 @@ struct WgmmaRS;
 #define FLASH_OPERANDS_16 FLASH_F16(0)
 #define FLASH_OPERANDS_32 FLASH_F16(0), FLASH_F16(16)
 #define FLASH_OPERANDS_64 FLASH_F16(0), FLASH_F16(16), FLASH_F16(32), FLASH_F16(48)
+#define FLASH_OPERANDS_96 \
+  FLASH_F16(0), FLASH_F16(16), FLASH_F16(32), FLASH_F16(48), FLASH_F16(64), FLASH_F16(80)
 
 FLASH_WGMMA_SS(32, 16, FLASH_R16, 16, 17, 18, 19, 20)
 FLASH_WGMMA_SS(64, 32, FLASH_R32, 32, 33, 34, 35, 36)
 FLASH_WGMMA_SS(128, 64, FLASH_R64, 64, 65, 66, 67, 68)
 FLASH_WGMMA_RS(64, 32, FLASH_R32, 32, 33, 34, 35, 36, 37, 38)
 FLASH_WGMMA_RS(128, 64, FLASH_R64, 64, 65, 66, 67, 68, 69, 70)
+FLASH_WGMMA_RS(192, 96, FLASH_R96, 96, 97, 98, 99, 100, 101, 102)
 
 // 2^x in one MUFU instruction (results below 2^-126 flush to 0); exp2f
 // wraps the same instruction in denormal handling

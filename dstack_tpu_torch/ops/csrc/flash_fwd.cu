@@ -39,6 +39,14 @@
 // tile that holds its first row's oldest key, and masks, besides the
 // diagonal tile, each tile that some row's window cuts.
 //
+// Multi-head latent attention (DeepSeek-V2/V3's MLA, trained) is causal
+// attention whose q and k are 192 wide (128 latent, 64 rotated) and whose
+// v is 128 wide: mla_fwd_kernel<192, 128>, the same body with the QK
+// product reduced over 192 (three column blocks of Q and K) and O over
+// 128.  Its Q tile and K stages grow by half: Q 48 KB, two stages of K
+// (48 KB) and V (32 KB), 209 KB in all; the accumulators (S and O, 64
+// f32 a thread each) are D = 128's.
+//
 // Numerics held to the JAX kernels: s = (q . k) * scale in f32 (exp taken
 // as one exp2 of (q . k - m) * scale * log2(e), an FFMA); -1e30 above the
 // diagonal (only the diagonal tile is masked); p = exp(s - m_new) in f32,
@@ -54,28 +62,34 @@ constexpr int kBM = 128;  // query rows per CTA (64 per consumer warpgroup)
 constexpr int kBN = 128;  // key rows per K/V tile
 constexpr int kThreads = 384;
 
-template <int D>
+// D: the QK width, DV: the V (and O) width
+template <int D, int DV = D>
 struct Fwd {
   static constexpr int kStages = D == 64 ? 3 : 2;
   static constexpr int kQBytes = kBM * D * 2;
-  static constexpr int kKVBytes = kBN * D * 2;  // one K or V tile
-  static constexpr size_t kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes +
+  static constexpr int kKBytes = kBN * D * 2;   // one K tile
+  static constexpr int kVBytes = kBN * DV * 2;  // one V tile
+  static constexpr int kStageBytes = kKBytes + kVBytes;
+  static constexpr size_t kSmem = 1024 + kQBytes + kStages * kStageBytes +
                                   (1 + 2 * kStages) * sizeof(uint64_t);
+  static_assert(kSmem <= 227 * 1024, "shared memory over the SM's 227 KB");
 };
 
-// The kernel's body: kWindow false is the causal kernel (window unused)
-template <int D, bool kWindow>
+// The kernel's body: kWindow false is the causal kernel (window unused);
+// DV < D is latent attention's (v and o narrower than q and k)
+template <int D, bool kWindow, int DV = D>
 __device__ __forceinline__ void fwd_body(const CUtensorMap* q_map, const CUtensorMap* k_map,
                                          const CUtensorMap* v_map, bf16* __restrict__ o,
                                          float* __restrict__ lse, int seq, int hq, int hkv,
                                          float scale, float scale_log2, int window) {
-  using C = Fwd<D>;
+  using C = Fwd<D, DV>;
   constexpr int S = C::kStages;
+  constexpr int kStageElems = C::kStageBytes / 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1k(smem_raw);
   bf16* q_s = reinterpret_cast<bf16*>(smem);
   bf16* kv_s = reinterpret_cast<bf16*>(smem + C::kQBytes);  // stage st: K, then V
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kQBytes + 2 * S * C::kKVBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::kQBytes + S * C::kStageBytes);
   uint64_t* q_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + S;
@@ -111,10 +125,10 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* q_map, const CUtenso
       for (int n = 0; n < tiles; ++n) {
         const int st = n % S, j = iq - n;
         mbar_wait(empty + st, ((n / S) & 1) ^ 1);
-        mbar_expect_tx(full + st, 2 * C::kKVBytes);
-        bf16* k_st = kv_s + st * 2 * kBN * D;
+        mbar_expect_tx(full + st, C::kStageBytes);
+        bf16* k_st = kv_s + st * kStageElems;
         tma_load_tile<D>(k_st, kBN, k_map, full + st, hk, j * kBN, b);
-        tma_load_tile<D>(k_st + kBN * D, kBN, v_map, full + st, hk, j * kBN, b);
+        tma_load_tile<DV>(k_st + kBN * D, kBN, v_map, full + st, hk, j * kBN, b);
       }
     }
   } else {  // consumer warpgroup wg: query rows 64 * wg .. + 63 of the tile
@@ -123,15 +137,15 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* q_map, const CUtenso
     const int row = wg * 64 + warp * 16 + lane / 4;  // and row + 8
     const int c0 = 2 * (lane % 4);
     const int qpos = iq * kBM + row;
-    float acc[D / 2];
+    float acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     mbar_wait(q_full, 0);
 
     for (int n = 0; n < tiles; ++n) {
       const int st = n % S, j = iq - n;
-      const bf16* k_st = kv_s + st * 2 * kBN * D;
+      const bf16* k_st = kv_s + st * kStageElems;
       const bf16* v_st = k_st + kBN * D;
       mbar_wait(full + st, (n / S) & 1);
 
@@ -195,7 +209,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* q_map, const CUtenso
         l[e] = l[e] * alpha[e] + sum[e];
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
       // O += P V: P from the registers (bf16), V MN-major in shared memory
       wgmma_fence();
@@ -203,7 +217,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* q_map, const CUtenso
       for (int kk = 0; kk < kBN / 16; ++kk) {
         uint32_t a[4];
         a_fragment(a, s, kk);
-        WgmmaRS<D, 1>::run(acc, a, desc_b128(v_st + kk * 16 * 64, kBN * 128));
+        WgmmaRS<DV, 1>::run(acc, a, desc_b128(v_st + kk * 16 * 64, kBN * 128));
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -216,9 +230,9 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap* q_map, const CUtenso
     for (int e = 0; e < 2; ++e) {
       const int pos = qpos + 8 * e;
       if (pos >= seq) continue;
-      bf16* orow = o + (((long long)b * seq + pos) * hq + h) * D + c0;
+      bf16* orow = o + (((long long)b * seq + pos) * hq + h) * DV + c0;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < DV / 8; ++i)
         *reinterpret_cast<uint32_t*>(orow + 8 * i) =
             pack_bf16(acc[4 * i + 2 * e] / l[e], acc[4 * i + 2 * e + 1] / l[e]);
       if (lane % 4 == 0) lse[((long long)b * hq + h) * seq + pos] = m[e] * scale + logf(l[e]);
@@ -242,6 +256,37 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
            float* __restrict__ lse, int seq, int hq, int hkv, float scale, float scale_log2,
            int window) {
   fwd_body<D, kWindow>(&q_map, &k_map, &v_map, o, lse, seq, hq, hkv, scale, scale_log2, window);
+}
+
+// latent attention's instantiation: QK width D, V width DV (its own name
+// in a trace; causal only)
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+mla_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+               float* __restrict__ lse, int seq, int hq, int hkv, float scale, float scale_log2) {
+  fwd_body<D, false, DV>(&q_map, &k_map, &v_map, o, lse, seq, hq, hkv, scale, scale_log2, 0);
+}
+
+template <int D, int DV>
+int launch_mla_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+                   int seq, int hq, int hkv, float scale, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  if (!make_map(&q_map, q, batch, seq, hq, D, kBM) ||
+      !make_map(&k_map, k, batch, seq, hkv, D, kBN) ||
+      !make_map(&v_map, v, batch, seq, hkv, DV, kBN)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((seq + kBM - 1) / kBM, hq, batch);
+  void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, bf16*, float*, int,
+                 int, int, float, float) = mla_fwd_kernel<D, DV>;
+  const cudaError_t err = allow_smem(kernel, Fwd<D, DV>::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, Fwd<D, DV>::kSmem, stream>>>(
+      q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), seq, hq, hkv, scale,
+      scale * kLog2e);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
@@ -278,19 +323,27 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
 }  // namespace
 }  // namespace flash
 
-// Plain C entry point (loaded with ctypes).  q [B, S, Hq, D], k/v
-// [B, S, Hkv, D] bf16, contiguous, 16-byte aligned, S a multiple of 64;
-// writes o [B, S, Hq, D] bf16 and lse [B, Hq, S] f32.  window 0 is causal,
-// a window W in [1, S) the sliding-window instantiation.  Launches on
-// `stream` and returns cudaGetLastError() after the launch (0 = launched).
+// Plain C entry point (loaded with ctypes).  q [B, S, Hq, D], k
+// [B, S, Hkv, D], v [B, S, Hkv, Dv] bf16, contiguous, 16-byte aligned, S a
+// multiple of 64; writes o [B, S, Hq, Dv] bf16 and lse [B, Hq, S] f32.
+// (D, Dv) is (64, 64), (128, 128) or latent attention's (192, 128).
+// window 0 is causal, a window W in [1, S) the sliding-window
+// instantiation (equal widths only).  Launches on `stream` and returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int dstack_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                                int batch, int seq, int hq, int hkv, int head_dim, int window,
-                                float scale, void* stream) {
+                                int batch, int seq, int hq, int hkv, int head_dim, int head_dim_v,
+                                int window, float scale, void* stream) {
   if (seq <= 0 || seq % 64 || hkv <= 0 || hq % hkv || batch <= 0 || window < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (window >= seq) window = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim_v != head_dim) {
+    if (head_dim == 192 && head_dim_v == 128 && window == 0) {
+      return flash::launch_mla_fwd<192, 128>(q, k, v, o, lse, batch, seq, hq, hkv, scale, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (head_dim == 64) {
     return flash::launch_fwd<64>(q, k, v, o, lse, batch, seq, hq, hkv, window, scale, s);
   }

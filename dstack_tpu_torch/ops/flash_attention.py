@@ -11,7 +11,9 @@ whose backward is ``csrc/flash_bwd.cu``.  The forward keeps only o and the
 softmax logsumexp; the backward recomputes the probabilities from them.
 With a ``window`` W each query i sees the keys j with 0 <= i - j < W (a
 sliding-window layer): the kernels then walk only the key tiles that meet
-the window, in an instantiation of their own.
+the window, in an instantiation of their own.  v may be narrower than q
+and k (multi-head latent attention: QK width 192, V width 128), in a
+third instantiation, ``mla_fwd_kernel`` / ``mla_bwd_kernel``.
 :func:`flash_attention_sharded` runs the same on each rank's rows and heads
 of DTensors over a device mesh (the JAX package's ``shard_map`` wrapper).
 
@@ -46,6 +48,9 @@ _NEG_INF = -1e30
 PAGED_HEAD_DIMS = tuple(range(16, 257, 16))
 #: head dims the causal kernels are built for, and their row-block size
 FLASH_HEAD_DIMS = (64, 128)
+#: (QK width, V width) pairs the kernels are built for: the causal and
+#: windowed ones at equal widths, latent attention's at 192 / 128
+FLASH_WIDTHS = ((64, 64), (128, 128), (192, 128))
 _FLASH_BLOCK = 64
 
 
@@ -65,6 +70,16 @@ def supports(seq: int, head_dim: int, dtype: torch.dtype,
     lanes = max(head_dim, 128)
     per_program = seq * lanes * (3 * dtype.itemsize + 4)
     return per_program <= 10 * 1024 * 1024
+
+
+def kernel_takes(seq: int, d_qk: int, d_v: Optional[int] = None) -> bool:
+    """Whether the card's kernels take this shape, whatever the TPU's
+    budget (:func:`supports`): seq a positive multiple of 128 and the
+    widths (``d_v`` None: equal to ``d_qk``) among :data:`FLASH_WIDTHS`.
+    The kernels stream K/V tiles, so the sequence has no limit of theirs;
+    the walk fuses where either rule holds."""
+    d_v = d_qk if d_v is None else d_v
+    return seq >= 128 and seq % 128 == 0 and (d_qk, d_v) in FLASH_WIDTHS
 
 
 def _heads_first(x: torch.Tensor, group: int = 1) -> torch.Tensor:
@@ -101,8 +116,9 @@ def flash_attention_fwd_plain(q, k, v, scale: Optional[float] = None,
                               window: Optional[int] = None):
     """Plain version of the forward kernel: ``(o, lse)``.
 
-    q [B, S, Hq, D], k/v [B, S, Hkv, D]; o [B, S, Hq, D] in q's dtype, lse
-    f32 [B, Hq, S].  The kernel's numerics with one softmax pass over the
+    q/k [B, S, H, D], v [B, S, Hkv, Dv] (Dv may differ from D); o [B, S,
+    Hq, Dv] in q's dtype, lse f32 [B, Hq, S].  The scale defaults to
+    D^-0.5.  The kernel's numerics with one softmax pass over the
     whole row: s = (q . k) * scale in f32, -1e30 above the diagonal (and
     outside the ``window``), p = exp(s - m) summed in f32, p cast to v's
     dtype before PV, o = acc / l, lse = m + log(l)."""
@@ -144,25 +160,27 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do,
     dq = torch.matmul(ds, _heads_first(k, group)) * scale
 
     def kv_grad(x):  # [B, Hq, S, D] -> group sum -> [B, S, Hkv, D]
-        x = x.reshape(b, hkv, group, seq, d).sum(dim=2)
+        x = x.reshape(b, hkv, group, seq, x.shape[-1]).sum(dim=2)
         return x.to(k.dtype).transpose(1, 2).contiguous()
 
     return (dq.to(q.dtype).transpose(1, 2).contiguous(), kv_grad(dk),
             kv_grad(dv))
 
 
-def _check_flash(q, k, *others):
+def _check_flash(q, k, v, *others):
     """What the causal kernels take: bf16 [B, S, H, D] (and f32 lse and
-    delta), head_dim in FLASH_HEAD_DIMS, S a multiple of the block, all
+    delta), (D, v's width) in FLASH_WIDTHS, S a multiple of the block, all
     on one device, contiguous and 16-byte aligned."""
     b, seq, hq, d = q.shape
-    hkv = k.shape[2]
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"the flash kernels are built for head_dim in "
-                         f"{FLASH_HEAD_DIMS}, got {d}")
-    if seq % _FLASH_BLOCK or hq % hkv or k.shape != (b, seq, hkv, d):
+    hkv, dv = k.shape[2], v.shape[-1]
+    if (d, dv) not in FLASH_WIDTHS:
+        raise ValueError(f"the flash kernels are built for (head_dim, v's "
+                         f"head_dim) in {FLASH_WIDTHS}, got ({d}, {dv})")
+    if (seq % _FLASH_BLOCK or hq % hkv or k.shape != (b, seq, hkv, d)
+            or v.shape != (b, seq, hkv, dv)):
         raise ValueError(f"unsupported flash shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    others = (v,) + others
     for t in (q, k) + others:
         if t.device != q.device:
             raise ValueError(f"flash_attention: all tensors must be on "
@@ -193,17 +211,29 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def _latent_window(window: Optional[int], d: int, dv: int):
+    """The window, refused at unequal widths: latent attention's kernels
+    are causal only."""
+    if window is not None and dv != d:
+        raise ValueError(f"no windowed flash kernel at QK width {d}, V "
+                         f"width {dv}")
+    return window
+
+
 def _flash_fwd_kernel(q, k, v, scale: float, window: Optional[int] = None):
     """``(o, lse)`` from ``csrc/flash_fwd.cu`` (its windowed instantiation
     when ``window`` masks anything)."""
     _check_flash(q, k, v)
     b, seq, hq, d = q.shape
-    window = _window(window, seq)
-    o = torch.empty_like(q)
+    dv = v.shape[-1]
+    window = _latent_window(_window(window, seq), d, dv)
+    o = q.new_empty((b, seq, hq, dv))
     lse = torch.empty((b, hq, seq), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", q, k, v, o, lse, b, seq, hq, k.shape[2], d,
+    _launch("flash_fwd", q, k, v, o, lse, b, seq, hq, k.shape[2], d, dv,
             window or 0, float(scale))
-    if window is None:
+    if dv != d:
+        flash_attention.mla_fwd_launches += 1
+    elif window is None:
         flash_attention.fwd_launches += 1
     else:
         flash_attention.window_fwd_launches += 1
@@ -221,14 +251,20 @@ def _flash_bwd_kernel(q, k, v, o, lse, do, scale: float,
     if lse.shape != (b, hq, seq) or lse.dtype != torch.float32:
         raise ValueError("lse must be f32 [B, Hq, S]")
     _check_flash(q, k, v, o, do, lse)
-    window = _window(window, seq)
+    d_v = v.shape[-1]
+    if o.shape != do.shape or o.shape != (b, seq, hq, d_v):
+        raise ValueError(f"o and do must be [B, S, Hq, {d_v}], got "
+                         f"{tuple(o.shape)} and {tuple(do.shape)}")
+    window = _latent_window(_window(window, seq), d, d_v)
     delta = torch.empty((b, hq, seq), dtype=torch.float32, device=q.device)
     dq_accum = torch.empty((b, seq, hq, d), dtype=torch.float32,
                            device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd", q, k, v, o, do, lse, delta, dq_accum, dq, dk, dv, b,
-            seq, hq, k.shape[2], d, window or 0, float(scale))
-    if window is None:
+            seq, hq, k.shape[2], d, d_v, window or 0, float(scale))
+    if d_v != d:
+        flash_attention.mla_bwd_launches += 1
+    elif window is None:
         flash_attention.bwd_launches += 1
     else:
         flash_attention.window_bwd_launches += 1
@@ -267,18 +303,21 @@ def flash_attention_plain(q, k, v, scale: Optional[float] = None,
 
 def flash_attention(q, k, v, scale: Optional[float] = None,
                     window: Optional[int] = None):
-    """Causal GQA attention, fused.  q: [B, S, Hq, D]; k, v: [B, S, Hkv, D].
+    """Causal GQA attention, fused.  q, k: [B, S, H, D]; v: [B, S, Hkv,
+    Dv].
 
     Differentiable: the backward recomputes the probabilities from the
-    saved logsumexp.  Returns [B, S, Hq, D] in q's dtype.  Callers check
-    :func:`supports` first.  CPU tensors take the plain versions; CUDA
+    saved logsumexp.  Returns [B, S, Hq, Dv] in q's dtype; the scale
+    defaults to D^-0.5.  Callers check :func:`supports` or
+    :func:`kernel_takes` first.  CPU tensors take the plain versions; CUDA
     tensors launch ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (bf16,
-    head_dim 64 or 128, contiguous) or raise.  ``window`` W: query i sees
-    the keys j with 0 <= i - j < W (None, or a W of at least S: causal,
-    the same launches).  ``flash_attention.fwd_launches`` and
-    ``.bwd_launches`` count the causal kernels' launches,
-    ``.window_fwd_launches`` and ``.window_bwd_launches`` the windowed
-    ones'.
+    (D, Dv) in :data:`FLASH_WIDTHS`, contiguous) or raise.  ``window`` W:
+    query i sees the keys j with 0 <= i - j < W (None, or a W of at least
+    S: causal, the same launches; at unequal widths it raises).
+    ``flash_attention.fwd_launches`` and ``.bwd_launches`` count the
+    causal kernels' launches, ``.window_fwd_launches`` and
+    ``.window_bwd_launches`` the windowed ones', ``.mla_fwd_launches`` and
+    ``.mla_bwd_launches`` those at unequal widths.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, window)
@@ -294,6 +333,8 @@ flash_attention.fwd_launches = 0
 flash_attention.bwd_launches = 0
 flash_attention.window_fwd_launches = 0
 flash_attention.window_bwd_launches = 0
+flash_attention.mla_fwd_launches = 0
+flash_attention.mla_bwd_launches = 0
 
 
 def flash_attention_sharded(mesh, q, k, v, *,
@@ -304,8 +345,14 @@ def flash_attention_sharded(mesh, q, k, v, *,
     over ``head_axis`` and the sequence whole (redistributed there if
     placed otherwise).  Each rank runs the same kernels (the plain
     versions on the CPU) on its local shard, so the kernels never see a
-    DTensor; the result is a DTensor placed as q."""
+    DTensor; the result is a DTensor placed as q.  v narrower than q (latent
+    attention) is not ported under a mesh and raises."""
     from dstack_tpu_torch.parallel.mesh import shard_call
+
+    if v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(
+            "latent attention (v narrower than q) under a device mesh is "
+            "not ported")
 
     return shard_call(flash_attention, mesh,
                       (tuple(batch_axes), None, head_axis, None), q, k, v)

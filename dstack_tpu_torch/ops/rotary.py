@@ -2,7 +2,8 @@
 
 The inverse frequencies are computed on the host in float64 and cast to
 float32 (so every caller gets bit-identical tables); the rotation uses the
-split-halves convention (rotate_half), matching Llama.
+split-halves convention (rotate_half), matching Llama, except
+:func:`rotate_pairs`, DeepSeek's interleaved pairs (``rope_interleave``).
 
 The training layers rotate through :func:`qk_prologue`: q and k's optional
 per-head RMSNorm and their rotation by a cos/sin table that
@@ -113,6 +114,20 @@ def qk_prologue(q: torch.Tensor, k: torch.Tensor,
         q, k = (rownorm.rotate_half(q, cos, sin),
                 rownorm.rotate_half(k, cos, sin))
     return q, k
+
+
+def rotate_pairs(x: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
+    """``x`` [B, S, H, n] rotated by the :func:`rope_table` ``rope`` in
+    DeepSeek's interleaved convention: dimensions (2i, 2i + 1) are pair i,
+    turned by pos * inv_freqs[i], and stay where they are.  Plain torch on
+    every device, in f32; the result in ``x``'s dtype.  (DeepSeek-V3's
+    modelling code permutes the pairs to split halves and rotates those;
+    the dot product of two vectors so rotated is the same.)"""
+    cos, sin = rownorm.table_cos_sin(rope)
+    pairs = x.float().unflatten(-1, (-1, 2))
+    x1, x2 = pairs[..., 0], pairs[..., 1]
+    return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                       dim=-1).flatten(-2).to(x.dtype)
 
 
 qk_prologue.launches = 0

@@ -26,8 +26,10 @@ from pathlib import Path
 
 from dstack_tpu_torch.tools.paged_decode_faults import build_fault
 
-#: a prefix that skips the dk/dv products under a condition
-_DKDV_IF = "if ({}) WgmmaRS<D, 1>::run({}_acc,"
+#: a prefix that skips the dk/dv products under a condition (dv's product
+#: is V-wide, dk's QK-wide)
+_DKDV_IF = "if ({}) WgmmaRS<{}, 1>::run({}_acc,"
+_DKDV = (("dv", "DV"), ("dk", "D"))
 #: fault -> (source, what it breaks, [(text of the sound source, replacement)])
 FAULTS = {
     "fwd_no_rescale": (
@@ -48,16 +50,16 @@ FAULTS = {
         [("const int hk = h / (hq / hkv);", "const int hk = h % hkv;")]),
     "dkdv_skip_last_qblock": (
         "flash_bwd", "dk/dv leave out the last query tile",
-        [(f"WgmmaRS<D, 1>::run({acc}_acc,",
-          _DKDV_IF.format("it < nq - 1", acc)) for acc in ("dv", "dk")]),
+        [(f"WgmmaRS<{w}, 1>::run({acc}_acc,",
+          _DKDV_IF.format("it < nq - 1", w, acc)) for acc, w in _DKDV]),
     "dkdv_skip_diagonal": (
         "flash_bwd", "dk/dv start at the query tile after the diagonal",
-        [(f"WgmmaRS<D, 1>::run({acc}_acc,",
-          _DKDV_IF.format("it > first", acc)) for acc in ("dv", "dk")]),
+        [(f"WgmmaRS<{w}, 1>::run({acc}_acc,",
+          _DKDV_IF.format("it > first", w, acc)) for acc, w in _DKDV]),
     "dkdv_drop_group_head": (
         "flash_bwd", "dk/dv sum all but the last query head of each group",
-        [(f"WgmmaRS<D, 1>::run({acc}_acc,",
-          _DKDV_IF.format("g < group - 1", acc)) for acc in ("dv", "dk")]),
+        [(f"WgmmaRS<{w}, 1>::run({acc}_acc,",
+          _DKDV_IF.format("g < group - 1", w, acc)) for acc, w in _DKDV]),
     "bwd_mask_off_by_one": (
         "flash_bwd", "the backward's diagonal tiles let each query see the "
         "next key (dq, dk and dv)",
